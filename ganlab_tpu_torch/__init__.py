@@ -1,0 +1,32 @@
+"""ganlab_tpu_torch — the PyTorch / CUDA port of ``ganlab_tpu`` for Hopper.
+
+The JAX package ``ganlab_tpu`` stays the reference; this package re-homes
+its paths in PyTorch, one slice at a time, with every TPU (Pallas) kernel
+on a ported path rewritten by hand for the H100 (Triton or CUDA C++ under
+``ops/kernels`` and ``csrc``). It imports ``torch`` and numpy, never
+``jax``/``flax`` and nothing of ``ganlab_tpu``.
+
+Ported so far: StyleGAN G-EMA serving (``BatchSampler``). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each
+kernel wrapper computes its plain PyTorch version, on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+__version__ = "0.1.0"
+
+_API = {
+    "Config": "ganlab_tpu_torch.config",
+    "get_config": "ganlab_tpu_torch.config",
+    "build_generator": "ganlab_tpu_torch.models",
+    "BatchSampler": "ganlab_tpu_torch.serve",
+    "from_flax": "ganlab_tpu_torch.convert",
+}
+
+
+def __getattr__(name):
+    """Lazy top-level API (PEP 562): no torch import at package import."""
+    if name in _API:
+        import importlib
+
+        return getattr(importlib.import_module(_API[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

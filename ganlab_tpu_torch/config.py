@@ -1,0 +1,599 @@
+"""Typed configuration system with named presets (PyTorch port's copy).
+
+A stdlib-only copy of ``ganlab_tpu/config.py``: the port imports nothing of
+the JAX package, so it keeps its own. Field names, defaults and presets are
+identical (``tests/test_torch_config.py`` holds every preset's
+``dataclasses.asdict`` equal between the two packages); some knobs
+(``fold_width``, ``fused_up_conv``, ``remat``, ``use_pallas``) only mean
+something to the JAX package and the port rejects or ignores them.
+
+A config fully determines dataset, resolution schedule, loss, penalty,
+optimizer, EMA, and sampling behavior.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field
+from typing import Any
+
+
+def _coerce_int_keys(d: dict, what: str) -> dict:
+    """Coerce digit-string keys (JSON objects force string keys) to int.
+
+    Without this, a JSON config's ``schedule.batch_schedule`` /
+    ``optim.lr_mult_by_res`` would carry ``{"256": 8}`` and every lookup
+    would silently miss, falling back to defaults."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(k, str):
+            if not k.isdigit():
+                raise ValueError(
+                    f"{what} keys must be int resolutions, got {k!r}")
+            k = int(k)
+        out[k] = v
+    return out
+
+
+def res_to_log2(res: int) -> int:
+    lg = int(math.log2(res))
+    if 2 ** lg != res or res < 4:
+        raise ValueError(f"resolution must be a power of two >= 4, got {res}")
+    return lg
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters shared by the G/D pairs."""
+
+    model: str = "stylegan"            # 'resnetgan' | 'progan' | 'stylegan'
+    resolution: int = 256              # final output resolution
+    img_channels: int = 3
+    latent_dim: int = 512              # z dim (reference default 512)
+    fmap_base: int = 8192              # channel-count scale (ProGAN table 2)
+    fmap_max: int = 512
+    fmap_min: int = 1
+    # StyleGAN-only:
+    mapping_layers: int = 8
+    mapping_lr_mult: float = 0.01
+    style_mixing_prob: float = 0.9
+    truncation_psi: float = 0.7
+    truncation_cutoff: int = 8         # apply truncation to layers < cutoff
+    w_avg_beta: float = 0.995
+    # D-only:
+    mbstd_group_size: int | None = None  # None = whole per-device batch
+    # Residual discriminator blocks (StyleGAN2's resnet D): skip = 1x1
+    # conv + blur-down, sum scaled 1/sqrt(2). Extension beyond the
+    # reference; used by the 'stylegan2' model family.
+    d_resnet: bool = False
+    # ResNet-GAN only:
+    base_channels: int = 128
+    # Rematerialize resolution blocks in backward (memory for FLOPs trade).
+    # JAX-package knob; the port's serving slice rejects it.
+    remat: bool = False
+    # Fuse each G block's 2x upsample (+FIR blur) into its first conv as one
+    # composed convolution (JAX package only; the port rejects it).
+    fused_up_conv: bool | str = False
+
+    # Evaluate low-channel high-res blocks width-folded to fill the TPU's
+    # 128-lane tiles (JAX package only; the port rejects it).
+    fold_width: bool = False
+    # Fold blocks whose feature count is <= this (128 lanes / FOLD=2).
+    fold_max_channels: int = 64
+
+    def nf(self, stage: int) -> int:
+        """Feature-map count at resolution 2**stage (ProGAN channel rule)."""
+        return int(min(max(self.fmap_base // (2 ** stage), self.fmap_min),
+                       self.fmap_max))
+
+    def fold_block(self, res_log2: int) -> bool:
+        """Width-fold the block at this resolution? (See fold_width.)"""
+        return bool(self.fold_width
+                    and self.nf(res_log2 - 1) <= self.fold_max_channels)
+
+    @property
+    def res_log2(self) -> int:
+        return res_to_log2(self.resolution)
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    loss: str = "nonsaturating"        # 'wgan'|'wgan-gp'|'nonsaturating'|'minimax'
+    penalty: str = "r1"                # 'wgan-gp' | 'r1' | 'none'
+    penalty_weight: float = 10.0       # lambda (wgan-gp) or gamma (r1)
+    drift_weight: float = 1e-3         # ProGAN eps_drift; 0 disables
+    penalty_every: int = 1             # lazy regularization interval (steps)
+    d_steps_per_g: int = 1             # n-critic: D updates per G update
+    # Fused simultaneous G/D updates (FusedProp-style): one backward pass
+    # computes both gradients, sharing the fake batch's G forward and (via
+    # CSE) its D forward; G sees the PRE-update D — the official TF
+    # StyleGAN's simultaneous-update semantics, vs the reference's
+    # sequential D-then-G. Requires d_steps_per_g == 1.
+    fused_g_step: bool = False
+    # Shared-batch sequential step: the G update reuses the D step's
+    # latent batch, so XLA CSEs the fake batch's G forward between the
+    # two phases (most of fused_g_step's saving) while G still trains
+    # against the POST-update D — the sequential semantics whose
+    # violation is what the round-3 A/B measured as FID-destabilizing.
+    # The same-minibatch alternating update is the standard DCGAN-recipe
+    # pattern (G step scores the D step's fake batch under the new D).
+    # Mutually exclusive with fused_g_step.
+    fused_seq: bool = False
+    # Path-length regularization on G (StyleGAN2 sec. 3.2 / app. B — an
+    # extension beyond the reference; style families only). 0 disables.
+    # Official weight is 2.0, applied every pl_every steps with the lazy
+    # weight scaling; pl_decay is the running-mean EMA rate and
+    # pl_batch_shrink the fresh-latent batch divisor.
+    pl_weight: float = 0.0
+    pl_every: int = 4
+    pl_decay: float = 0.01
+    pl_batch_shrink: int = 2
+    # Two-phase regularization step (the official StyleGAN2-ADA trainer's
+    # Dmain/Dreg structure): on a penalty tick the D takes TWO optimizer
+    # updates — the main adversarial loss first, then a SEPARATE
+    # penalty-only gradient step evaluated at the post-main weights —
+    # instead of one update on the summed objective. With Adam the two
+    # differ: summing lets a k-scaled penalty impulse dominate the shared
+    # moment estimates and the step direction; separating bounds each
+    # phase's update independently (r4 Finding 7 context: lazy-R1
+    # trajectory spikes at short budgets). Default False = summed (the
+    # r1-r3 behavior). Requires the sequential step (not fused_g_step).
+    reg_separate: bool = False
+
+    def __post_init__(self):
+        if self.fused_g_step and self.fused_seq:
+            raise ValueError(
+                "loss.fused_g_step and loss.fused_seq are mutually "
+                "exclusive (pre-update-D fused vs shared-batch sequential)")
+        if self.reg_separate and self.fused_g_step:
+            raise ValueError(
+                "loss.reg_separate needs the sequential step (the fused "
+                "one-backward update cannot split the penalty phase)")
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    lr_g: float = 1e-3
+    lr_d: float = 1e-3
+    beta1: float = 0.0
+    beta2: float = 0.99
+    eps: float = 1e-8
+    ema_beta: float = 0.999            # generator EMA decay
+    # Per-resolution learning-rate multipliers (ProGAN-style per-phase lr
+    # tweaks, e.g. {512: 1.5, 1024: 2.0}); applied to both G and D during
+    # phases at that output resolution. Adam state is lr-independent, so
+    # the multiplier changes nothing about checkpoint compatibility.
+    lr_mult_by_res: dict[int, float] = field(default_factory=dict)
+    # Generator EMA half-life in thousands of images. When set (> 0) it
+    # overrides ema_beta with beta = 0.5 ** (global_batch / (ema_kimg*1000))
+    # per step, making the EMA horizon invariant to batch size and device
+    # count (the official implementations specify EMA in kimg; a per-step
+    # beta shrinks the horizon x N_devices under DP). None keeps ema_beta.
+    ema_kimg: float | None = None
+    # EMA horizon warmup (StyleGAN2-ADA's ema_rampup, typically 0.05):
+    # the effective horizon is min(ema_kimg kimg, shown_imgs * ema_rampup),
+    # so early in training the EMA tracks the live G closely instead of
+    # being anchored to the random init — directly improves short runs'
+    # FID (the EMA generator is what gets judged). Requires ema_kimg;
+    # None disables (the horizon is constant from step 0). The beta
+    # becomes a TRACED function of shown_imgs — same compiled program
+    # across the whole run. Guidance: set 0.05 (official) for short runs
+    # and demos (any run whose budget is < ~20x the ema_kimg horizon —
+    # the A/B harness does); long judged runs are indifferent once
+    # shown*rampup exceeds the horizon, so the presets leave it None.
+    ema_rampup: float | None = None
+    # Official lazy-regularization Adam compensation (StyleGAN2
+    # training_loop.py): a network whose regularizer fires every k-th
+    # step trains with lr*k/(k+1) and beta**(k/(k+1)) so its effective
+    # per-image statistics match the every-step recipe. Applied to D via
+    # loss.penalty_every and to G via loss.pl_every (train/state.py::
+    # make_optimizers). False = raw hyperparameters (for A/Bs).
+    lazy_adjust: bool = True
+    # Gradient accumulation: microbatches per optimizer step. The batch
+    # schedule stays the per-device MICRObatch; each step consumes
+    # grad_accum of them sequentially (a lax.scan whose carry is the
+    # gradient sum, so activation memory stays ~1 microbatch) and the
+    # semantics are exactly sequential DP: per-microbatch mbstd/latents/
+    # penalties, averaged grads/metrics/w-avg, microbatch index folded
+    # into the sampling keys where DP folds axis_index. grad_accum=A on
+    # one device reproduces a DP run over A devices (tested); under DP
+    # the global batch per step is micro x A x n_devices. Requires a
+    # sequential recipe (fused_seq ok, fused_g_step not).
+    grad_accum: int = 1
+    # Reinitialize Adam moments at progressive phase boundaries (the
+    # reference rebuilds/extends optimizers on growth, SURVEY.md:207).
+    # Default False: stale moments on so-far-unused params are zero and the
+    # used ones decay quickly, but the switch enables a reference-semantics
+    # FID A/B.
+    reset_moments_on_phase: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "lr_mult_by_res",
+                           _coerce_int_keys(self.lr_mult_by_res,
+                                            "optim.lr_mult_by_res"))
+        if self.ema_rampup is not None and not (self.ema_kimg
+                                                and self.ema_kimg > 0):
+            raise ValueError("optim.ema_rampup requires optim.ema_kimg")
+        if self.grad_accum < 1:
+            raise ValueError("optim.grad_accum must be >= 1")
+
+    def ema_beta_for(self, global_batch: int) -> float:
+        """Per-step EMA decay for a given global batch (see ema_kimg)."""
+        if self.ema_kimg and self.ema_kimg > 0:
+            return 0.5 ** (global_batch / (self.ema_kimg * 1000.0))
+        return self.ema_beta
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """Progressive-growing schedule (ProGAN sec. 3; SURVEY.md 3.3).
+
+    Resolutions run 2**start_res_log2 .. 2**res_log2. Each transition has a
+    fade phase (alpha 0->1 over ``fade_kimg`` thousand images) followed by a
+    stabilize phase (``stabilize_kimg``). ``batch_schedule`` maps resolution
+    to per-*device* batch size.
+    """
+
+    progressive: bool = True
+    start_res: int = 4
+    fade_kimg: float = 600.0
+    stabilize_kimg: float = 600.0
+    total_kimg: float = 12000.0        # cap on total training length
+    batch_schedule: dict[int, int] = field(default_factory=lambda: {
+        4: 16, 8: 16, 16: 16, 32: 16, 64: 16, 128: 8, 256: 8, 512: 4, 1024: 4,
+    })
+    batch_default: int = 16
+
+    def __post_init__(self):
+        object.__setattr__(self, "batch_schedule",
+                           _coerce_int_keys(self.batch_schedule,
+                                            "schedule.batch_schedule"))
+
+    def batch_for(self, res: int) -> int:
+        return self.batch_schedule.get(res, self.batch_default)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "synthetic"         # 'synthetic'|'ellipses'|'cifar10'|'image_folder'|'image_folder_stream'|'npy'
+    data_dir: str | None = None
+    # Pool size for the procedural sources (None = source default:
+    # synthetic 256, ellipses 2**30 i.e. effectively infinite). Small
+    # pools reproduce the small-dataset D-overfitting regime on purpose.
+    num_images: int | None = None
+    hflip: bool = True
+    num_workers: int = 8
+    prefetch: int = 2
+    shuffle_buffer: int = 4096
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    seed: int = 0
+    total_steps: int | None = None     # overrides schedule length if set
+    log_every: int = 100
+    sample_every: int = 1000
+    checkpoint_every: int = 2000
+    checkpoint_dir: str = "checkpoints"
+    sample_dir: str = "samples"
+    keep_checkpoints: int = 3
+    num_sample_images: int = 16
+    profile: bool = False              # jax.profiler trace around a few steps
+    # Scan-chunked stepping (JAX package): compile the lazy-regularization
+    # off-run as one program, so each penalty_every-cycle costs 2 host
+    # dispatches instead of k.
+    chunk_steps: bool = True
+    compute_dtype: str = "bfloat16"    # conv/matmul activation dtype
+    data_axis: str = "data"            # mesh axis name for DP
+    use_pallas: bool = False           # hand-written kernels for the hot ops
+    tensorboard: bool = False          # tf.summary scalars next to JSONL
+    # In-training eval cadence (the official trainers log FID every N kimg
+    # into the training record): every eval_kimg kimg of shown images the
+    # G-EMA is scored (FID + KID, eval_samples fakes at the CURRENT phase
+    # resolution and fade-in alpha, untruncated) against cached real
+    # features drawn from the run's data source, and the scores land in
+    # train.jsonl / TensorBoard. Extractor: 'auto' = pretrained Inception
+    # when $GANLAB_INCEPTION_WEIGHTS is set, else the fast random-conv
+    # extractor (relative trends only — documented in eval/fid.py).
+    eval_kimg: float | None = None
+    eval_samples: int = 2048
+    eval_extractor: str = "auto"       # 'auto'|'randconv'|'inception'
+
+    def __post_init__(self):
+        if self.eval_extractor not in ("auto", "randconv", "inception"):
+            raise ValueError(f"run.eval_extractor {self.eval_extractor!r} "
+                             "not in auto/randconv/inception")
+        if self.eval_kimg is not None and self.eval_kimg <= 0:
+            raise ValueError("run.eval_kimg must be positive (or None)")
+
+
+@dataclass(frozen=True)
+class AugConfig:
+    """Discriminator augmentation (ADA — StyleGAN2-ADA; ops/augment.py).
+
+    ``mode``: 'off' (default), 'fixed' (constant strength ``p_init``), or
+    'ada' (adaptive: p tracks the overfitting heuristic r_t =
+    E[sign(D(real))] toward ``target``, moving by ±global_batch /
+    (kimg*1000) per step, clipped to [0, p_max]). Every image the
+    discriminator sees (reals and fakes, in the D and G losses and the
+    R1/GP penalty) is augmented at strength p; the sampling/eval path is
+    never augmented.
+    """
+    mode: str = "off"                  # 'off'|'fixed'|'ada'
+    p_init: float = 0.0
+    p_max: float = 0.8
+    target: float = 0.6                # official ADA target for r_t
+    kimg: float = 500.0                # adaptation speed (official 500)
+    categories: str = "bc"             # subset of 'bcgfnu' (augment.py)
+
+    def __post_init__(self):
+        if self.mode not in ("off", "fixed", "ada"):
+            raise ValueError(f"aug.mode {self.mode!r} not in off/fixed/ada")
+        if self.mode == "fixed" and not 0.0 < self.p_init <= 1.0:
+            raise ValueError("aug.mode='fixed' needs 0 < aug.p_init <= 1")
+        if (not set(self.categories) <= set("bcgfnu")
+                or not self.categories):
+            raise ValueError(f"aug.categories {self.categories!r}: use a "
+                             "non-empty subset of 'bcgfnu' (blit/color/"
+                             "geom/filter/noise/cutout)")
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+    aug: AugConfig = field(default_factory=AugConfig)
+
+    def __post_init__(self):
+        # Cross-section recipe exclusivity (the within-section ones live
+        # in each section's __post_init__): the accumulation scan folds
+        # the penalty into the main gradient sum, which contradicts
+        # reg_separate's two-phase Dmain/Dreg split. Reject at config
+        # construction — not at build_train_step compile time — so a
+        # bad combination fails when the user writes it (VERDICT r4).
+        if self.loss.reg_separate and self.optim.grad_accum > 1 \
+                and self.loss.penalty in ("wgan-gp", "r1"):
+            raise ValueError(
+                "loss.reg_separate with optim.grad_accum > 1 is not "
+                "supported (the accumulation scan folds the penalty "
+                "into the main gradient sum)")
+
+    @property
+    def pl_active(self) -> bool:
+        """Path-length regularization configured? (The single source of
+        truth — drives the optional TrainState.pl_mean leaf, the extra
+        PRNG key, the pl metrics, and the lazy/chunked PL cadence.)"""
+        return self.loss.pl_weight > 0 and \
+            self.model.model in ("stylegan", "stylegan2")
+
+    @property
+    def pl_chunkable(self) -> bool:
+        """Lazy PL cadence nests inside the D cadence? (Required for the
+        scan-chunked stepper; Trainer falls back to per-step dispatch
+        otherwise.)"""
+        return (not self.pl_active or self.loss.pl_every <= 1
+                or self.loss.penalty_every % self.loss.pl_every == 0)
+
+    @property
+    def aug_active(self) -> bool:
+        """Discriminator augmentation applied at all? (aug.mode != off)"""
+        return self.aug.mode != "off"
+
+    @property
+    def ada_active(self) -> bool:
+        """ADAPTIVE augmentation? Single source of truth for the optional
+        TrainState.ada_p leaf, its extra metrics, and the in-graph p
+        update (mirrors the pl_active / pl_mean pattern)."""
+        return self.aug.mode == "ada"
+
+    def replace(self, **sections: Any) -> "Config":
+        return dataclasses.replace(self, **sections)
+
+
+def _preset_resnetgan_cifar10() -> Config:
+    """BASELINE.json config 1: ResNet GAN, CIFAR-10 32x32, WGAN-GP."""
+    return Config(
+        model=ModelConfig(model="resnetgan", resolution=32, latent_dim=128,
+                          base_channels=128),
+        loss=LossConfig(loss="wgan-gp", penalty="wgan-gp",
+                        penalty_weight=10.0, drift_weight=0.0),
+        optim=OptimConfig(lr_g=2e-4, lr_d=2e-4, beta1=0.0, beta2=0.9,
+                          ema_beta=0.999),
+        schedule=ScheduleConfig(progressive=False, start_res=32,
+                                batch_schedule={32: 64}),
+        data=DataConfig(dataset="cifar10"),
+    )
+
+
+def _preset_progan64() -> Config:
+    """BASELINE.json config 2: ProGAN 64x64 fixed-res, R1 + G-EMA."""
+    return Config(
+        model=ModelConfig(model="progan", resolution=64),
+        loss=LossConfig(loss="nonsaturating", penalty="r1",
+                        penalty_weight=10.0, drift_weight=0.0),
+        schedule=ScheduleConfig(progressive=False, start_res=64),
+    )
+
+
+def _preset_progan128() -> Config:
+    """BASELINE.json config 3: ProGAN 128x128 full progressive schedule."""
+    return Config(
+        model=ModelConfig(model="progan", resolution=128),
+        loss=LossConfig(loss="wgan-gp", penalty="wgan-gp",
+                        penalty_weight=10.0, drift_weight=1e-3),
+        schedule=ScheduleConfig(progressive=True, start_res=4),
+    )
+
+
+def _preset_stylegan256() -> Config:
+    """BASELINE.json config 4: StyleGAN 256^2 CelebA-HQ (the judged bench).
+
+    The recommended recipe (set loss.penalty_every=1 for strict
+    reference parity):
+    * lazy R1 every 16 steps, weight x16, with the official k/(k+1)
+      Adam compensation (StyleGAN2 sec. 5.1; optim.lazy_adjust);
+    * fused_g_step and fused_seq are OFF: both destabilized FID in the
+      JAX package's A/B runs, so the default recipe is the official
+      sequential lazy-16.
+    """
+    return Config(
+        model=ModelConfig(model="stylegan", resolution=256),
+        loss=LossConfig(loss="nonsaturating", penalty="r1",
+                        penalty_weight=10.0, drift_weight=0.0,
+                        penalty_every=16, fused_g_step=False,
+                        fused_seq=False),
+        # G-EMA horizon in kimg (official half-life 10k imgs): the judged
+        # FID is computed from the EMA generator, and a per-step ema_beta
+        # would shrink the horizon x N_devices under DP (VERDICT r2 #4).
+        optim=OptimConfig(ema_kimg=10.0),
+        schedule=ScheduleConfig(progressive=True, start_res=8),
+    )
+
+
+def _preset_stylegan2_256() -> Config:
+    """EXTENSION beyond the reference: StyleGAN2-style 256^2 training.
+
+    Weight demodulation instead of AdaIN, skip-architecture G, residual
+    D, fixed-resolution schedule (no growing), R1 + lazy regularization —
+    on the same trainer/eval stack as the judged configs.
+    """
+    return Config(
+        model=ModelConfig(model="stylegan2", resolution=256, d_resnet=True),
+        loss=LossConfig(loss="nonsaturating", penalty="r1",
+                        penalty_weight=10.0, drift_weight=0.0,
+                        # sequential lazy-16; the fused recipes stay opt-in
+                        penalty_every=16, fused_g_step=False,
+                        fused_seq=False, pl_weight=2.0, pl_every=4),
+        optim=OptimConfig(ema_kimg=10.0),  # device-count-invariant G-EMA
+        schedule=ScheduleConfig(progressive=False),
+    )
+
+
+def _preset_stylegan1024() -> Config:
+    """BASELINE.json config 5: StyleGAN 1024^2 FFHQ, pod-slice DP."""
+    return Config(
+        # fused_g_step stays OFF here: at 1024^2 the fused one-backward holds
+        # both G and D activation sets live at once.
+        model=ModelConfig(model="stylegan", resolution=1024, remat=True),
+        loss=LossConfig(loss="nonsaturating", penalty="r1",
+                        penalty_weight=10.0, drift_weight=0.0,
+                        penalty_every=16, fused_g_step=False),
+        # The pod-slice preset is exactly where a per-step ema_beta would
+        # shrink the G-EMA horizon x N_devices; kimg keeps it invariant.
+        optim=OptimConfig(ema_kimg=10.0),
+        schedule=ScheduleConfig(progressive=True, start_res=8,
+                                total_kimg=25000.0),
+        # Single-step dispatch for this preset (JAX package knob).
+        run=RunConfig(chunk_steps=False),
+    )
+
+
+PRESETS = {
+    "resnetgan-cifar10": _preset_resnetgan_cifar10,
+    "progan-64": _preset_progan64,
+    "progan-128": _preset_progan128,
+    "stylegan-256": _preset_stylegan256,
+    "stylegan-1024": _preset_stylegan1024,
+    "stylegan2-256": _preset_stylegan2_256,  # extension beyond the reference
+}
+
+
+def get_config(preset: str = "stylegan-256", **overrides: Any) -> Config:
+    """Build a config from a named preset, with dotted-key overrides.
+
+    Overrides use section-dotted names, e.g.
+    ``get_config('stylegan-256', **{'optim.lr_g': 2e-3, 'run.seed': 1})``.
+    """
+    if preset not in PRESETS:
+        raise KeyError(f"unknown preset {preset!r}; have {sorted(PRESETS)}")
+    return apply_overrides(PRESETS[preset](), overrides)
+
+
+def apply_overrides(cfg: Config, overrides: dict[str, Any]) -> Config:
+    """Apply 'section.field' -> value overrides to a Config.
+
+    ``loss.fused_g_step`` and ``loss.fused_seq`` are alternatives on the
+    same axis (how the G step relates to the D step), so explicitly
+    opting INTO one clears the other unless it too was set explicitly —
+    ``--set loss.fused_g_step=true`` on a preset that defaults
+    ``fused_seq=True`` means "use the fused step", not a conflict.
+    """
+    if not overrides:
+        return cfg
+    overrides = dict(overrides)
+    for a, b in (("loss.fused_g_step", "loss.fused_seq"),
+                 ("loss.fused_seq", "loss.fused_g_step")):
+        if overrides.get(a) and b not in overrides:
+            overrides[b] = False
+    sections: dict[str, dict[str, Any]] = {}
+    for key, value in overrides.items():
+        if "." not in key:
+            raise KeyError(f"override {key!r} must be 'section.field'")
+        sec, fld = key.split(".", 1)
+        sections.setdefault(sec, {})[fld] = value
+    updates = {}
+    for sec, fields in sections.items():
+        current = getattr(cfg, sec)
+        updates[sec] = dataclasses.replace(current, **fields)
+    return cfg.replace(**updates)
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write the FULL config as nested JSON.
+
+    ``load_config`` round-trips it exactly (int-keyed schedule dicts
+    included, via the digit-key coercion). Every field is explicit, so a
+    saved run's semantics can't drift when a preset default changes in a
+    later version — the CLI's workdir-config fallback depends on this.
+    """
+    import json
+    import os
+
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+
+
+def load_config(path: str, preset: str | None = None) -> Config:
+    """Config from a YAML/JSON file of either nested sections or dotted keys.
+
+    The file may name its base preset via a top-level ``preset:`` key (the
+    explicit ``preset`` argument wins). Example:
+
+        preset: stylegan-256
+        optim:
+          lr_g: 2.0e-3
+        schedule.total_kimg: 15000
+    """
+    import json
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        raw = json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+
+        raw = yaml.safe_load(text)
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path} must contain a mapping")
+    base = preset or raw.pop("preset", "stylegan-256")
+    if preset is not None:
+        raw.pop("preset", None)
+    flat: dict[str, Any] = {}
+    for key, value in raw.items():
+        if isinstance(value, dict) and "." not in key:
+            for fld, v in value.items():
+                flat[f"{key}.{fld}"] = v
+        else:
+            flat[key] = value
+    return get_config(base, **flat)

@@ -1,0 +1,106 @@
+"""Equalized-LR building-block layers (torch.nn), NCHW / OIHW.
+
+Port of ``ganlab_tpu/models/layers.py`` with the same parameter names and
+init rules, so a flax parameter tree converts one to one
+(``ganlab_tpu_torch.convert``):
+
+* weights N(0, 1/lr_mult), rescaled at call time (equalized LR);
+* biases 0, except the AdaIN scale head's, which starts at 1;
+* noise scales 0; the learned constant input 1.
+
+Parameters stay float32 and are cast to the activation dtype at use.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ganlab_tpu_torch.ops import equalized as eq
+
+
+def _scaled_normal(shape, lr_mult: float) -> nn.Parameter:
+    return nn.Parameter(torch.randn(shape) / lr_mult)
+
+
+class EqualDense(nn.Module):
+    """Equalized-LR fully connected layer; ``w`` is (in, out)."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 gain: float = math.sqrt(2.0), lr_mult: float = 1.0,
+                 use_bias: bool = True, bias_init: float = 0.0):
+        super().__init__()
+        self.gain, self.lr_mult = gain, lr_mult
+        self.w = _scaled_normal((in_features, features), lr_mult)
+        self.b = nn.Parameter(torch.full((features,), float(bias_init))) \
+            if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return eq.equalized_dense(
+            x, self.w.to(x.dtype),
+            None if self.b is None else self.b.to(x.dtype),
+            gain=self.gain, lr_mult=self.lr_mult)
+
+
+class EqualConv(nn.Module):
+    """Equalized-LR stride-1 SAME conv; ``w`` is (out, in, k, k)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, *,
+                 gain: float = math.sqrt(2.0), lr_mult: float = 1.0,
+                 use_bias: bool = True):
+        super().__init__()
+        self.gain, self.lr_mult = gain, lr_mult
+        self.w = _scaled_normal((features, in_ch, kernel, kernel), lr_mult)
+        self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return eq.equalized_conv2d(
+            x, self.w.to(x.dtype),
+            None if self.b is None else self.b.to(x.dtype),
+            gain=self.gain, lr_mult=self.lr_mult)
+
+
+class NoiseInjection(nn.Module):
+    """StyleGAN per-layer noise: x + scale_c * noise (scale starts at 0).
+
+    The noise image is single-channel (N, 1, H, W), broadcast over
+    channels: either given explicitly or drawn from ``generator``.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, noise: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if noise is None:
+            n, _, h, w = x.shape
+            noise = torch.randn((n, 1, h, w), generator=generator,
+                                device=x.device, dtype=x.dtype)
+        return x + self.scale.to(x.dtype)[None, :, None, None] \
+            * noise.to(x.dtype)
+
+
+class StyleAffine(nn.Module):
+    """The learned affine "A": w -> (y_scale, y_bias) for AdaIN."""
+
+    def __init__(self, w_dim: int, channels: int):
+        super().__init__()
+        self.scale = EqualDense(w_dim, channels, gain=1.0, bias_init=1.0)
+        self.bias = EqualDense(w_dim, channels, gain=1.0)
+
+    def forward(self, w: torch.Tensor):
+        return self.scale(w), self.bias(w)
+
+
+class ConstInput(nn.Module):
+    """StyleGAN's learned constant input, (1, C, size, size)."""
+
+    def __init__(self, channels: int, size: int = 4):
+        super().__init__()
+        self.const = nn.Parameter(torch.ones(1, channels, size, size))
+
+    def forward(self, batch: int, dtype: torch.dtype) -> torch.Tensor:
+        return self.const.to(dtype).expand(batch, -1, -1, -1)

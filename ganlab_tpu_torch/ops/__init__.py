@@ -1,0 +1,14 @@
+"""Ops of the PyTorch port (NCHW activations, OIHW conv weights)."""
+
+from ganlab_tpu_torch.ops.equalized import (
+    equalized_conv2d,
+    equalized_dense,
+    he_constant,
+    leaky_relu,
+)
+from ganlab_tpu_torch.ops.normalization import adain, instance_norm, pixel_norm
+from ganlab_tpu_torch.ops.upfirdn import (
+    fade_in,
+    upsample_blur_2x,
+    upsample_nearest_2x,
+)

@@ -1,0 +1,58 @@
+"""Equalized learning rate ops (ProGAN sec. 4.1), NCHW / OIHW.
+
+Port of ``ganlab_tpu/ops/equalized.py``. Weights are stored
+N(0, 1/lr_mult)-initialized; the effective weight is
+``w * he_constant(fan_in, gain) * lr_mult`` and the bias is scaled by
+``lr_mult`` too (StyleGAN's mapping net runs at lr_mult 0.01). The scale
+is applied to the weight, in the weight's dtype, as the JAX op does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def he_constant(fan_in: int, gain: float = math.sqrt(2.0)) -> float:
+    """Runtime weight scale c = gain / sqrt(fan_in) (He init constant)."""
+    return gain / math.sqrt(float(fan_in))
+
+
+def equalized_dense(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor | None = None, *,
+                    gain: float = math.sqrt(2.0),
+                    lr_mult: float = 1.0) -> torch.Tensor:
+    """y = x @ (w * c * lr_mult) + b * lr_mult; ``w`` is (in, out)."""
+    scale = he_constant(w.shape[0], gain) * lr_mult
+    y = x @ (w * scale)
+    if b is not None:
+        y = y + (b * lr_mult).to(y.dtype)
+    return y
+
+
+def equalized_conv2d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None, *,
+                     padding: str | int = "SAME",
+                     gain: float = math.sqrt(2.0),
+                     lr_mult: float = 1.0) -> torch.Tensor:
+    """Equalized-LR stride-1 2D convolution; x NCHW, w OIHW (odd k).
+
+    fan_in = in_ch * kh * kw; ``"SAME"`` pads k // 2 on each side.
+    """
+    out_ch, in_ch, kh, kw = w.shape
+    if padding == "SAME":
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError(f"SAME padding needs an odd kernel, got {kh}x{kw}")
+        padding = (kh // 2, kw // 2)
+    scale = he_constant(kh * kw * in_ch, gain) * lr_mult
+    y = F.conv2d(x, (w * scale).to(x.dtype), padding=padding)
+    if b is not None:
+        y = y + (b * lr_mult).to(y.dtype)[None, :, None, None]
+    return y
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """LeakyReLU(0.2), the activation used throughout ProGAN/StyleGAN."""
+    return F.leaky_relu(x, slope)

@@ -1,0 +1,40 @@
+"""Kernels written by hand for Hopper, each beside its plain PyTorch version.
+
+=============  ==============================  ======================
+kernel         replaces (TPU, Pallas)          route / source
+=============  ==============================  ======================
+pixelnorm      ops/pallas/pixelnorm.py          Triton, ``pixelnorm.py``
+adain          ops/pallas/adain.py              Triton, ``adain.py``
+upsample_blur  ops/pallas/resample.py (up)      CUDA C++, ``csrc/resample.cu``
+=============  ==============================  ======================
+
+Every launching wrapper takes CUDA tensors only: it checks device, dtype,
+shape and contiguity, raises on anything else, allocates its output with
+``torch.empty``, launches on the current stream and adds one to its
+``launches`` attribute. There is no fallback: the dispatching ops in
+``ganlab_tpu_torch.ops`` send a CPU tensor to the plain version and every
+other tensor to the kernel. The kernels are forward-only for now; a
+wrapper raises if autograd would need to differentiate through it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int) -> None:
+    """Raise unless ``x`` is what the kernel ``op`` takes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: the kernel takes CUDA tensors, got a tensor "
+                         f"on {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{op}: dtype {x.dtype} not in {tuple(dtypes)}")
+    if x.dim() != ndim:
+        raise ValueError(f"{op}: expected a {ndim}-d tensor, got shape "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{op}: the kernel takes contiguous tensors")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{op}: the kernel is forward-only; run it under "
+            "torch.no_grad() / torch.inference_mode()")

@@ -1,0 +1,34 @@
+"""The G-EMA sampling function (port of ``train/steps.py::build_sample_fn``).
+
+``build_sample_fn(cfg, res_log2)`` returns ``sample(g, w_avg, z, generator,
+psi, alpha, noises=None)``: cast z to ``cfg.run.compute_dtype``, map it to
+w, repeat w over the style layers, apply the truncation trick (w_avg cast to
+the ws dtype, ``cfg.model.truncation_cutoff``), synthesize, and clip to
+[-1, 1] in float32. Images come back NCHW on g's device. Run it under
+``torch.inference_mode()``: the kernels are forward-only.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ganlab_tpu_torch.config import Config
+from ganlab_tpu_torch.models.stylegan import num_style_layers, truncate_ws
+
+
+def build_sample_fn(cfg: Config, res_log2: int) -> Callable:
+    dtype = getattr(torch, cfg.run.compute_dtype)
+    cutoff = cfg.model.truncation_cutoff
+    nl = num_style_layers(res_log2)
+
+    def sample(g, w_avg, z, generator=None, psi=1.0, alpha=1.0,
+               noises=None):
+        w = g.map_latents(z.to(dtype))
+        ws = w[:, None, :].expand(-1, nl, -1)
+        ws = truncate_ws(ws, w_avg.to(ws.dtype), psi, cutoff)
+        img = g.synthesize(ws, res_log2, alpha, noises, generator)
+        return img.float().clamp(-1.0, 1.0)
+
+    return sample

@@ -1,0 +1,149 @@
+"""Batch-inference serving around the G-EMA sampler (port of ``serve.py``).
+
+``BatchSampler`` runs the truncation-trick G-EMA sampler
+(``sample.build_sample_fn``) at a fixed serving batch size, with the JAX
+package's reproducibility contract:
+
+* **Index-stable latents**: z_i of stream ``seed`` is drawn from its own
+  ``torch.Generator`` seeded from ``(seed, i)``, so image ``i`` is the same
+  whatever the request size or split: ``generate(3)[i] == generate(100)[i]``.
+* **Fixed batch**: every request is padded up to ``batch_size`` and trimmed,
+  so every batch runs the same shapes.
+* **Noise determinism**: the per-layer synthesis noise of batch ``b`` comes
+  from a generator on the serving device seeded from ``(noise seed, b)``:
+  deterministic for a fixed ``batch_size``.
+
+The streams are torch's (Philox/MT), not JAX's threefry: the same seed gives
+other latents and noise than ``ganlab_tpu.serve.BatchSampler``. The
+contract (prefix stability, repeatability) is the same. Given the same z
+and zero noise scales, both packages give the same images.
+
+The sampler takes the G-EMA parameters directly (``params=``, a port
+``state_dict`` or a flax numpy tree, converted on entry). Loading from a
+training ``workdir`` waits for the port's training checkpoints.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ganlab_tpu_torch.config import Config
+from ganlab_tpu_torch.convert import from_flax, is_flax_tree
+from ganlab_tpu_torch.models import build_generator
+from ganlab_tpu_torch.sample import build_sample_fn
+from ganlab_tpu_torch.utils.image import save_image_grid, to_uint8
+from ganlab_tpu_torch.utils.latents import slerp
+
+_NOISE_STREAM = 0x6E6F6973  # 'nois': generate()'s noise stream of a seed
+
+
+def stream_seed(*parts: int) -> int:
+    """A 63-bit torch seed from non-negative integers, well mixed."""
+    state = np.random.SeedSequence([int(p) for p in parts]) \
+        .generate_state(1, np.uint64)[0]
+    return int(state) & (2 ** 63 - 1)
+
+
+class BatchSampler:
+    """Fixed-batch G-EMA inference service for one trained model::
+
+        s = BatchSampler(cfg, params=g_ema_state, w_avg=w_avg)
+        imgs = s.generate(64, seed=0)            # (64, H, W, 3) uint8
+        frames = s.interpolate(seed_a=0, seed_b=1, steps=30)
+    """
+
+    def __init__(self, cfg: Config, *, params: Mapping[str, Any], w_avg,
+                 batch_size: int = 64, res_log2: int | None = None,
+                 device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.batch_size = int(batch_size)
+        self.res_log2 = cfg.model.res_log2 if res_log2 is None else res_log2
+        self.resolution = 2 ** self.res_log2
+        self._default_psi = float(cfg.model.truncation_psi)
+        if is_flax_tree(params):
+            params = from_flax(params)
+        g = build_generator(cfg.model)
+        g.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           if not isinstance(v, torch.Tensor) else v
+                           for k, v in params.items()})
+        self.g = g.to(self.device).eval().requires_grad_(False)
+        if not isinstance(w_avg, torch.Tensor):
+            w_avg = torch.as_tensor(np.asarray(w_avg, np.float32))
+        self.w_avg = w_avg.to(self.device, torch.float32)
+        self._sample = build_sample_fn(cfg, self.res_log2)
+
+    # ------------------------------------------------------------------
+    def warmup(self) -> "BatchSampler":
+        """Run one batch (builds and JIT-compiles the kernels)."""
+        self.generate(1, seed=0)
+        return self
+
+    def _batches(self, n: int):
+        for start in range(0, n, self.batch_size):
+            yield start, min(self.batch_size, n - start)
+
+    def _run(self, z: torch.Tensor, noise_seed: int, psi: float
+             ) -> np.ndarray:
+        """One fixed-size batch of latents -> (batch, H, W, C) float32."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(noise_seed)
+        with torch.inference_mode():
+            img = self._sample(self.g, self.w_avg, z.to(self.device), gen,
+                               psi, 1.0)
+            return img.permute(0, 2, 3, 1).cpu().numpy()
+
+    def generate(self, n: int, *, seed: int = 0,
+                 psi: float | None = None) -> np.ndarray:
+        """n images of stream ``seed`` as (n, H, W, C) uint8."""
+        psi = self._default_psi if psi is None else float(psi)
+        out = []
+        for b, (start, size) in enumerate(self._batches(n)):
+            z = torch.from_numpy(
+                self.latents(self.batch_size, seed=seed, start=start))
+            imgs = self._run(z, stream_seed(seed, _NOISE_STREAM, b), psi)
+            out.append(imgs[:size])
+        return to_uint8(np.concatenate(out, axis=0))
+
+    def generate_from_z(self, z, *, noise_seed: int = 0,
+                        psi: float | None = None) -> np.ndarray:
+        """Images for explicit latents z (n, latent_dim) -> uint8."""
+        psi = self._default_psi if psi is None else float(psi)
+        z = np.asarray(z, np.float32)
+        out = []
+        for b, (start, size) in enumerate(self._batches(z.shape[0])):
+            zb = np.zeros((self.batch_size, z.shape[1]), np.float32)
+            zb[:size] = z[start:start + size]
+            imgs = self._run(torch.from_numpy(zb),
+                             stream_seed(noise_seed, b), psi)
+            out.append(imgs[:size])
+        return to_uint8(np.concatenate(out, axis=0))
+
+    def latents(self, n: int, *, seed: int = 0, start: int = 0) -> np.ndarray:
+        """The index-stable z's generate() uses (for editing/interp)."""
+        zdim = self.cfg.model.latent_dim
+        zs = []
+        for i in range(start, start + n):
+            gen = torch.Generator().manual_seed(stream_seed(seed, i))
+            zs.append(torch.randn(zdim, generator=gen))
+        return torch.stack(zs).numpy()
+
+    def interpolate(self, *, seed_a: int = 0, seed_b: int = 1,
+                    index_a: int = 0, index_b: int = 0, steps: int = 16,
+                    psi: float | None = None,
+                    noise_seed: int = 0) -> np.ndarray:
+        """slerp walk between two stream images -> (steps, H, W, C) uint8."""
+        za = torch.from_numpy(self.latents(1, seed=seed_a, start=index_a)[0])
+        zb = torch.from_numpy(self.latents(1, seed=seed_b, start=index_b)[0])
+        ts = np.linspace(0.0, 1.0, steps, dtype=np.float32)
+        z = torch.stack([slerp(za, zb, float(t)) for t in ts]).numpy()
+        return self.generate_from_z(z, noise_seed=noise_seed, psi=psi)
+
+    def save_grid(self, path: str, n: int = 16, *, seed: int = 0,
+                  psi: float | None = None) -> str:
+        imgs = self.generate(n, seed=seed, psi=psi)
+        # save_image_grid expects [-1, 1] float; convert back from uint8.
+        return save_image_grid(imgs.astype(np.float32) / 127.5 - 1.0, path)

@@ -1,0 +1,156 @@
+"""PyTorch port ops vs the JAX package (ganlab_tpu_torch.ops).
+
+The same seeded numpy inputs go through the JAX op (XLA, and the Pallas
+kernel in interpret mode) and through the port's op on the CPU, which is
+the kernel's plain PyTorch version; the port is NCHW, so tensors are
+transposed at the boundary. Tolerances: float32 1e-5 (the same math in
+another summation order); bfloat16 2 ulps of the output's scale (both
+sides round once to bf16, the XLA op also rounds inside). The kernels
+themselves are held against the plain versions in test_torch_kernels.py.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ganlab_tpu import ops as jops
+from ganlab_tpu.ops import equalized as jeq
+from ganlab_tpu.ops.pallas import (
+    adain_pallas,
+    pixel_norm_pallas,
+    upsample_blur_2x_pallas,
+)
+from ganlab_tpu_torch import ops as tops
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def rand(*shape, seed=0, loc=0.0, scale=1.0):
+    rs = np.random.RandomState(seed)
+    return (loc + scale * rs.randn(*shape)).astype(np.float32)
+
+
+def to_np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a.astype(jnp.float32))
+
+
+def nchw(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.transpose(0, 3, 1, 2))
+
+
+def nhwc(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.transpose(0, 2, 3, 1))
+
+
+def assert_close(got, want, dtype: str):
+    got, want = to_np(got), to_np(want)
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        scale = float(np.abs(want).max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2 * ulp)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", [(4, 64), (2, 4, 4, 16)])
+def test_pixel_norm(shape, ref, dtype):
+    jd, td = DTYPES[dtype]
+    x = rand(*shape, seed=1)
+    xj = jnp.asarray(x, jd)
+    want = jops.pixel_norm(xj) if ref == "xla" \
+        else pixel_norm_pallas(xj, 1e-8, True)
+    got = tops.pixel_norm(torch.from_numpy(x).to(td))
+    assert got.dtype == td
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", [(2, 4, 4, 8), (2, 16, 16, 4)])
+def test_adain(shape, ref, dtype):
+    jd, td = DTYPES[dtype]
+    n, _, _, c = shape
+    x = rand(*shape, seed=2, loc=0.5, scale=2.0)
+    s = rand(n, c, seed=3, loc=1.0)
+    b = rand(n, c, seed=4)
+    xj, sj, bj = (jnp.asarray(a, jd) for a in (x, s, b))
+    want = jops.adain(xj, sj, bj) if ref == "xla" \
+        else adain_pallas(xj, sj, bj, 1e-8, True)
+    got = tops.adain(*(torch.from_numpy(a).to(td) for a in (nchw(x), s, b)))
+    assert got.dtype == td
+    assert_close(nhwc(to_np(got)), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", [(2, 4, 4, 8), (1, 5, 7, 3)])
+def test_upsample_blur_2x(shape, ref, dtype):
+    jd, td = DTYPES[dtype]
+    x = rand(*shape, seed=5)
+    xj = jnp.asarray(x, jd)
+    want = jops.upsample_blur_2x(xj) if ref == "xla" \
+        else upsample_blur_2x_pallas(xj, True)
+    got = tops.upsample_blur_2x(torch.from_numpy(nchw(x)).to(td))
+    assert got.dtype == td
+    assert_close(nhwc(to_np(got)), want, dtype)
+
+
+def test_instance_norm():
+    x = rand(2, 6, 5, 3, seed=14, loc=0.5, scale=2.0)
+    got = tops.instance_norm(torch.from_numpy(nchw(x)))
+    want = jops.instance_norm(jnp.asarray(x))
+    assert_close(nhwc(got.numpy()), want, "float32")
+
+
+def test_upsample_nearest_2x():
+    x = rand(2, 3, 5, 4, seed=6)
+    got = tops.upsample_nearest_2x(torch.from_numpy(nchw(x)))
+    want = jops.upsample_nearest_2x(jnp.asarray(x))
+    np.testing.assert_array_equal(nhwc(got.numpy()), np.asarray(want))
+
+
+@pytest.mark.parametrize("gain,lr_mult,bias", [
+    (math.sqrt(2.0), 1.0, True), (math.sqrt(2.0), 0.01, True),
+    (1.0, 1.0, False)])
+def test_equalized_dense(gain, lr_mult, bias):
+    x, w, b = rand(4, 16, seed=7), rand(16, 8, seed=8), rand(8, seed=9)
+    want = jeq.equalized_dense(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(b) if bias else None,
+                               gain=gain, lr_mult=lr_mult)
+    got = tops.equalized_dense(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(b) if bias else None,
+                               gain=gain, lr_mult=lr_mult)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,gain,lr_mult", [
+    (3, math.sqrt(2.0), 1.0), (1, 1.0, 1.0), (3, 1.0, 0.5)])
+def test_equalized_conv2d(k, gain, lr_mult):
+    x = rand(2, 6, 6, 4, seed=10)
+    w = rand(k, k, 4, 5, seed=11)                      # HWIO
+    b = rand(5, seed=12)
+    want = jeq.equalized_conv2d(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(b), gain=gain, lr_mult=lr_mult)
+    got = tops.equalized_conv2d(
+        torch.from_numpy(nchw(x)),
+        torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+        torch.from_numpy(b), gain=gain, lr_mult=lr_mult)
+    np.testing.assert_allclose(nhwc(got.numpy()), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_leaky_relu():
+    x = rand(3, 17, seed=13)
+    np.testing.assert_allclose(
+        tops.leaky_relu(torch.from_numpy(x)).numpy(),
+        np.asarray(jeq.leaky_relu(jnp.asarray(x))), rtol=1e-6, atol=0)
