@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU, end to end.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,17 +7,32 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile the CUDA C++ kernels from ``ganlab_tpu_torch/csrc``
-   with nvcc (build time and ``-Xptxas -v`` output printed).
+   with nvcc, all sources at once (build time and ``-Xptxas -v`` output).
 3. Kernels: each hand-written kernel against its plain PyTorch version at
-   every shape the stylegan-256 serving path gives it at batch 32, in
-   float32 (TF32 off) and bfloat16; then kernel, plain and one library
-   call timed with CUDA events, beside the bound (bytes / 3.35 TB/s).
-4. Main path: ``BatchSampler`` at the full stylegan-256 widths (bf16,
-   batch 32, seeded random weights with every term made live) serves a few
+   every shape the stylegan-256 serving path (pixelnorm, AdaIN, up+blur)
+   and training step (blur+down, mbstd) give it at batch 32, in float32
+   (TF32 off) and bfloat16; then kernel, plain and one library call timed
+   with CUDA events, beside the bound (bytes / 3.35 TB/s or flops / 67
+   TFLOP/s, the larger).
+4. Gradients: each autograd Function's gradient against autograd through
+   its plain version on the card (float32); then a second-order R1-shaped
+   derivative through the resample and mbstd Functions, against the same
+   chain of plain versions.
+5. Serving: ``BatchSampler`` at the full stylegan-256 widths (bf16, batch
+   32, seeded random weights with every term made live) serves a few
    requests; the launch counters must show 1 pixelnorm, 14 AdaIN and
    6 up+blur launches per batch; two images in float32 on the card are
-   held against the same inputs on the CPU; img/s and batch latency.
-5. One JSON line of per-kernel numbers, then the final ``{"ok": true, ...}``.
+   held against the same inputs on the CPU; img/s, latency and a profile.
+6. Training: ``create_train_state`` -> ``make_lazy_stepper`` at the
+   ``bench.py`` configuration (stylegan-256, fixed 256², batch 32, bf16,
+   lazy R1 every 16 steps) for 34 steps, three of them R1-on; every step's
+   launch counts must equal those derived from the config and the model
+   structure; losses finite, parameters, G-EMA and w-avg moved, shown
+   images counted; ms per R1-off and R1-on step, img/s over a 16-step
+   cycle, peak memory and a profile of one R1-on and one R1-off step. Then
+   one R1-on step of a narrow 32² model in float32, on the card and on the
+   CPU from the same state and draws: losses and every gradient leaf agree.
+7. One JSON line of per-kernel numbers, then the final ``{"ok": true, ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,18 +52,31 @@ import torch
 import torch.nn.functional as F
 
 from ganlab_tpu_torch import BatchSampler, build_generator, get_config
+from ganlab_tpu_torch import ops as port_ops
 from ganlab_tpu_torch.models.stylegan import noise_shapes
 from ganlab_tpu_torch.ops.kernels import _build
 from ganlab_tpu_torch.ops.kernels.adain import adain_ref, adain_triton
+from ganlab_tpu_torch.ops.kernels.mbstd import (
+    minibatch_stddev_ref,
+    minibatch_stddev_triton,
+)
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
     pixel_norm_triton,
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
+    blur_downsample_2x_cuda,
+    blur_downsample_2x_ref,
     upsample_blur_2x_cuda,
     upsample_blur_2x_ref,
 )
 from ganlab_tpu_torch.sample import build_sample_fn
+from ganlab_tpu_torch.train import (
+    build_phases,
+    create_train_state,
+    make_lazy_stepper,
+)
+from ganlab_tpu_torch.train import steps as train_steps
 
 BATCH = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -56,6 +84,12 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 F32_RTOL = 1e-5                # kernel vs plain, float32, of the output scale
 BF16_ULPS = 2                  # kernel vs plain, bf16 ulps of the output scale
 IMAGE_ATOL = 2e-3              # card f32 vs CPU f32 image, on [-1, 1]
+GRAD_RTOL = 1e-5               # Function grad vs plain autograd, of scale
+STEP_LOSS_RTOL = 1e-4          # f32 train step, card vs CPU: losses
+STEP_GRAD_RTOL = 5e-3          # ... every gradient leaf, of its scale:
+                               # the biases ahead of each AdaIN get sums
+                               # that cancel to ~1e-3 of their terms
+TRAIN_STEPS = 34               # steps 0, 16, 32 are R1-on (penalty_every 16)
 
 
 def log(*a):
@@ -129,9 +163,68 @@ def serving_shapes(mc):
             "adain": adain, "upsample_blur_2x": up}
 
 
+def _add(total: dict, part: dict) -> None:
+    for name, shapes in part.items():
+        for shape, n in shapes.items():
+            d = total.setdefault(name, {})
+            d[shape] = d.get(shape, 0) + n
+
+
+def step_launches(mc, r1: bool) -> dict:
+    """kernel -> {shape: launches} of one training step, derived from the
+    model's structure (``mc``, full resolution) and the step's code:
+
+    * G forward: one pixelnorm over the 2B rows of concat([z1, z2]), two
+      AdaIN per resolution, one up+blur per block from 8x8 up;
+    * D forward: one blur+down per block, one mbstd;
+    * D backward (to its parameters or its input): each blur+down's
+      backward is UpsampleBlur2x / 4 at the block's output shape; mbstd's
+      backward is plain PyTorch;
+    * G backward: each up+blur's backward is 4 * BlurDownsample2x at the
+      block's upsampled shape; AdaIN's and pixelnorm's are plain.
+
+    D phase: G forward (no grad), D on real and on fake, one backward of
+    both. G phase: G forward, D forward, backward through D into G. An R1
+    step adds D on real once more and its create-graph backward; the
+    double backward then runs the backward of every first-order
+    UpsampleBlur2x node (4 * blur+down at the block shapes) and of every
+    blur+down node of that D forward (up+blur / 4).
+    """
+    lg = mc.res_log2
+    down = {(BATCH, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
+    up = {(BATCH, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
+          for l in range(3, lg + 1)}
+    serve = serving_shapes(mc)
+    g_fwd = {"pixelnorm": {(2 * BATCH, mc.latent_dim): 1},
+             "adain": serve["adain"], "upsample_blur_2x": up}
+    d_fwd = {"blur_downsample_2x": down,
+             "minibatch_stddev": {(BATCH, mc.nf(1), 4, 4): 1}}
+    d_bwd = {"upsample_blur_2x": up}
+    g_bwd = {"blur_downsample_2x": down}
+    parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,      # D phase
+             g_fwd, d_fwd, d_bwd, g_bwd]             # G phase
+    if r1:
+        parts += [d_fwd, d_bwd, {"blur_downsample_2x": down}, d_bwd]
+    total: dict = {}
+    for part in parts:
+        _add(total, part)
+    return total
+
+
 def _blur_filter(c, dtype):
     t = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda")
     return (torch.outer(t, t) / 16.0).to(dtype).expand(c, 1, 4, 4)
+
+
+def _blur_down_filter(c, dtype):
+    t = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda")
+    return (torch.outer(t, t) / 64.0).to(dtype).expand(c, 1, 4, 4)
+
+
+def _mbstd_library(x):
+    stat = x.float().var(0, unbiased=False).add(1e-8).sqrt().mean()
+    return torch.cat([x, stat.to(x.dtype).expand(x.shape[0], 1,
+                                                  *x.shape[2:])], 1)
 
 
 KERNELS = {
@@ -174,14 +267,53 @@ KERNELS = {
             groups=x.shape[1]),
         nbytes=lambda s, dt: 5 * math.prod(s) * _bsz(dt),
         flops=lambda s: 30 * math.prod(s)),
+    "blur_downsample_2x": dict(
+        route="cuda",
+        source="ganlab_tpu_torch/csrc/resample.cu",
+        replaces="ganlab_tpu/ops/pallas/resample.py:154",
+        kernel=blur_downsample_2x_cuda,
+        plain=blur_downsample_2x_ref,
+        inputs=lambda s, dt, g: (
+            torch.randn(s, generator=g, device="cuda").to(dt),),
+        library=lambda x: F.conv2d(
+            x, _blur_down_filter(x.shape[1], x.dtype), stride=2, padding=1,
+            groups=x.shape[1]),
+        nbytes=lambda s, dt: 1.25 * math.prod(s) * _bsz(dt),
+        flops=lambda s: 21 * math.prod(s) / 4),
+    "minibatch_stddev": dict(
+        route="triton",
+        source="ganlab_tpu_torch/ops/kernels/mbstd.py",
+        replaces="ganlab_tpu/ops/pallas/mbstd.py:45",
+        kernel=minibatch_stddev_triton,
+        plain=minibatch_stddev_ref,
+        inputs=lambda s, dt, g: (
+            (torch.randn(s, generator=g, device="cuda") * 1.5 + 0.3)
+            .to(dt),),
+        library=_mbstd_library,
+        nbytes=lambda s, dt: (2 * math.prod(s) + s[0] * s[2] * s[3])
+        * _bsz(dt),
+        flops=lambda s: 5 * math.prod(s)),
 }
 
+# backward of each kernel's autograd Function
+BWD_ROUTE = {
+    "pixelnorm": "plain PyTorch (analytic VJP)",
+    "adain": "plain PyTorch (analytic VJP)",
+    "upsample_blur_2x": "cuda: 4 x BlurDownsample2x",
+    "blur_downsample_2x": "cuda: UpsampleBlur2x / 4",
+    "minibatch_stddev": "plain PyTorch (analytic VJP)",
+}
+TRAINING_ONLY = ("blur_downsample_2x", "minibatch_stddev")
 
-def phase_kernels(mc) -> dict:
+
+def phase_kernels(shapes_by_kernel: dict, unit: str) -> dict:
+    """Check and time each kernel at its shapes; ``shapes_by_kernel`` maps
+    kernel -> {shape: launches per ``unit``}, and the times are summed
+    over one ``unit``'s launches."""
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     with torch.inference_mode():
-        for name, shapes in serving_shapes(mc).items():
+        for name, shapes in shapes_by_kernel.items():
             k = KERNELS[name]
             r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                      library_ms=0.0 if k["library"] else None,
@@ -220,7 +352,7 @@ def phase_kernels(mc) -> dict:
                 b_ms = k["nbytes"](shape, torch.bfloat16) \
                     / HBM_BYTES_PER_S * 1e3
                 o_ms = k["flops"](shape) / F32_FLOPS_PER_S * 1e3
-                log(f"time {name} {shape} bf16 x{per_batch}/batch: kernel "
+                log(f"time {name} {shape} bf16 x{per_batch}/{unit}: kernel "
                     f"{t_k:.4f} ms  plain {t_p:.4f} ms  library "
                     f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}"
                     f"{'' if t_l is None else f' (vs plain {lib_err:.2e})'}"
@@ -232,6 +364,7 @@ def phase_kernels(mc) -> dict:
                 r["ops_ms"] += per_batch * o_ms
                 if r["library_ms"] is not None:
                     r["library_ms"] += per_batch * t_l
+            r["unit"] = unit
             r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] \
                 else "operations"
@@ -239,7 +372,7 @@ def phase_kernels(mc) -> dict:
     return results
 
 
-# -- 4. main path ----------------------------------------------------------
+# -- 5. serving path -------------------------------------------------------
 def make_sampler(cfg) -> BatchSampler:
     """Full-width G with seeded random weights; every term made live."""
     torch.manual_seed(0)
@@ -257,7 +390,7 @@ def reset_counts():
         k["kernel"].launches = 0
 
 
-def phase_main_path(card: str) -> dict:
+def phase_serving(card: str) -> dict:
     cfg = get_config("stylegan-256")
     assert cfg.run.compute_dtype == "bfloat16" and cfg.model.resolution == 256
     sampler = make_sampler(cfg)
@@ -334,19 +467,24 @@ def phase_main_path(card: str) -> dict:
         f"latency median {perf['batch_ms_median']:.2f} ms max "
         f"{perf['batch_ms_max']:.2f} ms; peak mem {peak:.2f} GiB "
         f"[{card}]")
-    profile_batch(sampler, card)
+    profile_call(f"one served batch of {BATCH}",
+                 lambda: sampler.generate(BATCH, seed=500), card)
     return counts
 
 
-def profile_batch(sampler: BatchSampler, card: str, top: int = 12) -> None:
-    """Where one served batch spends its time: device time by kernel name
-    (torch.profiler) against the host-clock wall time of the request."""
+
+def profile_call(label: str, fn, card: str, top: int = 12) -> dict:
+    """Where one call spends its time: device time by kernel name
+    (torch.profiler, device-side events only) against the host-clock wall
+    time of the call, which ends in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        sampler.generate(BATCH, seed=500)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     def dev_us(e):
@@ -355,35 +493,335 @@ def profile_batch(sampler: BatchSampler, card: str, top: int = 12) -> None:
 
     # device-side events only (kernels, copies, memsets): the host ops
     # that launched them carry the same time again
+    cuda = torch.autograd.DeviceType.CUDA
     rows = sorted(((dev_us(e), e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and dev_us(e) > 0), reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"profile: one batch of {BATCH}: wall {wall_ms:.2f} ms, device busy "
-        f"{busy_ms:.2f} ms (idle share {1 - busy_ms / wall_ms:.3f}) [{card}]")
+                   if e.device_type == cuda and dev_us(e) > 0), reverse=True)
+    sum_ms = sum(r[0] for r in rows) / 1e3
+    # busy = the union of the device events' intervals, so that events
+    # the trace shows overlapping are not counted twice
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3
+    idle = 1 - busy_ms / wall_ms
+    log(f"profile: {label}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms (idle share {idle:.3f}; device events sum to "
+        f"{sum_ms:.2f} ms) [{card}]")
     for us, count, key in rows[:top]:
-        log(f"profile: {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  "
-            f"x{count:<4d} {key[:90]}")
+        log(f"profile: {us / 1e3:9.3f} ms  {100 * us / 1e3 / sum_ms:5.1f}%  "
+            f"x{count:<5d} {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=idle)
+
+
+# -- 4. gradients on the card ------------------------------------------------
+def _assert_grads_close(label, got, want, rtol=GRAD_RTOL):
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        ok = math.isfinite(err) and err <= rtol * scale
+        log(f"grad {label}[{i}] {tuple(b.shape)}: max_abs {err:.3e} "
+            f"scale {scale:.3e} tol {rtol * scale:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: gradient {i} disagrees with "
+                                 "autograd through the plain version")
+
+
+def phase_gradients() -> None:
+    """Each autograd Function against autograd through its plain version
+    (float32, TF32 off), then R1's second-order derivative through a small
+    D-like chain of up+blur, convs, blur+down and mbstd."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device="cuda") * scale) \
+            .requires_grad_(True)
+
+    kern = {"pixelnorm": port_ops.pixel_norm, "adain": port_ops.adain,
+            "upsample_blur_2x": port_ops.upsample_blur_2x,
+            "blur_downsample_2x": port_ops.blur_downsample_2x,
+            "minibatch_stddev": port_ops.minibatch_stddev}
+    cases = {"pixelnorm": (r(2 * BATCH, 512),),
+             "adain": (r(BATCH, 256, 32, 32), r(BATCH, 256), r(BATCH, 256)),
+             "upsample_blur_2x": (r(BATCH, 256, 32, 32),),
+             "blur_downsample_2x": (r(BATCH, 256, 64, 64),),
+             "minibatch_stddev": (r(BATCH, 512, 4, 4),)}
+    before = {n: k["kernel"].launches for n, k in KERNELS.items()}
+    for name, args in cases.items():
+        out = kern[name](*args)
+        ct = torch.randn(out.shape, generator=g, device="cuda")
+        got = torch.autograd.grad(out, args, ct)
+        want = torch.autograd.grad(KERNELS[name]["plain"](*args), args, ct)
+        _assert_grads_close(name, got, want)
+    moved = {n: KERNELS[n]["kernel"].launches - before[n] for n in before}
+    if any(v == 0 for v in moved.values()):
+        raise AssertionError(f"a Function did not launch its kernel: {moved}")
+
+    x = torch.randn(8, 16, 16, 16, generator=g, device="cuda")
+    w1, w2 = r(16, 16, 3, 3, scale=0.2), r(16, 16, 3, 3, scale=0.2)
+    w3 = r(17 * 8 * 8, scale=0.05)
+    params = (w1, w2, w3)
+
+    def chain(up, down, mbstd, xi):
+        h = F.leaky_relu(F.conv2d(up(xi), w1, padding=1), 0.2)
+        h = F.leaky_relu(F.conv2d(down(h), w2, padding=1), 0.2)
+        return mbstd(down(h)).flatten(1) @ w3
+
+    def r1(up, down, mbstd):
+        xi = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(chain(up, down, mbstd, xi).sum(), xi,
+                                    create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), params)
+
+    got = r1(port_ops.upsample_blur_2x, port_ops.blur_downsample_2x,
+             port_ops.minibatch_stddev)
+    want = r1(upsample_blur_2x_ref, blur_downsample_2x_ref,
+              minibatch_stddev_ref)
+    _assert_grads_close("second order (R1 shape)", got, want)
+
+
+# -- 6. training path ----------------------------------------------------------
+def training_config(**over):
+    return get_config("stylegan-256", **{
+        "schedule.progressive": False,
+        "schedule.batch_schedule": {256: BATCH}, **over})
+
+
+def _leaves(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _changed(before: dict, module) -> int:
+    return sum(not torch.equal(v, before[k])
+               for k, v in module.state_dict().items())
+
+
+def phase_training(card: str) -> dict:
+    cfg = training_config()
+    mc = cfg.model
+    assert (mc.resolution, mc.latent_dim, mc.mapping_layers, mc.fmap_base,
+            mc.fmap_max, cfg.run.compute_dtype) == (256, 512, 8, 8192, 512,
+                                                    "bfloat16")
+    phase = build_phases(cfg.schedule, mc)[-1]
+    assert phase.batch_size == BATCH and phase.res_log2 == 8
+    combo_at, _ = train_steps._lazy_combos(cfg)
+    expect = {r1: {n: sum(v.values()) for n, v in
+                   step_launches(mc, r1).items()} for r1 in (False, True)}
+    log(f"train: launches per step derived from the config: R1-off "
+        f"{expect[False]}, R1-on {expect[True]}")
+
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed=0)
+    stepper = make_lazy_stepper(cfg, phase)
+    log(f"train: state at full width on {state.device} in "
+        f"{time.perf_counter() - t0:.2f} s; G {sum(p.numel() for p in state.g.parameters())} "
+        f"D {sum(p.numel() for p in state.d.parameters())} parameters")
+    gdata = torch.Generator(device="cuda").manual_seed(11)
+    reals = [torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gdata,
+                           device="cuda", dtype=torch.uint8)
+             for _ in range(4)]
+    before = {"g": _leaves(state.g), "d": _leaves(state.d),
+              "g_ema": _leaves(state.g_ema)}
+
+    totals = {n: 0 for n in KERNELS}
+    step_ms, kinds = [], []
+    peak_gib = None
+    prof = {}
+    for i in range(TRAIN_STEPS):
+        r1 = combo_at(i)[0] is True
+        if i == 16:
+            torch.cuda.reset_peak_memory_stats()
+
+        def one():
+            nonlocal state, metrics
+            state, metrics = stepper(state, reals[i % len(reals)])
+
+        metrics = None
+        reset_counts()
+        if i >= TRAIN_STEPS - 2:            # the last two: profiled
+            prof[r1] = profile_call(
+                f"one R1-{'on' if r1 else 'off'} training step (step {i})",
+                one, card)
+            ms = prof[r1]["wall_ms"]
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: k["kernel"].launches for n, k in KERNELS.items()}
+        for n in totals:
+            totals[n] += counts[n]
+        if i == 31:
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = {k: float(v) for k, v in metrics.items()}
+        log(f"train: step {i} R1-{'on ' if r1 else 'off'} {ms:9.2f} ms "
+            f"launches {counts} "
+            + " ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {vals}")
+        if (vals["penalty"] > 0) != r1:
+            raise AssertionError(f"step {i}: penalty {vals['penalty']} on "
+                                 f"an R1-{'on' if r1 else 'off'} step")
+        if counts != expect[r1]:
+            raise AssertionError(f"step {i}: launches {counts}, derived "
+                                 f"{expect[r1]}")
+        step_ms.append(ms)
+        kinds.append(r1)
+
+    if state.shown_imgs != BATCH * TRAIN_STEPS or \
+            state.step != TRAIN_STEPS:
+        raise AssertionError(f"counters: step {state.step} shown "
+                             f"{state.shown_imgs}")
+    moved = {name: (_changed(before[name], getattr(state, name)),
+                    len(before[name])) for name in before}
+    log(f"train: parameters changed (of all): {moved}; w_avg norm "
+        f"{state.w_avg.norm().item():.4f}; shown {state.shown_imgs}")
+    for name, (n, total) in moved.items():
+        # heads of resolutions below 256 get no gradient at 256x256
+        if n < total // 2:
+            raise AssertionError(f"{name}: only {n} of {total} leaves moved")
+    if not (state.w_avg.norm().item() > 0 and
+            bool(state.w_avg.isfinite().all())):
+        raise AssertionError("w_avg did not move")
+
+    timed = range(2, TRAIN_STEPS - 2)       # after the first of each kind
+    off = [step_ms[i] for i in timed if not kinds[i]]
+    on = [step_ms[i] for i in timed if kinds[i]]
+    cycle_s = sum(step_ms[16:32]) / 1e3     # steps 16..31: 1 on + 15 off
+    perf = dict(ms_r1_off=statistics.median(off), ms_r1_on=statistics.median(on),
+                img_per_s_cycle=16 * BATCH / cycle_s, peak_gib=peak_gib,
+                first_step_ms=step_ms[0], prof=prof,
+                launches=totals, expect=expect)
+    log(f"train: {perf['ms_r1_off']:.2f} ms per R1-off step (median of "
+        f"{len(off)}), {perf['ms_r1_on']:.2f} ms per R1-on step (step 16); "
+        f"{perf['img_per_s_cycle']:.1f} img/s over the 16-step cycle "
+        f"16..31; peak memory {peak_gib:.2f} GiB; first step "
+        f"{step_ms[0]:.0f} ms [{card}]")
+    perf["cudnn_benchmark"] = probe_cudnn_benchmark(cfg, phase, state,
+                                                    reals[0], card)
+    phase_train_card_vs_cpu()
+    return perf
+
+
+def probe_cudnn_benchmark(cfg, phase, state, real, card) -> dict:
+    """The same steps with cuDNN's autotuner on (``cudnn.benchmark``),
+    after the main path was read: the second call of each is timed."""
+    torch.backends.cudnn.benchmark = True
+    try:
+        out = {}
+        for r1 in (True, False):
+            step = train_steps.build_train_step(cfg, phase,
+                                                penalty_override=r1)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, real)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            out["r1_on" if r1 else "r1_off"] = ms
+    finally:
+        torch.backends.cudnn.benchmark = False
+    log(f"train: with cudnn.benchmark on: {out['r1_on']:.2f} ms per R1-on "
+        f"step, {out['r1_off']:.2f} ms per R1-off step (second call) "
+        f"[{card}]")
+    return out
+
+
+def phase_train_card_vs_cpu() -> None:
+    """One R1-on step of a narrow 32² model in float32 (TF32 off), on the
+    card and on the CPU from the same initial state and draws. D's lr is 0
+    here: Adam's first update is about lr * sign(g), so where D's gradient
+    is ~0 the two devices' updated D's would differ by up to 2 lr, and G's
+    gradients, taken against the updated D, with them."""
+    cfg = get_config("stylegan-256", **{
+        "model.resolution": 32, "model.fmap_base": 512,
+        "model.fmap_max": 64, "model.latent_dim": 128,
+        "run.compute_dtype": "float32", "schedule.progressive": False,
+        "schedule.batch_schedule": {32: 8}, "optim.lr_d": 0.0})
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    draws = train_steps.draw_step(cfg, phase.res_log2, 8,
+                                  torch.Generator().manual_seed(4), "cpu")
+    real = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(5))
+    # every term live: at init the 4x4 planes are constant (const 1, bias
+    # and noise scale 0), where AdaIN's gradient is rounding noise x 1e4
+    base = create_train_state(cfg, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for net in (base.g, base.d):
+            for k, v in net.state_dict().items():
+                if k.endswith(("noise.scale", ".bias", ".b", "const")):
+                    v += 0.2 * torch.randn(v.shape, generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = create_train_state(cfg, seed=3, device=dev)
+        st.g.load_state_dict(base.g.state_dict())
+        st.d.load_state_dict(base.d.state_dict())
+        step = train_steps.build_train_step(cfg, phase, penalty_override=True)
+        st, m = step(st, real, draws)
+        grads = {f"{net}.{k}": p.grad.detach().cpu()
+                 for net in ("g", "d")
+                 for k, p in getattr(st, net).named_parameters()
+                 if p.grad is not None}
+        out[dev] = ({k: float(v) for k, v in m.items()}, grads)
+    (m_card, g_card), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
+    for k, v in m_cpu.items():
+        err = abs(m_card[k] - v)
+        if not err <= STEP_LOSS_RTOL * max(abs(v), 1e-3):
+            raise AssertionError(f"f32 step {k}: card {m_card[k]} cpu {v}")
+    if set(g_card) != set(g_cpu):
+        raise AssertionError("f32 step: card and CPU have other grad leaves")
+    rels = sorted((((g_card[k] - want).abs().max().item()
+                    / max(want.abs().max().item(), 1e-30)), k)
+                  for k, want in g_cpu.items())
+    worst = rels[-1][0]
+    log("train: f32 step, largest gradient differences (of the leaf "
+        "scale): " + ", ".join(f"{k} {r:.2e}" for r, k in rels[-4:]))
+    if not worst <= STEP_GRAD_RTOL:
+        raise AssertionError(f"f32 step grad {rels[-1][1]}: {worst:.3e} "
+                             "of scale")
+    log(f"train: f32 R1-on step at 32² card vs CPU: losses {m_cpu} agree "
+        f"within {STEP_LOSS_RTOL:g} rel; {len(g_cpu)} gradient leaves agree, "
+        f"worst {worst:.3e} of the leaf scale (tol {STEP_GRAD_RTOL:g})")
 
 
 def main() -> None:
     kind, card = phase_device()
     phase_build()
-    cfg = get_config("stylegan-256")
-    results = phase_kernels(cfg.model)
-    counts = phase_main_path(card)
+    mc = get_config("stylegan-256").model
+    results = phase_kernels(serving_shapes(mc), "served batch")
+    train_shapes = step_launches(mc, r1=False)
+    results.update(phase_kernels(
+        {n: train_shapes[n] for n in TRAINING_ONLY}, "R1-off step"))
+    phase_gradients()
+    serve_counts = phase_serving(card)
+    train = phase_training(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
+        tl = train["launches"][name]
         kernels.append({
             "name": name, "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": counts[name],
+            "replaces": k["replaces"],
+            "launches": serve_counts.get(name, 0) + tl,
+            "launches_serving": serve_counts.get(name, 0),
+            "launches_training": tl,
+            "launches_per_step": {"r1_off": train["expect"][False][name],
+                                  "r1_on": train["expect"][True][name]},
+            "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    log(f"kernel times are per served batch of {BATCH} (bf16), summed over "
-        f"the launches of one batch [{card}]")
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "ms_per": r["unit"]})
+    log(f"kernel times are summed over the launches of one served batch "
+        f"of {BATCH} (pixelnorm, AdaIN, up+blur) or one R1-off training "
+        f"step at batch {BATCH} (blur+down, mbstd), bf16 [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ on a ported path rewritten by hand for the H100 (Triton or CUDA C++ under
 ``ops/kernels`` and ``csrc``). It imports ``torch`` and numpy, never
 ``jax``/``flax`` and nothing of ``ganlab_tpu``.
 
-Ported so far: StyleGAN G-EMA serving (``BatchSampler``). Entry points run
+Ported so far: StyleGAN G-EMA serving (``BatchSampler``) and the
+StyleGAN training step (``create_train_state`` -> ``make_lazy_stepper``).
+Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel wrapper computes its plain PyTorch version, on a CUDA tensor it
 launches the kernel or raises.
@@ -18,6 +20,10 @@ _API = {
     "Config": "ganlab_tpu_torch.config",
     "get_config": "ganlab_tpu_torch.config",
     "build_generator": "ganlab_tpu_torch.models",
+    "build_models": "ganlab_tpu_torch.models",
+    "create_train_state": "ganlab_tpu_torch.train",
+    "make_lazy_stepper": "ganlab_tpu_torch.train",
+    "build_phases": "ganlab_tpu_torch.train",
     "BatchSampler": "ganlab_tpu_torch.serve",
     "from_flax": "ganlab_tpu_torch.convert",
 }

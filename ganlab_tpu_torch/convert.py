@@ -3,11 +3,14 @@
 ``from_flax(params)`` takes the nested dict of numpy arrays that
 ``jax.tree_util.tree_map(np.asarray, params)`` gives (with or without the
 top-level ``"params"`` key) and returns the ``state_dict`` of the port's
-module with the same names: ``"a/b/c"`` becomes ``"a.b.c"``. Layouts:
+module with the same names: ``"a/b/c"`` becomes ``"a.b.c"``. It covers the
+StyleGAN generator and the ProGAN discriminator. Layouts:
 
 * conv weights HWIO (kh, kw, in, out) -> OIHW (out, in, kh, kw);
 * the constant input (1, H, W, C) -> (1, C, H, W);
-* dense weights (in, out) and every 1-d leaf stay as they are.
+* dense weights (in, out) and every 1-d leaf stay as they are (the D's
+  output block flattens its 4x4 map in the JAX package's (h, w, c) order,
+  so ``block4_out.dense.w`` needs no reordering).
 
 Values are float32 (parameters stay float32 in both packages).
 """

@@ -6,8 +6,12 @@ from ganlab_tpu_torch.ops.equalized import (
     he_constant,
     leaky_relu,
 )
+from ganlab_tpu_torch.ops.minibatch_stddev import minibatch_stddev
 from ganlab_tpu_torch.ops.normalization import adain, instance_norm, pixel_norm
 from ganlab_tpu_torch.ops.upfirdn import (
+    blur2d,
+    blur_downsample_2x,
+    downsample_avg_2x,
     fade_in,
     upsample_blur_2x,
     upsample_nearest_2x,

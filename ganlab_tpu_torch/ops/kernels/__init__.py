@@ -6,6 +6,8 @@ kernel         replaces (TPU, Pallas)          route / source
 pixelnorm      ops/pallas/pixelnorm.py          Triton, ``pixelnorm.py``
 adain          ops/pallas/adain.py              Triton, ``adain.py``
 upsample_blur  ops/pallas/resample.py (up)      CUDA C++, ``csrc/resample.cu``
+blur_down      ops/pallas/resample.py (down)    CUDA C++, ``csrc/resample.cu``
+mbstd          ops/pallas/mbstd.py              Triton, ``mbstd.py``
 =============  ==============================  ======================
 
 Every launching wrapper takes CUDA tensors only: it checks device, dtype,
@@ -13,8 +15,11 @@ shape and contiguity, raises on anything else, allocates its output with
 ``torch.empty``, launches on the current stream and adds one to its
 ``launches`` attribute. There is no fallback: the dispatching ops in
 ``ganlab_tpu_torch.ops`` send a CPU tensor to the plain version and every
-other tensor to the kernel. The kernels are forward-only for now; a
-wrapper raises if autograd would need to differentiate through it.
+other tensor to the kernel. Gradients go through the autograd Function
+beside each kernel (``PixelNorm``, ``AdaIN``, ``UpsampleBlur2x``,
+``BlurDownsample2x``, ``MinibatchStddev``), whose forward calls the
+launching wrapper with grad mode off; a direct call of a wrapper on a
+tensor that autograd would need to differentiate raises.
 """
 
 from __future__ import annotations
@@ -36,5 +41,6 @@ def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int) -> None:
         raise ValueError(f"{op}: the kernel takes contiguous tensors")
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError(
-            f"{op}: the kernel is forward-only; run it under "
-            "torch.no_grad() / torch.inference_mode()")
+            f"{op}: the launching wrapper does not record gradients; call "
+            "the op through its autograd Function (ganlab_tpu_torch.ops) "
+            "or under torch.no_grad()")

@@ -18,6 +18,10 @@ the normalize-and-modulate write. The second and third reads of a plane
 mostly hit L2 (a plane is at most 256 KiB in float32), so device memory
 sees about one read and one write. Fusing the preceding noise + bias +
 LeakyReLU epilogue is left to a later PR.
+
+``AdaIN`` is the autograd Function: forward is the kernel (CUDA) or the
+plain version (CPU); backward is the analytic VJP of the JAX package's
+``adain.py::_bwd`` in plain PyTorch (that package has no backward kernel).
 """
 
 from __future__ import annotations
@@ -74,14 +78,34 @@ def _kernel():
 
 def adain_ref(x: torch.Tensor, style_scale: torch.Tensor,
               style_bias: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Plain version. x (N, C, H, W); styles (N, C); float32 math."""
-    xf = x.float()
+    """Plain version. x (N, C, H, W); styles (N, C); float32 math
+    (float64 for float64 input)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt)
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * style_scale.float()[:, :, None, None] \
-        + style_bias.float()[:, :, None, None]
+    y = y * style_scale.to(dt)[:, :, None, None] \
+        + style_bias.to(dt)[:, :, None, None]
     return y.to(x.dtype)
+
+
+def adain_bwd(x: torch.Tensor, style_scale: torch.Tensor, g: torch.Tensor,
+              eps: float = 1e-8):
+    """VJP of adain at (x, style_scale) for cotangent g: (dx, ds, db)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf, gf = x.to(dt), g.to(dt)
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+    r = torch.rsqrt(var + eps)
+    xh = (xf - mean) * r
+    dxh = gf * style_scale.to(dt)[:, :, None, None]
+    dx = r * (dxh - dxh.mean(dim=(2, 3), keepdim=True)
+              - xh * (dxh * xh).mean(dim=(2, 3), keepdim=True))
+    ds = (gf * xh).sum(dim=(2, 3))
+    db = gf.sum(dim=(2, 3))
+    return (dx.to(x.dtype), ds.to(style_scale.dtype),
+            db.to(style_scale.dtype))
 
 
 def adain_triton(x: torch.Tensor, style_scale: torch.Tensor,
@@ -107,3 +131,22 @@ def adain_triton(x: torch.Tensor, style_scale: torch.Tensor,
 
 
 adain_triton.launches = 0
+
+
+class AdaIN(torch.autograd.Function):
+    """Differentiable AdaIN (kernel forward, plain analytic backward)."""
+
+    @staticmethod
+    def forward(ctx, x, style_scale, style_bias, eps=1e-8):
+        ctx.save_for_backward(x, style_scale)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return adain_ref(x, style_scale, style_bias, eps)
+        return adain_triton(x.contiguous(), style_scale.contiguous(),
+                            style_bias.contiguous(), eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        dx, ds, db = adain_bwd(x, s, g, ctx.eps)
+        return dx, ds, db, None

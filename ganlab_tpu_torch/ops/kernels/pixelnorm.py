@@ -12,6 +12,11 @@ Design: one program per block of rows; each row's C values sit in one
 power-of-two block (BLOCK_C = next pow2 of C, masked), so the row's sum of
 squares is one ``tl.sum`` in float32 and the scale is applied from
 registers: one pass over memory. Output in the input's dtype.
+
+``PixelNorm`` is the autograd Function: forward is the kernel (CUDA) or
+the plain version (CPU); backward is the analytic VJP of the JAX package's
+``pixelnorm.py::_pn_bwd`` in plain PyTorch (that package's backward kernel
+is never called).
 """
 
 from __future__ import annotations
@@ -52,10 +57,21 @@ def _next_pow2(n: int) -> int:
 
 
 def pixel_norm_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Plain version: float32 math over the last axis, output in x's dtype."""
-    xf = x.float()
+    """Plain version: float32 math (float64 for float64 input) over the
+    last axis, output in x's dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+
+
+def pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """VJP of pixel_norm at x for cotangent g (last axis)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf, gf = x.to(dt), g.to(dt)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    prod = (gf * xf).mean(dim=-1, keepdim=True)
+    return (r * (gf - xf * prod * (r * r))).to(x.dtype)
 
 
 def pixel_norm_triton(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -77,3 +93,20 @@ def pixel_norm_triton(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 pixel_norm_triton.launches = 0
+
+
+class PixelNorm(torch.autograd.Function):
+    """Differentiable pixelnorm over the last axis of (rows, C)."""
+
+    @staticmethod
+    def forward(ctx, x, eps=1e-8):
+        ctx.save_for_backward(x)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return pixel_norm_ref(x, eps)
+        return pixel_norm_triton(x.contiguous(), eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return pixel_norm_bwd(x, g, ctx.eps), None

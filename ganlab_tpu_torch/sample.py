@@ -4,8 +4,8 @@
 psi, alpha, noises=None)``: cast z to ``cfg.run.compute_dtype``, map it to
 w, repeat w over the style layers, apply the truncation trick (w_avg cast to
 the ws dtype, ``cfg.model.truncation_cutoff``), synthesize, and clip to
-[-1, 1] in float32. Images come back NCHW on g's device. Run it under
-``torch.inference_mode()``: the kernels are forward-only.
+[-1, 1] in float32. Images come back NCHW on g's device. Serving runs it
+under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations

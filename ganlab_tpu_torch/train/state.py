@@ -1,0 +1,101 @@
+"""The training state: G, D, G-EMA, two Adams, w-average, counters, RNG.
+
+Port of ``ganlab_tpu/train/state.py``. The JAX package keeps an immutable
+pytree that a jitted step maps to a new one; here ``TrainState`` holds the
+modules and optimizers, and a step updates them in place and returns the
+same object. Parameters stay float32; every random draw of a step comes
+from the state's own ``torch.Generator`` on the state's device.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+
+from ganlab_tpu_torch.config import Config
+from ganlab_tpu_torch.models import build_models
+from ganlab_tpu_torch.models.progan import ProDiscriminator
+from ganlab_tpu_torch.models.stylegan import StyleGenerator
+
+
+@dataclasses.dataclass
+class TrainState:
+    g: StyleGenerator
+    d: ProDiscriminator
+    g_ema: StyleGenerator           # no grad; updated by the step
+    opt_g: torch.optim.Adam
+    opt_d: torch.optim.Adam
+    w_avg: torch.Tensor             # (latent_dim,) float32 running W mean
+    generator: torch.Generator      # the step's random draws
+    step: int = 0                   # optimizer-step counter
+    shown_imgs: int = 0             # images shown so far
+
+    @property
+    def device(self) -> torch.device:
+        return self.w_avg.device
+
+
+def optimizer_hparams(cfg: Config, resolution: int | None = None
+                      ) -> tuple[dict, dict]:
+    """Adam hyperparameters (lr, betas, eps) of G and of D.
+
+    ``resolution`` applies the per-phase lr multiplier
+    (``optim.lr_mult_by_res``). Lazy-regularization compensation (official
+    StyleGAN2 ``training_loop.py``): a network whose regularizer runs every
+    k-th step trains with lr * k/(k+1) and betas ** (k/(k+1)); D takes k
+    from ``loss.penalty_every``, G from ``loss.pl_every`` when path-length
+    regularization is on. ``optim.lazy_adjust=False`` keeps the raw values.
+    """
+    o, lc = cfg.optim, cfg.loss
+
+    def ratio(active: bool, k: int) -> float:
+        return k / (k + 1.0) if (o.lazy_adjust and active and k > 1) else 1.0
+
+    mb_d = ratio(lc.penalty in ("wgan-gp", "r1"), lc.penalty_every)
+    mb_g = ratio(cfg.pl_active, lc.pl_every)
+    mult = o.lr_mult_by_res.get(resolution, 1.0) if resolution else 1.0
+
+    def hp(lr, mb):
+        return dict(lr=lr * mult * mb, betas=(o.beta1 ** mb, o.beta2 ** mb),
+                    eps=o.eps)
+
+    return hp(o.lr_g, mb_g), hp(o.lr_d, mb_d)
+
+
+def make_optimizers(cfg: Config, g: torch.nn.Module, d: torch.nn.Module,
+                    resolution: int | None = None
+                    ) -> tuple[torch.optim.Adam, torch.optim.Adam]:
+    """The Adam pair of ``optimizer_hparams``.
+
+    torch's Adam steps by lr * m_hat / (sqrt(v_hat) + eps) with the bias
+    corrections m_hat = m / (1 - b1^t), v_hat = v / (1 - b2^t): the update
+    of ``optax.adam`` term for term (tests/test_torch_train_step.py holds
+    the two against each other on the same gradients).
+    """
+    hp_g, hp_d = optimizer_hparams(cfg, resolution)
+    return (torch.optim.Adam(g.parameters(), **hp_g),
+            torch.optim.Adam(d.parameters(), **hp_d))
+
+
+def create_train_state(cfg: Config, seed: int = 0,
+                       device: str | torch.device = "cuda") -> TrainState:
+    """Every resolution's parameters up front, initialized from ``seed``
+    (on the CPU, so a seed gives the same weights on every device), then
+    moved to ``device``; the step's generator is seeded from ``seed`` too."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("create_train_state: device 'cuda' requested but "
+                           "torch.cuda.is_available() is false; pass "
+                           "device='cpu' to train on the CPU")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        g, d = build_models(cfg.model)
+    g, d = g.to(device), d.to(device)
+    g_ema = copy.deepcopy(g).requires_grad_(False)
+    opt_g, opt_d = make_optimizers(cfg, g, d)
+    return TrainState(
+        g=g, d=d, g_ema=g_ema, opt_g=opt_g, opt_d=opt_d,
+        w_avg=torch.zeros(cfg.model.latent_dim, device=device),
+        generator=torch.Generator(device=device).manual_seed(seed + 1))

@@ -1,0 +1,334 @@
+"""The sequential G/D training step with lazy R1, on PyTorch.
+
+Port of the sequential branch of ``ganlab_tpu/train/steps.py``
+(``build_train_step`` with ``make_lazy_stepper``). One step:
+
+1. real uint8 NHWC batch -> NCHW [-1, 1] in the compute dtype, with a
+   per-sample horizontal flip (``_preprocess``);
+2. D update: a fake batch from G (no grad), D on real and on fake, the
+   loss, and on a penalty step R1 through a double backward of D (a third
+   D forward, on the real batch); loss + penalty minimized with one
+   backward and one Adam step;
+3. G update against the updated D, differentiating only G's parameters;
+4. G-EMA with ``optim.ema_beta_for(batch)`` and the running w-average;
+5. counters.
+
+The host picks one of two step functions per step (lazy regularization,
+``loss.penalty_every`` = k): the penalty step, weight x k, every k-th step,
+and the step without it otherwise. Every random draw (latents, mixing,
+crossover, noise maps, flip mask) comes from the state's generator, or is
+injected through ``draws=`` (``StepDraws``), which the parity tests use.
+
+Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
+A): the fused steps, two-phase regularization, path-length
+regularization, augmentation, gradient accumulation, n-critic, and fade
+phases. Entry: ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)``
+-> ``stepper(state, real_u8)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ganlab_tpu_torch.config import Config
+from ganlab_tpu_torch.models.stylegan import (
+    mix_styles,
+    noise_shapes,
+    num_style_layers,
+)
+from ganlab_tpu_torch.ops import losses as L
+from ganlab_tpu_torch.train.schedule import PhaseSpec
+from ganlab_tpu_torch.train.state import TrainState, optimizer_hparams
+
+
+def _dtype_of(cfg: Config) -> torch.dtype:
+    return getattr(torch, cfg.run.compute_dtype)
+
+
+def _moved(obj, device):
+    """A copy of a draws dataclass with every tensor on ``device``."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(device)
+        elif isinstance(v, list):
+            v = [t.to(device) for t in v]
+        elif dataclasses.is_dataclass(v):
+            v = _moved(v, device)
+        out[f.name] = v
+    return type(obj)(**out)
+
+
+@dataclasses.dataclass
+class GenDraws:
+    """The random inputs of one generator forward."""
+
+    z1: torch.Tensor                # (N, latent) compute dtype
+    z2: torch.Tensor                # (N, latent), the mixing latent
+    use_mix: torch.Tensor           # () bool, Bernoulli(style_mixing_prob)
+    cross: torch.Tensor             # () int64 crossover layer in [1, L)
+    noises: list                    # per style layer (N, 1, H, W)
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """Every random input of one training step."""
+
+    flip: torch.Tensor              # (N,) bool: flip this real image
+    d: GenDraws                     # the D phase's fake batch
+    g: GenDraws                     # the G phase's fake batch
+    gp_eps: torch.Tensor            # (N, 1, 1, 1) WGAN-GP interpolation
+
+    def to(self, device) -> "StepDraws":
+        return _moved(self, device)
+
+
+def draw_generator(cfg: Config, res_log2: int, batch: int,
+                   gen: torch.Generator, device) -> GenDraws:
+    dtype = _dtype_of(cfg)
+    zdim = cfg.model.latent_dim
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+
+    z1, z2 = normal(batch, zdim), normal(batch, zdim)
+    use_mix = torch.rand((), generator=gen, device=device) \
+        < cfg.model.style_mixing_prob
+    cross = torch.randint(1, num_style_layers(res_log2), (), generator=gen,
+                          device=device)
+    noises = [normal(batch, 1, h, w) for h, w in noise_shapes(res_log2)]
+    return GenDraws(z1, z2, use_mix, cross, noises)
+
+
+def draw_step(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
+              device) -> StepDraws:
+    """All draws of one step, in a fixed order, from ``gen``."""
+    flip = torch.rand((batch,), generator=gen, device=device) < 0.5
+    d = draw_generator(cfg, res_log2, batch, gen, device)
+    gp_eps = torch.rand((batch, 1, 1, 1), generator=gen, device=device,
+                        dtype=_dtype_of(cfg))
+    g = draw_generator(cfg, res_log2, batch, gen, device)
+    return StepDraws(flip, d, g, gp_eps)
+
+
+def _preprocess(real_u8: torch.Tensor, hflip: bool, flip: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """uint8 (N, H, W, C) -> NCHW [-1, 1] in ``dtype``, each image flipped
+    along W where ``flip`` is set (when ``hflip``)."""
+    x = real_u8.to(torch.float32) * (2.0 / 255.0) - 1.0
+    x = x.permute(0, 3, 1, 2)
+    if hflip:
+        x = torch.where(flip[:, None, None, None], x.flip(3), x)
+    return x.to(dtype).contiguous()
+
+
+@torch.no_grad()
+def _ema_update(ema: torch.nn.Module, model: torch.nn.Module,
+                beta: float) -> None:
+    """ema <- ema * beta + model * (1 - beta), in place, parameter-wise,
+    with beta and 1 - beta rounded to float32 as the JAX package does."""
+    b = torch.tensor(beta, dtype=torch.float32)
+    e = list(ema.parameters())
+    p = [t.to(x.dtype) for t, x in zip(model.parameters(), e)]
+    torch._foreach_mul_(e, b.item())
+    torch._foreach_add_(e, p, alpha=(1.0 - b).item())
+
+
+def build_generator_forward(cfg: Config, res_log2: int) -> Callable:
+    """(g, GenDraws, alpha) -> (fake images NCHW, w_mean float32).
+
+    One mapping pass over concat([z1, z2]); with probability
+    ``style_mixing_prob`` (one draw per batch) the styles cross over from
+    w1 to w2 at the drawn layer; w_mean is the batch mean of w1."""
+    nl = num_style_layers(res_log2)
+
+    def forward(g, dr: GenDraws, alpha):
+        batch = dr.z1.shape[0]
+        ww = g.map_latents(torch.cat([dr.z1, dr.z2], dim=0))
+        w1, w2 = ww[:batch], ww[batch:]
+        crossover = torch.where(dr.use_mix, dr.cross,
+                                torch.full_like(dr.cross, nl))
+        ws = mix_styles(w1, w2, crossover, nl)
+        img = g.synthesize(ws, res_log2, alpha, dr.noises)
+        return img, w1.float().mean(dim=0)
+
+    return forward
+
+
+def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
+    lc = cfg.loss
+    for what, on in (("loss.fused_g_step", lc.fused_g_step),
+                     ("loss.fused_seq", lc.fused_seq),
+                     ("loss.reg_separate", lc.reg_separate),
+                     ("loss.pl_weight > 0", lc.pl_weight > 0),
+                     ("aug.mode (ADA)", cfg.aug_active),
+                     ("optim.grad_accum > 1", cfg.optim.grad_accum > 1),
+                     ("loss.d_steps_per_g > 1", lc.d_steps_per_g > 1),
+                     ("a fade phase", phase.kind == "fade")):
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to PyTorch yet (ROADMAP.md A)")
+
+
+def build_train_step(cfg: Config, phase: PhaseSpec,
+                     penalty_override: bool | None = None) -> Callable:
+    """``step(state, real_u8, draws=None) -> (state, metrics)`` for a phase.
+
+    ``penalty_override``: None applies the configured penalty every step
+    at its plain weight; True applies it with weight x ``penalty_every``;
+    False leaves it out. The step runs on the state's device; ``real_u8``
+    and injected ``draws`` are moved there."""
+    _check_supported(cfg, phase)
+    res_log2 = phase.res_log2
+    gen_forward = build_generator_forward(cfg, res_log2)
+    dtype = _dtype_of(cfg)
+    lc = cfg.loss
+    d_loss_fn, g_loss_fn = L.D_LOSSES[lc.loss], L.G_LOSSES[lc.loss]
+    hp_g, hp_d = optimizer_hparams(cfg, phase.resolution)
+    has_penalty = lc.penalty in ("wgan-gp", "r1")
+    with_penalty = has_penalty if penalty_override is None \
+        else penalty_override
+    pen_weight = lc.penalty_weight * (
+        lc.penalty_every if penalty_override is True else 1)
+    alpha = 1.0  # stabilize phase (fade phases are rejected above)
+    w_beta = torch.tensor(cfg.model.w_avg_beta, dtype=torch.float32)
+
+    def ema_beta(batch: int, shown: int) -> float:
+        o = cfg.optim
+        if o.ema_rampup is not None:
+            nimg = min(o.ema_kimg * 1000.0, shown * o.ema_rampup)
+            return 0.5 ** (batch / max(nimg, 1.0))
+        return o.ema_beta_for(batch)
+
+    def penalty_term(d, real, fake, draws, real_s):
+        penalty = torch.zeros((), device=real.device)
+        if with_penalty:
+            def critic(x):
+                return d(x, res_log2, alpha).float()
+
+            if lc.penalty == "wgan-gp":
+                penalty = L.wgan_gp(critic, real, fake, None, pen_weight,
+                                    eps=draws.gp_eps)
+            else:
+                penalty = L.r1_penalty(critic, real, pen_weight)
+        if lc.drift_weight:
+            penalty = penalty + L.drift_penalty(real_s, lc.drift_weight)
+        return penalty
+
+    def set_hparams(opt, hp):
+        for group in opt.param_groups:
+            group.update(hp)
+
+    def step(state: TrainState, real_u8: torch.Tensor,
+             draws: StepDraws | None = None):
+        dev = state.device
+        batch = real_u8.shape[0]
+        if draws is None:
+            draws = draw_step(cfg, res_log2, batch, state.generator, dev)
+        else:
+            draws = draws.to(dev)
+        g, d = state.g, state.d
+        real = _preprocess(real_u8.to(dev), cfg.data.hflip, draws.flip,
+                           dtype)
+
+        # -- D step --------------------------------------------------------
+        with torch.no_grad():
+            fake_d, _ = gen_forward(g, draws.d, alpha)
+        real_s = d(real, res_log2, alpha).float()
+        fake_s = d(fake_d, res_log2, alpha).float()
+        d_loss = d_loss_fn(real_s, fake_s)
+        penalty = penalty_term(d, real, fake_d, draws, real_s)
+        state.opt_d.zero_grad(set_to_none=True)
+        (d_loss + penalty).backward()
+        set_hparams(state.opt_d, hp_d)
+        state.opt_d.step()
+
+        # -- G step, against the updated D ---------------------------------
+        d.requires_grad_(False)
+        try:
+            fake, w_mean = gen_forward(g, draws.g, alpha)
+            g_loss = g_loss_fn(d(fake, res_log2, alpha).float())
+            state.opt_g.zero_grad(set_to_none=True)
+            g_loss.backward()
+        finally:
+            d.requires_grad_(True)
+        set_hparams(state.opt_g, hp_g)
+        state.opt_g.step()
+
+        with torch.no_grad():
+            _ema_update(state.g_ema, g, ema_beta(batch, state.shown_imgs))
+            wb = w_beta.to(dev)
+            state.w_avg.copy_(state.w_avg * wb + w_mean * (1.0 - wb))
+        state.step += 1
+        state.shown_imgs += batch
+        metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+                   "penalty": penalty.detach(),
+                   "real_score": real_s.detach().mean(),
+                   "fake_score": fake_s.detach().mean(), "alpha": alpha}
+        return state, metrics
+
+    return step
+
+
+def _lazy_combos(cfg: Config):
+    """(d_override, pl_override) per step index for the lazy dispatch.
+
+    ``combo_at(i)`` maps the optimizer-step counter to the override pair:
+    None = as configured every step (plain weight), True = fire with
+    interval-scaled weight, False = the non-fire step."""
+    lc = cfg.loss
+    has_pen = lc.penalty in ("wgan-gp", "r1")
+    k = lc.penalty_every
+    pl_active = cfg.pl_active
+    pe = lc.pl_every
+
+    def combo_at(i: int):
+        if not has_pen:
+            dpen = False
+        elif k <= 1:
+            dpen = None
+        else:
+            dpen = (i % k) == 0
+        if not pl_active:
+            pl = False
+        elif pe <= 1:
+            pl = None
+        else:
+            pl = (i % pe) == 0
+        return dpen, pl
+
+    lazy = (has_pen and k > 1) or (pl_active and pe > 1)
+    return combo_at, lazy
+
+
+def make_lazy_stepper(cfg: Config, phase: PhaseSpec,
+                      initial_step: int = 0) -> Callable:
+    """Host-side lazy-regularization dispatcher:
+    ``stepper(state, real_u8, draws=None) -> (state, metrics)``.
+
+    Builds the step variants that occur (penalty on / off) and picks one
+    per step from its own counter, seeded with ``initial_step`` on resume.
+    No laziness -> one step function."""
+    combo_at, lazy = _lazy_combos(cfg)
+    cache: dict = {}
+
+    def get(dpen, _pl):  # pl is always False: build_train_step rejects PL
+        if dpen not in cache:
+            cache[dpen] = build_train_step(cfg, phase, penalty_override=dpen)
+        return cache[dpen]
+
+    if not lazy:
+        return get(*combo_at(0))
+
+    counter = {"i": int(initial_step)}
+
+    def stepper(state, real_u8, draws=None):
+        fn = get(*combo_at(counter["i"]))
+        counter["i"] += 1
+        return fn(state, real_u8, draws)
+
+    return stepper

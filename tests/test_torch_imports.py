@@ -31,7 +31,9 @@ def test_package_imports_no_jax():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"ganlab_tpu_torch.serve", "ganlab_tpu_torch.ops.kernels.adain",
-            "ganlab_tpu_torch.ops.kernels.resample"} <= set(res["imported"])
+            "ganlab_tpu_torch.ops.kernels.resample",
+            "ganlab_tpu_torch.ops.kernels.mbstd",
+            "ganlab_tpu_torch.train.steps"} <= set(res["imported"])
     bad = [m for m in res["modules"] if FORBIDDEN.match(m)]
     assert bad == [], bad
 

@@ -3,8 +3,11 @@
 Here on the CPU: a launching wrapper refuses a CPU tensor (it never falls
 back to the plain version). On a CUDA card (``-m gpu``): each kernel
 against its plain version, float32 within 1e-5 and bfloat16 within
-2**-6 relative (about 2 bf16 ulps). This file imports no JAX, so it runs
-on a GPU host that has only PyTorch:
+2**-6 relative (about 2 bf16 ulps); each autograd Function's gradient,
+and the second derivative through the resample and mbstd Functions,
+against autograd through the plain versions on the card, in float32
+within 1e-5 of the scale. This file imports no JAX, so it runs on a GPU
+host that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -m gpu
 """
@@ -17,7 +20,13 @@ from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
     pixel_norm_triton,
 )
+from ganlab_tpu_torch.ops.kernels.mbstd import (
+    minibatch_stddev_ref,
+    minibatch_stddev_triton,
+)
 from ganlab_tpu_torch.ops.kernels.resample import (
+    blur_downsample_2x_cuda,
+    blur_downsample_2x_ref,
     upsample_blur_2x_cuda,
     upsample_blur_2x_ref,
 )
@@ -28,7 +37,10 @@ from ganlab_tpu_torch.ops.kernels.resample import (
     (adain_triton, lambda: (torch.ones(2, 3, 4, 4), torch.ones(2, 3),
                             torch.ones(2, 3))),
     (upsample_blur_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
-], ids=["pixelnorm", "adain", "upsample_blur_2x"])
+    (blur_downsample_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
+    (minibatch_stddev_triton, lambda: (torch.ones(4, 2, 4, 4),)),
+], ids=["pixelnorm", "adain", "upsample_blur_2x", "blur_downsample_2x",
+        "minibatch_stddev"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch, args):
     """A launching wrapper never computes a plain version itself."""
     before = launch.launches
@@ -69,3 +81,81 @@ def test_kernels_match_plain_on_card(cuda, dtype):
             torch.testing.assert_close(upsample_blur_2x_cuda(x),
                                        upsample_blur_2x_ref(x),
                                        rtol=tol, atol=tol)
+            x = r(*shape[:2], 2 * shape[2], 2 * shape[3])
+            torch.testing.assert_close(blur_downsample_2x_cuda(x),
+                                       blur_downsample_2x_ref(x),
+                                       rtol=tol, atol=tol)
+        for shape in ((32, 512, 4, 4), (4, 3, 5, 7), (3, 1, 1, 1)):
+            x = r(*shape)
+            torch.testing.assert_close(minibatch_stddev_triton(x),
+                                       minibatch_stddev_ref(x),
+                                       rtol=tol, atol=tol)
+
+
+def _plain_ops():
+    from ganlab_tpu_torch.ops.kernels.adain import adain_ref
+    return {"up": upsample_blur_2x_ref, "down": blur_downsample_2x_ref,
+            "mbstd": minibatch_stddev_ref, "adain": adain_ref,
+            "pixel_norm": pixel_norm_ref}
+
+
+def _kernel_ops():
+    from ganlab_tpu_torch import ops
+    return {"up": ops.upsample_blur_2x, "down": ops.blur_downsample_2x,
+            "mbstd": ops.minibatch_stddev, "adain": ops.adain,
+            "pixel_norm": ops.pixel_norm}
+
+
+@pytest.mark.gpu
+def test_function_grads_match_plain_on_card(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda, requires_grad=True)
+
+    cases = {"up": (r(4, 8, 8, 8),), "down": (r(4, 8, 16, 16),),
+             "mbstd": (r(8, 16, 4, 4),),
+             "adain": (r(4, 8, 8, 8), r(4, 8), r(4, 8)),
+             "pixel_norm": (r(8, 64),)}
+    kern, plain = _kernel_ops(), _plain_ops()
+    for name, args in cases.items():
+        ct = torch.randn(kern[name](*args).shape, generator=g, device=cuda)
+        got = torch.autograd.grad(kern[name](*args), args, ct)
+        want = torch.autograd.grad(plain[name](*args), args, ct)
+        for a, b in zip(got, want):
+            scale = b.abs().max().item()
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_second_order_through_kernels_on_card(cuda):
+    """R1's shape of derivative, grad(grad(f(x) c, x)^2, params), through
+    up -> conv -> down -> conv -> down -> mbstd, kernels vs plain."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(8, 4, 8, 8, generator=g, device=cuda)
+    w1 = torch.randn(6, 4, 3, 3, generator=g, device=cuda) * 0.3
+    w2 = torch.randn(6, 6, 3, 3, generator=g, device=cuda) * 0.3
+    w3 = torch.randn(7 * 16, generator=g, device=cuda) * 0.1
+    params = [w.requires_grad_(True) for w in (w1, w2, w3)]
+
+    def chain(ops, x):
+        h = ops["up"](x)
+        h = torch.nn.functional.leaky_relu(
+            torch.nn.functional.conv2d(h, w1, padding=1), 0.2)
+        h = ops["down"](h)
+        h = torch.nn.functional.leaky_relu(
+            torch.nn.functional.conv2d(h, w2, padding=1), 0.2)
+        h = ops["mbstd"](ops["down"](h))
+        return h.flatten(1) @ w3
+
+    def r1(ops):
+        xi = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(chain(ops, xi).sum(), xi,
+                                    create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), params)
+
+    for a, b in zip(r1(_kernel_ops()), r1(_plain_ops())):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)

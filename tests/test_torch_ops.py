@@ -7,10 +7,15 @@ transposed at the boundary. Tolerances: float32 1e-5 (the same math in
 another summation order); bfloat16 2 ulps of the output's scale (both
 sides round once to bf16, the XLA op also rounds inside). The kernels
 themselves are held against the plain versions in test_torch_kernels.py.
+Gradients (jax.vjp against torch autograd through the port's autograd
+Functions, same cotangent) use the float32 tolerance; the Functions'
+own first and second derivatives are checked in float64 by
+``torch.autograd.gradcheck`` / ``gradgradcheck`` (their defaults).
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +25,8 @@ from ganlab_tpu import ops as jops
 from ganlab_tpu.ops import equalized as jeq
 from ganlab_tpu.ops.pallas import (
     adain_pallas,
+    blur_downsample_2x_pallas,
+    minibatch_stddev_pallas,
     pixel_norm_pallas,
     upsample_blur_2x_pallas,
 )
@@ -154,3 +161,130 @@ def test_leaky_relu():
     np.testing.assert_allclose(
         tops.leaky_relu(torch.from_numpy(x)).numpy(),
         np.asarray(jeq.leaky_relu(jnp.asarray(x))), rtol=1e-6, atol=0)
+
+
+# -- training-path ops: blur+down, mbstd, and the autograd Functions ---------
+
+def to_torch(a: np.ndarray, requires_grad=False) -> torch.Tensor:
+    return torch.from_numpy(a.copy()).requires_grad_(requires_grad)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 4), (1, 6, 10, 3)])
+def test_blur_downsample_2x(shape, ref, dtype):
+    jd, td = DTYPES[dtype]
+    x = rand(*shape, seed=15)
+    xj = jnp.asarray(x, jd)
+    want = jops.blur_downsample_2x(xj) if ref == "xla" \
+        else blur_downsample_2x_pallas(xj, True)
+    got = tops.blur_downsample_2x(torch.from_numpy(nchw(x)).to(td))
+    assert got.dtype == td
+    assert_close(nhwc(to_np(got)), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", [(4, 4, 4, 8), (3, 2, 3, 5)])
+def test_minibatch_stddev(shape, ref, dtype):
+    jd, td = DTYPES[dtype]
+    x = rand(*shape, seed=16, loc=0.3, scale=1.5)
+    xj = jnp.asarray(x, jd)
+    want = jops.minibatch_stddev(xj) if ref == "xla" \
+        else minibatch_stddev_pallas(xj, 1e-8, True)
+    got = tops.minibatch_stddev(torch.from_numpy(nchw(x)).to(td))
+    assert got.dtype == td and got.shape[1] == shape[3] + 1
+    assert_close(nhwc(to_np(got)), want, dtype)
+
+
+@pytest.mark.parametrize("group", [2, 3])
+def test_minibatch_stddev_grouped(group):
+    x = rand(6, 4, 4, 5, seed=17)
+    want = jops.minibatch_stddev(jnp.asarray(x), group)
+    got = tops.minibatch_stddev(torch.from_numpy(nchw(x)), group)
+    assert_close(nhwc(to_np(got)), want, "float32")
+
+
+def test_downsample_avg_2x_and_blur2d():
+    x = rand(2, 6, 8, 3, seed=18)
+    xt = torch.from_numpy(nchw(x))
+    assert_close(nhwc(to_np(tops.downsample_avg_2x(xt))),
+                 jops.downsample_avg_2x(jnp.asarray(x)), "float32")
+    assert_close(nhwc(to_np(tops.blur2d(xt))),
+                 jops.blur2d(jnp.asarray(x)), "float32")
+
+
+def _vjp_pair(jax_fn, torch_fn, xs_nhwc, out_shape_nhwc, seed):
+    """jax.vjp and torch autograd of the same function on the same inputs
+    and the same cotangent; 4-d arrays cross the boundary NHWC <-> NCHW."""
+    ct = rand(*out_shape_nhwc, seed=seed)
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in xs_nhwc))
+    want = vjp(jnp.asarray(ct))
+    xt = [to_torch(nchw(a) if a.ndim == 4 else a, True) for a in xs_nhwc]
+    out = torch_fn(*xt)
+    ctt = torch.from_numpy(nchw(ct) if ct.ndim == 4 else ct)
+    got = torch.autograd.grad(out, xt, ctt)
+    for g, w in zip(got, want):
+        g = to_np(g)
+        assert_close(nhwc(g) if g.ndim == 4 else g, w, "float32")
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_resample_grads(ref):
+    x = rand(2, 8, 6, 3, seed=19)
+    up = (lambda a: jops.upsample_blur_2x(a)) if ref == "xla" \
+        else (lambda a: upsample_blur_2x_pallas(a, True))
+    down = (lambda a: jops.blur_downsample_2x(a)) if ref == "xla" \
+        else (lambda a: blur_downsample_2x_pallas(a, True))
+    _vjp_pair(up, tops.upsample_blur_2x, [x], (2, 16, 12, 3), 20)
+    _vjp_pair(down, tops.blur_downsample_2x, [x], (2, 4, 3, 3), 21)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_minibatch_stddev_grad(ref):
+    x = rand(4, 4, 4, 6, seed=22, scale=2.0)
+    fn = jops.minibatch_stddev if ref == "xla" \
+        else (lambda a: minibatch_stddev_pallas(a, 1e-8, True))
+    _vjp_pair(fn, tops.minibatch_stddev, [x], (4, 4, 4, 7), 23)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_adain_and_pixel_norm_grads(ref):
+    x = rand(2, 4, 4, 6, seed=24, loc=0.5, scale=2.0)
+    s, b = rand(2, 6, seed=25, loc=1.0), rand(2, 6, seed=26)
+    fa = jops.adain if ref == "xla" \
+        else (lambda *a: adain_pallas(*a, 1e-8, True))
+    _vjp_pair(fa, tops.adain, [x, s, b], x.shape, 27)
+    z = rand(5, 16, seed=28)
+    fp = jops.pixel_norm if ref == "xla" \
+        else (lambda a: pixel_norm_pallas(a, 1e-8, True))
+    _vjp_pair(fp, tops.pixel_norm, [z], z.shape, 29)
+
+
+def _f64(*shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64,
+                       requires_grad=True)
+
+
+@pytest.mark.parametrize("name", ["upsample_blur_2x", "blur_downsample_2x",
+                                  "minibatch_stddev", "adain", "pixel_norm"])
+def test_functions_gradcheck_float64(name):
+    """First and second derivatives of each autograd Function (its plain
+    forward on the CPU, its own backward) against finite differences, in
+    float64 (the plain versions compute in float64 for float64 input)."""
+    fn, args = {
+        "upsample_blur_2x": (tops.upsample_blur_2x, lambda: (
+            _f64(2, 2, 3, 4, seed=1),)),
+        "blur_downsample_2x": (tops.blur_downsample_2x, lambda: (
+            _f64(2, 2, 6, 4, seed=2),)),
+        "minibatch_stddev": (tops.minibatch_stddev, lambda: (
+            _f64(4, 3, 2, 2, seed=3),)),
+        "adain": (tops.adain, lambda: (
+            _f64(2, 3, 3, 3, seed=4), _f64(2, 3, seed=5),
+            _f64(2, 3, seed=6))),
+        "pixel_norm": (tops.pixel_norm, lambda: (_f64(3, 5, seed=7),)),
+    }[name]
+    inputs = args()
+    assert torch.autograd.gradcheck(fn, inputs)
+    assert torch.autograd.gradgradcheck(fn, inputs)

@@ -1,0 +1,330 @@
+"""The port's training step vs a harness built from the JAX package's pieces.
+
+Small config (16², fmap_max 16, latent 16, 2 mapping layers, batch 4,
+float32, JAX matmuls at ``highest``). Both sides start from the same
+perturbed flax trees (``from_flax``) and the same injected draws: flip
+mask, latents, mixing switch, crossover layer and noise maps, made with
+numpy. The JAX side is assembled from ``map_latents`` / ``synthesize``,
+``mix_styles``, the discriminator's ``apply``, ``ganlab_tpu.ops.losses``,
+``make_optimizers`` (optax), ``_preprocess`` and ``_ema_update`` -- not
+from ``build_train_step``, which draws its own keys.
+
+Compared, for one R1-on and one R1-off step: the losses, the penalty and
+the mean scores (1e-4 relative), every gradient leaf of D and of G (1e-4
+of the leaf's largest magnitude: float32, other summation orders, a
+double backward). G's gradients are taken against the port's updated D
+on both sides: with Adam's beta1 = 0 the first update is about
+lr * sign(g), so the two updated D's differ by up to 2 lr where g ~ 0,
+and Adam is held against optax on the same gradients separately. The
+G-EMA is held against ``_ema_update`` (1e-6 of each leaf's largest
+magnitude: XLA reorders the blend by a few ulps) and the w-average
+against the JAX update rule (1e-5 relative).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ganlab_tpu.config import get_config as jax_get_config
+from ganlab_tpu.models import build_models as jax_build_models
+from ganlab_tpu.models.stylegan import mix_styles as jax_mix_styles
+from ganlab_tpu.ops import losses as JL
+from ganlab_tpu.train import steps as jax_steps
+from ganlab_tpu.train.state import make_optimizers as jax_make_optimizers
+from ganlab_tpu_torch.config import get_config
+from ganlab_tpu_torch.convert import from_flax
+from ganlab_tpu_torch.models.stylegan import noise_shapes
+from ganlab_tpu_torch.train import (
+    build_phases,
+    create_train_state,
+    make_lazy_stepper,
+    make_optimizers,
+)
+from ganlab_tpu_torch.train import steps as tsteps
+
+RES, B, LG, NL = 16, 4, 4, 6
+SMALL = {"model.resolution": RES, "model.fmap_base": 128,
+         "model.fmap_max": 16, "model.latent_dim": 16,
+         "model.mapping_layers": 2, "run.compute_dtype": "float32",
+         "schedule.progressive": False, "schedule.batch_schedule": {RES: B}}
+REL = 1e-4
+
+
+def perturb(tree, seed, scale=0.3):
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (np.asarray(a, np.float32)
+                   + scale * rs.randn(*np.shape(a))).astype(np.float32),
+        tree)
+
+
+def to_flax(module: torch.nn.Module) -> dict:
+    """The inverse of from_flax for a module's parameters."""
+    tree: dict = {}
+    for name, t in module.state_dict().items():
+        a = t.detach().cpu().numpy().copy()   # no view of the live tensor
+        last = name.rsplit(".", 1)[-1]
+        if a.ndim == 4 and last == "w":
+            a = a.transpose(2, 3, 1, 0)            # OIHW -> HWIO
+        elif a.ndim == 4 and last == "const":
+            a = a.transpose(0, 2, 3, 1)            # NCHW -> NHWC
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return {"params": tree}
+
+
+def gen_draws_np(rs):
+    return dict(z1=rs.randn(B, 16).astype(np.float32),
+                z2=rs.randn(B, 16).astype(np.float32),
+                use_mix=True, cross=3,
+                noises=[rs.randn(B, h, w, 1).astype(np.float32)
+                        for h, w in noise_shapes(LG)])
+
+
+def to_port_draws(flip, dd, dg):
+    def gd(d):
+        return tsteps.GenDraws(
+            torch.from_numpy(d["z1"]), torch.from_numpy(d["z2"]),
+            torch.tensor(d["use_mix"]), torch.tensor(d["cross"]),
+            [torch.from_numpy(n.transpose(0, 3, 1, 2).copy())
+             for n in d["noises"]])
+
+    return tsteps.StepDraws(torch.from_numpy(flip), gd(dd), gd(dg),
+                            torch.zeros(B, 1, 1, 1))
+
+
+@pytest.fixture(scope="module")
+def world():
+    return make_world()
+
+
+def make_world():
+    jcfg = jax_get_config("stylegan-256", **SMALL)
+    jg, jd = jax_build_models(jcfg.model)
+    tree = lambda m, k: jax.tree_util.tree_map(  # noqa: E731
+        np.asarray, m.init_all(jax.random.PRNGKey(k)))
+    pg, pd = perturb(tree(jg, 0), 1), perturb(tree(jd, 1), 2)
+    pema = perturb(pg, 3, scale=0.1)
+    rs = np.random.RandomState(4)
+    data = dict(real=rs.randint(0, 256, (B, RES, RES, 3)).astype(np.uint8),
+                flip=np.array([True, False, False, True]),
+                dd=gen_draws_np(rs), dg=gen_draws_np(rs),
+                w_avg=rs.randn(16).astype(np.float32))
+    cfg = get_config("stylegan-256", **SMALL)
+    return dict(jcfg=jcfg, jg=jg, jd=jd, pg=pg, pd=pd, pema=pema,
+                cfg=cfg, phase=build_phases(cfg.schedule, cfg.model)[-1],
+                **data)
+
+
+def port_state(w):
+    st = create_train_state(w["cfg"], seed=0, device="cpu")
+    st.g.load_state_dict(from_flax(w["pg"]))
+    st.d.load_state_dict(from_flax(w["pd"]))
+    st.g_ema.load_state_dict(from_flax(w["pema"]))
+    st.w_avg.copy_(torch.from_numpy(w["w_avg"]))
+    return st
+
+
+def jax_harness(w, penalty_on: bool, port_new_d: dict):
+    jg, jd, jcfg = w["jg"], w["jd"], w["jcfg"]
+    real = jax_steps._preprocess(jnp.asarray(w["real"]), False, None,
+                                 jnp.float32)
+    real = jnp.where(jnp.asarray(w["flip"])[:, None, None, None],
+                     real[:, :, ::-1, :], real)
+
+    def gen_fwd(params_g, d):
+        ww = jg.apply(params_g, jnp.concatenate([d["z1"], d["z2"]]),
+                      method="map_latents")
+        w1, w2 = ww[:B], ww[B:]
+        crossover = jnp.where(d["use_mix"], d["cross"], NL)
+        ws = jax_mix_styles(w1, w2, crossover, NL)
+        img = jg.apply(params_g, ws, LG, 1.0, list(d["noises"]),
+                       method="synthesize")
+        return img, jnp.mean(w1.astype(jnp.float32), axis=0)
+
+    def d_apply(params_d, x):
+        return jd.apply(params_d, x, LG, 1.0).astype(jnp.float32)
+
+    gamma = jcfg.loss.penalty_weight * jcfg.loss.penalty_every
+
+    def run(pg, pd, new_d, dd, dg):
+        fake_d, _ = gen_fwd(pg, dd)
+
+        def d_objective(params_d):
+            real_s = d_apply(params_d, real)
+            fake_s = d_apply(params_d, fake_d)
+            loss = JL.d_loss_nonsaturating(real_s, fake_s)
+            pen = (JL.r1_penalty(lambda x: d_apply(params_d, x), real, gamma)
+                   if penalty_on else jnp.float32(0.0))
+            return loss + pen, {"d_loss": loss, "penalty": pen,
+                                "real_score": jnp.mean(real_s),
+                                "fake_score": jnp.mean(fake_s)}
+
+        (_, aux), d_grads = jax.value_and_grad(d_objective, has_aux=True)(pd)
+
+        def g_objective(params_g):
+            fake, w_mean = gen_fwd(params_g, dg)
+            return JL.g_loss_nonsaturating(d_apply(new_d, fake)), w_mean
+
+        (g_loss, w_mean), g_grads = jax.value_and_grad(
+            g_objective, has_aux=True)(pg)
+        return dict(aux, g_loss=g_loss), d_grads, g_grads, w_mean
+
+    # one jitted program: op by op, the R1 double backward takes ~50 s
+    return jax.jit(run)(w["pg"], w["pd"], port_new_d, w["dd"], w["dg"])
+
+
+def assert_grads(module, want_tree, what):
+    want = from_flax(jax.tree_util.tree_map(np.asarray, want_tree))
+    named = dict(module.named_parameters())
+    assert set(named) == set(want), what
+    for name, p in named.items():
+        ref = want[name].numpy()
+        if p.grad is None:  # a head of another resolution: JAX gives zeros
+            assert not ref.any(), (what, name)
+            continue
+        scale = max(float(np.abs(ref).max()), 1e-12)
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=0,
+                                   atol=REL * scale, err_msg=f"{what} {name}")
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["r1_on", "r1_off"])
+def stepped(world, request):
+    """One port step (penalty on or off) and the JAX harness beside it."""
+    penalty_on = request.param
+    st = port_state(world)
+    g_before = {k: v.clone() for k, v in st.g.state_dict().items()}
+    ema_before = to_flax(st.g_ema)
+    step = tsteps.build_train_step(world["cfg"], world["phase"],
+                                   penalty_override=penalty_on)
+    draws = to_port_draws(world["flip"], world["dd"], world["dg"])
+    st, metrics = step(st, torch.from_numpy(world["real"]), draws)
+    want, d_grads, g_grads, w_mean = jax_harness(world, penalty_on,
+                                                 to_flax(st.d))
+    return dict(st=st, metrics=metrics, want=want, d_grads=d_grads,
+                g_grads=g_grads, w_mean=w_mean, g_before=g_before,
+                ema_before=ema_before, penalty_on=penalty_on)
+
+
+def test_step_losses_and_scores(stepped):
+    m, want = stepped["metrics"], stepped["want"]
+    for k in ("d_loss", "g_loss", "penalty", "real_score", "fake_score"):
+        np.testing.assert_allclose(float(m[k]), float(want[k]), rtol=REL,
+                                   atol=1e-6, err_msg=k)
+    assert (float(m["penalty"]) > 0) == stepped["penalty_on"]
+
+
+def test_step_d_gradients(stepped):
+    assert_grads(stepped["st"].d, stepped["d_grads"], "D")
+
+
+def test_step_g_gradients(stepped):
+    assert_grads(stepped["st"].g, stepped["g_grads"], "G")
+
+
+def test_step_ema_w_avg_and_counters(stepped, world):
+    st = stepped["st"]
+    beta = world["jcfg"].optim.ema_beta_for(B)
+    want = jax_steps._ema_update(stepped["ema_before"], to_flax(st.g), beta)
+    want = from_flax(jax.tree_util.tree_map(np.asarray, want))
+    for name, t in st.g_ema.state_dict().items():
+        ref = want[name].numpy()
+        np.testing.assert_allclose(t.numpy(), ref, rtol=0,
+                                   atol=1e-6 * float(np.abs(ref).max()),
+                                   err_msg=name)
+    wb = np.float32(world["jcfg"].model.w_avg_beta)
+    want_w = world["w_avg"] * wb + np.asarray(stepped["w_mean"]) * (1 - wb)
+    np.testing.assert_allclose(st.w_avg.numpy(), want_w, rtol=1e-5,
+                               atol=1e-6)
+    changed = {k for k, v in st.g.state_dict().items()
+               if not torch.equal(v, stepped["g_before"][k])}
+    with_grad = {k for k, p in st.g.named_parameters() if p.grad is not None}
+    assert changed == with_grad
+    assert all(k.startswith("synthesis.torgb") for k in
+               set(stepped["g_before"]) - changed)   # other resolutions
+    assert (st.step, st.shown_imgs) == (1, B)
+
+
+def test_adam_matches_optax(world):
+    """The port's optimizers and optax's, fed the same gradients."""
+    st = port_state(world)
+    opt_g, opt_d = make_optimizers(world["cfg"], st.g, st.d, resolution=RES)
+    jopt_g, jopt_d = jax_make_optimizers(world["jcfg"], resolution=RES)
+    rs = np.random.RandomState(5)
+    for module, opt, jopt in ((st.g, opt_g, jopt_g), (st.d, opt_d, jopt_d)):
+        params = to_flax(module)
+        jstate = jopt.init(params)
+        for _ in range(3):
+            grads = jax.tree_util.tree_map(
+                lambda a: rs.randn(*a.shape).astype(np.float32), params)
+            upd, jstate = jopt.update(grads, jstate, params)
+            params = optax.apply_updates(params, upd)
+            sd_grads = from_flax(grads)
+            for name, p in module.named_parameters():
+                p.grad = sd_grads[name].clone()
+            opt.step()
+        want = from_flax(jax.tree_util.tree_map(np.asarray, params))
+        for name, p in module.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       want[name].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("over", [
+    {}, {"loss.penalty_every": 1}, {"loss.penalty": "none"},
+    {"loss.penalty_every": 4, "optim.lazy_adjust": False}])
+def test_lazy_combos_match_jax(over):
+    over = dict(SMALL, **over)
+    tc, tl = tsteps._lazy_combos(get_config("stylegan-256", **over))
+    jc, jl = jax_steps._lazy_combos(jax_get_config("stylegan-256", **over))
+    assert tl == jl
+    assert [tc(i) for i in range(40)] == [jc(i) for i in range(40)]
+
+
+def test_lazy_stepper_cadence_and_generator(world):
+    """Counter 15 runs the R1-off step, 16 the R1-on step; the state's
+    generator makes the draws, so one seed gives one trajectory."""
+    real = torch.from_numpy(world["real"])
+
+    def run():
+        st = create_train_state(world["cfg"], seed=7, device="cpu")
+        stepper = make_lazy_stepper(world["cfg"], world["phase"],
+                                    initial_step=15)
+        out = []
+        for _ in range(2):
+            st, m = stepper(st, real)
+            out.append({k: float(v) for k, v in m.items()})
+        return st, out
+
+    st, m1 = run()
+    _, m2 = run()
+    assert m1 == m2
+    assert m1[0]["penalty"] == 0.0 and m1[1]["penalty"] > 0.0
+    assert (st.step, st.shown_imgs) == (2, 2 * B)
+    assert all(np.isfinite(v) for m in m1 for v in m.values())
+
+
+@pytest.mark.parametrize("knob", [
+    {"loss.fused_seq": True}, {"loss.fused_g_step": True},
+    {"loss.reg_separate": True}, {"loss.pl_weight": 2.0},
+    {"aug.mode": "ada"}, {"optim.grad_accum": 2},
+    {"loss.d_steps_per_g": 2}])
+def test_unported_options_raise(world, knob):
+    cfg = get_config("stylegan-256", **dict(SMALL, **knob))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsteps.build_train_step(cfg, world["phase"])
+
+
+def test_fade_phase_raises():
+    cfg = get_config("stylegan-256", **dict(
+        SMALL, **{"schedule.progressive": True, "schedule.start_res": 8}))
+    fade = [p for p in build_phases(cfg.schedule, cfg.model)
+            if p.kind == "fade"][0]
+    with pytest.raises(NotImplementedError, match="fade"):
+        tsteps.build_train_step(cfg, fade)
