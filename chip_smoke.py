@@ -10,14 +10,21 @@ Phases (any failure raises and the script exits non-zero):
    with nvcc, all sources at once (build time and ``-Xptxas -v`` output).
 3. Kernels: each hand-written kernel against its plain PyTorch version at
    every shape the stylegan-256 serving path (pixelnorm, AdaIN, up+blur)
-   and training step (blur+down, mbstd) give it at batch 32, in float32
-   (TF32 off) and bfloat16; then kernel, plain and one library call timed
-   with CUDA events, beside the bound (bytes / 3.35 TB/s or flops / 67
-   TFLOP/s, the larger).
+   and training step (all five) give it at batch 32, and at a few odd
+   shapes, in float32 (TF32 off) and bfloat16; the resample kernels also
+   with a gain, and up+blur's vector path against its element path bit
+   for bit. Then kernel, plain and one library call timed with CUDA
+   events around back-to-back calls (``ms``), beside the bound (bytes /
+   3.35 TB/s or flops / 67 TFLOP/s, the larger); the kernel and the
+   library call also on the device alone (``device_ms``, a CUDA-graph
+   replay of the same calls) and on the host alone (``host_us``, wall
+   time per un-synchronised call). Sums per served batch and per R1-off
+   training step.
 4. Gradients: each autograd Function's gradient against autograd through
-   its plain version on the card (float32); then a second-order R1-shaped
-   derivative through the resample and mbstd Functions, against the same
-   chain of plain versions.
+   its plain version on the card (float32); the resample Functions'
+   backwards must each be one device kernel (the gain rides in the
+   kernel's store); then a second-order R1-shaped derivative through the
+   resample and mbstd Functions, against the same chain of plain versions.
 5. Serving: ``BatchSampler`` at the full stylegan-256 widths (bf16, batch
    32, seeded random weights with every term made live) serves a few
    requests; the launch counters must show 1 pixelnorm, 14 AdaIN and
@@ -40,6 +47,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import statistics
@@ -62,12 +70,13 @@ from ganlab_tpu_torch.ops.kernels.mbstd import (
 )
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
-    pixel_norm_triton,
+    pixel_norm_cuda,
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
     blur_downsample_2x_cuda,
     blur_downsample_2x_ref,
     upsample_blur_2x_cuda,
+    upsample_blur_2x_path,
     upsample_blur_2x_ref,
 )
 from ganlab_tpu_torch.sample import build_sample_fn
@@ -127,7 +136,7 @@ def phase_build():
 
 
 # -- 3. kernels vs plain ---------------------------------------------------
-def cuda_time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 30, warmup: int = 10) -> float:
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -138,6 +147,38 @@ def cuda_time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, calls: int = 10, replays: int = 3) -> float:
+    """fn's time on the device alone: ``calls`` calls captured into one
+    CUDA graph, the replay timed by CUDA events. No host time per call is
+    in it; the gap the device leaves between two nodes of a graph is."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def host_time_us(fn, calls: int = 100) -> float:
+    """Host wall time per call over ``calls`` calls with no synchronize in
+    between: what the caller's thread spends to submit one call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def tolerance(dtype, scale: float) -> float:
@@ -178,17 +219,17 @@ def step_launches(mc, r1: bool) -> dict:
       AdaIN per resolution, one up+blur per block from 8x8 up;
     * D forward: one blur+down per block, one mbstd;
     * D backward (to its parameters or its input): each blur+down's
-      backward is UpsampleBlur2x / 4 at the block's output shape; mbstd's
-      backward is plain PyTorch;
-    * G backward: each up+blur's backward is 4 * BlurDownsample2x at the
-      block's upsampled shape; AdaIN's and pixelnorm's are plain.
+      backward is UpsampleBlur2x with gain 1/4 at the block's output
+      shape; mbstd's backward is plain PyTorch;
+    * G backward: each up+blur's backward is BlurDownsample2x with gain 4
+      at the block's upsampled shape; AdaIN's and pixelnorm's are plain.
 
     D phase: G forward (no grad), D on real and on fake, one backward of
     both. G phase: G forward, D forward, backward through D into G. An R1
     step adds D on real once more and its create-graph backward; the
     double backward then runs the backward of every first-order
-    UpsampleBlur2x node (4 * blur+down at the block shapes) and of every
-    blur+down node of that D forward (up+blur / 4).
+    UpsampleBlur2x node (blur+down at the block shapes) and of every
+    blur+down node of that D forward (up+blur).
     """
     lg = mc.res_log2
     down = {(BATCH, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
@@ -211,14 +252,16 @@ def step_launches(mc, r1: bool) -> dict:
     return total
 
 
-def _blur_filter(c, dtype):
+@functools.cache
+def _blur_filter(c, dtype, norm=16.0):
+    """The library calls' depthwise 4x4 filter, made once per (c, dtype):
+    a call then copies nothing from the host and can go into a graph."""
     t = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda")
-    return (torch.outer(t, t) / 16.0).to(dtype).expand(c, 1, 4, 4)
+    return (torch.outer(t, t) / norm).to(dtype).expand(c, 1, 4, 4)
 
 
 def _blur_down_filter(c, dtype):
-    t = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda")
-    return (torch.outer(t, t) / 64.0).to(dtype).expand(c, 1, 4, 4)
+    return _blur_filter(c, dtype, 64.0)
 
 
 def _mbstd_library(x):
@@ -229,10 +272,10 @@ def _mbstd_library(x):
 
 KERNELS = {
     "pixelnorm": dict(
-        route="triton",
-        source="ganlab_tpu_torch/ops/kernels/pixelnorm.py",
+        route="cuda",
+        source="ganlab_tpu_torch/csrc/pixelnorm.cu",
         replaces="ganlab_tpu/ops/pallas/pixelnorm.py:64",
-        kernel=pixel_norm_triton,
+        kernel=pixel_norm_cuda,
         plain=pixel_norm_ref,
         inputs=lambda s, dt, g: (
             torch.randn(s, generator=g, device="cuda").to(dt),),
@@ -299,75 +342,201 @@ KERNELS = {
 BWD_ROUTE = {
     "pixelnorm": "plain PyTorch (analytic VJP)",
     "adain": "plain PyTorch (analytic VJP)",
-    "upsample_blur_2x": "cuda: 4 x BlurDownsample2x",
-    "blur_downsample_2x": "cuda: UpsampleBlur2x / 4",
+    "upsample_blur_2x": "cuda: BlurDownsample2x with gain 4",
+    "blur_downsample_2x": "cuda: UpsampleBlur2x with gain 1/4",
     "minibatch_stddev": "plain PyTorch (analytic VJP)",
 }
-TRAINING_ONLY = ("blur_downsample_2x", "minibatch_stddev")
+WITH_GAIN = ("upsample_blur_2x", "blur_downsample_2x")
+CHECK_GAIN = 0.3               # kernel(x, gain) against plain(x, gain)
+# checked, not timed: rows that end ragged, widths that are no multiple of
+# a 16-byte vector, more than a warp's worth of vectors in a row
+EXTRA_SHAPES = {
+    "pixelnorm": [(3, 96), (5, 500), (4, 4096), (2, 2056)],
+    "upsample_blur_2x": [(3, 5, 7, 24), (2, 3, 33, 31), (1, 2, 5, 264),
+                         (2, 2, 9, 8)],
+    "blur_downsample_2x": [(2, 3, 34, 30)],
+}
+SUMMED = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
+          "bytes_ms", "ops_ms")
+SERVED, STEP = "served batch", "R1-off step"
+SMALL_MS = 0.05                # below this a timing is read five more times
 
 
-def phase_kernels(shapes_by_kernel: dict, unit: str) -> dict:
-    """Check and time each kernel at its shapes; ``shapes_by_kernel`` maps
-    kernel -> {shape: launches per ``unit``}, and the times are summed
-    over one ``unit``'s launches."""
+def _dt(dtype) -> str:
+    return str(dtype)[6:]
+
+
+def _check(label: str, out, ref, dtype, note: str = "") -> float:
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = tolerance(dtype, scale)
+    ok = bool(math.isfinite(err) and err <= tol and out.shape == ref.shape
+              and out.dtype == ref.dtype)
+    log(f"check {label}: max_abs {err:.3e} max_rel "
+        f"{err / max(scale, 1e-30):.3e} tol {tol:.3e}{note} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with plain version")
+    return err
+
+
+def check_shape(name: str, shape, g) -> float:
+    """The kernel against its plain version at one shape in float32 and
+    bfloat16; returns the largest absolute error."""
+    k = KERNELS[name]
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        inp = k["inputs"](shape, dt, g)
+        t0 = time.perf_counter()
+        out = k["kernel"](*inp)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        label = f"{name} {shape} {_dt(dt)}"
+        worst = max(worst, _check(label, out, k["plain"](*inp), dt,
+                                  f" first call {first_s:.2f} s"))
+        if name in WITH_GAIN:
+            worst = max(worst, _check(
+                f"{label} gain {CHECK_GAIN}", k["kernel"](*inp, CHECK_GAIN),
+                k["plain"](*inp, CHECK_GAIN), dt))
+        if name == "upsample_blur_2x":
+            # the same values at a pointer that is not 16-byte aligned go
+            # down the element path, whatever path the shape took
+            x = inp[0]
+            xu = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:] \
+                .view(shape).copy_(x)
+            out_u = k["kernel"](xu)
+            paths = (upsample_blur_2x_path(x, out),
+                     upsample_blur_2x_path(xu, out_u))
+            same = torch.equal(out, out_u)
+            log(f"path {label}: {paths[0]}; from an unaligned copy: "
+                f"{paths[1]}, bit-identical {same}")
+            if paths[1] != "element" or not same:
+                raise AssertionError(f"{label}: the two paths of up+blur "
+                                     "disagree")
+    return worst
+
+
+def time_shape(name: str, shape, g) -> dict:
+    """Times of the kernel, its plain version and its library call at one
+    shape in bfloat16, beside the bound."""
+    k = KERNELS[name]
+    inp = k["inputs"](shape, torch.bfloat16, g)
+
+    def kern():
+        return k["kernel"](*inp)
+
+    t = dict(ms=cuda_time_ms(kern),
+             plain_ms=cuda_time_ms(lambda: k["plain"](*inp)),
+             device_ms=device_time_ms(kern), host_us=host_time_us(kern),
+             library_ms=None, library_device_ms=None, library_host_us=None)
+    note = "n/a"
+    if k["library"] is not None:
+        def lib():
+            return k["library"](*inp)
+
+        lib_err = (lib().float() - k["plain"](*inp).float()).abs().max().item()
+        t.update(library_ms=cuda_time_ms(lib),
+                 library_device_ms=device_time_ms(lib),
+                 library_host_us=host_time_us(lib))
+        note = (f"{t['library_ms']:.4f} ms (device "
+                f"{t['library_device_ms']:.4f} ms, host "
+                f"{t['library_host_us']:.1f} us; vs plain {lib_err:.2e})")
+    if t["ms"] < SMALL_MS and k["library"] is not None:
+        # a call this short is timed by the host's pace, which wanders:
+        # read kernel and library call in turns to see by how much
+        reads = [(cuda_time_ms(kern), cuda_time_ms(lib)) for _ in range(5)]
+        for who, vals in zip(("kernel", "library"), zip(*reads)):
+            log(f"again {name} {shape} bf16 {who} ms, 5 readings in turns: "
+                f"min {min(vals):.4f} median {statistics.median(vals):.4f} "
+                f"max {max(vals):.4f}")
+    nbytes = k["nbytes"](shape, torch.bfloat16)
+    t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    t["ops_ms"] = k["flops"](shape) / F32_FLOPS_PER_S * 1e3
+    bound = max(t["bytes_ms"], t["ops_ms"])
+    log(f"time {name} {shape} bf16: kernel {t['ms']:.4f} ms (device "
+        f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us)  plain "
+        f"{t['plain_ms']:.4f} ms  library {note}  bound {bound:.4f} ms "
+        f"({'bytes' if t['bytes_ms'] >= t['ops_ms'] else 'operations'}); "
+        f"{nbytes / t['ms'] / 1e6:.0f} GB/s = "
+        f"{nbytes / t['ms'] / 1e-3 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s by "
+        f"ms, {nbytes / t['device_ms'] / 1e-3 / HBM_BYTES_PER_S:.3f} by "
+        "device_ms")
+    return t
+
+
+def pixelnorm_host_parts(g) -> None:
+    """Where the host's time for one pixelnorm call goes: the output's
+    allocation, the C function through ctypes on a ready output, and the
+    whole wrapper, beside the library call (host_time_us of each)."""
+    from ganlab_tpu_torch.ops.kernels import pixelnorm, stream_handle
+
+    x = torch.randn(BATCH, 512, generator=g, device="cuda").bfloat16()
+    out = torch.empty_like(x)
+    fn = pixelnorm._fn()
+
+    def raw():
+        fn(x.data_ptr(), out.data_ptr(), BATCH, 512, 1e-8, 1, 0,
+           stream_handle(0))
+
+    parts = {"empty_like": lambda: torch.empty_like(x),
+             "C function through ctypes": raw,
+             "whole wrapper": lambda: pixel_norm_cuda(x)}
+    if KERNELS["pixelnorm"]["library"] is not None:
+        parts["F.rms_norm"] = lambda: KERNELS["pixelnorm"]["library"](x)
+    for _ in range(2):                    # the second reading is the warm one
+        reads = {n: host_time_us(f, calls=300) for n, f in parts.items()}
+    log(f"host pixelnorm {tuple(x.shape)} bf16, us per call over 300 "
+        "un-synchronised calls: "
+        + ", ".join(f"{n} {v:.2f}" for n, v in reads.items()))
+
+
+def unit_sums(times: dict, launches: dict) -> dict:
+    """The per-shape times summed over one unit's launches."""
+    n_all = sum(launches.values())
+    r = {"launches": n_all}
+    for key in SUMMED:
+        vals = [times[s][key] for s in launches]
+        r[key] = None if None in vals else \
+            sum(n * v for n, v in zip(launches.values(), vals))
+    for key in ("host_us", "library_host_us"):      # per call: the mean
+        vals = [times[s][key] for s in launches]
+        r[key] = None if None in vals else \
+            sum(n * v for n, v in zip(launches.values(), vals)) / n_all
+    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+    r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+    return r
+
+
+def phase_kernels(units: dict) -> dict:
+    """Check and time every kernel. ``units`` maps a unit of work (a served
+    batch, a training step) to kernel -> {shape: launches per unit}; every
+    shape is checked and timed once and the times are summed per unit.
+    Returns kernel -> {"max_abs_err": ..., unit: sums}."""
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     with torch.inference_mode():
-        for name, shapes in shapes_by_kernel.items():
-            k = KERNELS[name]
-            r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                     library_ms=0.0 if k["library"] else None,
-                     bound_by="bytes", bytes_ms=0.0, ops_ms=0.0)
-            for shape, per_batch in shapes.items():
-                for dt in (torch.float32, torch.bfloat16):
-                    inp = k["inputs"](shape, dt, g)
-                    t0 = time.perf_counter()
-                    out = k["kernel"](*inp)
-                    torch.cuda.synchronize()
-                    first_s = time.perf_counter() - t0
-                    ref = k["plain"](*inp)
-                    err = (out.float() - ref.float()).abs().max().item()
-                    scale = ref.float().abs().max().item()
-                    tol = tolerance(dt, scale)
-                    ok = bool(math.isfinite(err) and err <= tol
-                              and out.shape == ref.shape
-                              and out.dtype == ref.dtype)
-                    log(f"check {name} {shape} {str(dt)[6:]}: max_abs "
-                        f"{err:.3e} max_rel {err / max(scale, 1e-30):.3e} "
-                        f"tol {tol:.3e} first call {first_s:.2f} s "
-                        f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"{name} {shape} {dt}: kernel "
-                                             f"disagrees with plain version")
-                    r["max_abs_err"] = max(r["max_abs_err"], err)
-                inp = k["inputs"](shape, torch.bfloat16, g)
-                t_k = cuda_time_ms(lambda: k["kernel"](*inp))
-                t_p = cuda_time_ms(lambda: k["plain"](*inp))
-                t_l = None
-                if k["library"] is not None:
-                    lib_out = k["library"](*inp)
-                    lib_err = (lib_out.float() - k["plain"](*inp).float()) \
-                        .abs().max().item()
-                    t_l = cuda_time_ms(lambda: k["library"](*inp))
-                b_ms = k["nbytes"](shape, torch.bfloat16) \
-                    / HBM_BYTES_PER_S * 1e3
-                o_ms = k["flops"](shape) / F32_FLOPS_PER_S * 1e3
-                log(f"time {name} {shape} bf16 x{per_batch}/{unit}: kernel "
-                    f"{t_k:.4f} ms  plain {t_p:.4f} ms  library "
-                    f"{'n/a' if t_l is None else f'{t_l:.4f} ms'}"
-                    f"{'' if t_l is None else f' (vs plain {lib_err:.2e})'}"
-                    f"  bound {max(b_ms, o_ms):.4f} ms "
-                    f"({'bytes' if b_ms >= o_ms else 'operations'})")
-                r["ms"] += per_batch * t_k
-                r["plain_ms"] += per_batch * t_p
-                r["bytes_ms"] += per_batch * b_ms
-                r["ops_ms"] += per_batch * o_ms
-                if r["library_ms"] is not None:
-                    r["library_ms"] += per_batch * t_l
-            r["unit"] = unit
-            r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] \
-                else "operations"
+        for name in KERNELS:
+            shapes = list(dict.fromkeys(
+                s for by_kernel in units.values()
+                for s in by_kernel.get(name, {})))
+            r = {"max_abs_err": max(
+                check_shape(name, s, g)
+                for s in shapes + EXTRA_SHAPES.get(name, []))}
+            times = {s: time_shape(name, s, g) for s in shapes}
+            if name == "pixelnorm":
+                pixelnorm_host_parts(g)
+            for unit, by_kernel in units.items():
+                if by_kernel.get(name):
+                    u = r[unit] = unit_sums(times, by_kernel[name])
+                    lib = "n/a" if u["library_ms"] is None else \
+                        (f"{u['library_ms']:.4f} ms (device "
+                         f"{u['library_device_ms']:.4f} ms)")
+                    log(f"sum {name} per {unit} ({u['launches']} launches): "
+                        f"kernel {u['ms']:.4f} ms (device "
+                        f"{u['device_ms']:.4f} ms, host {u['host_us']:.1f} "
+                        f"us a call)  plain {u['plain_ms']:.4f} ms  library "
+                        f"{lib}  bound {u['bound_ms']:.4f} ms "
+                        f"({u['bound_by']})")
             results[name] = r
     return results
 
@@ -512,10 +681,30 @@ def profile_call(label: str, fn, card: str, top: int = 12) -> dict:
     log(f"profile: {label}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms (idle share {idle:.3f}; device events sum to "
         f"{sum_ms:.2f} ms) [{card}]")
-    for us, count, key in rows[:top]:
+    ours = [r for r in rows[top:] if any(n in r[2] for n in PORT_KERNELS)]
+    for us, count, key in rows[:top] + ours:
         log(f"profile: {us / 1e3:9.3f} ms  {100 * us / 1e3 / sum_ms:5.1f}%  "
             f"x{count:<5d} {key[:90]}")
+    log(f"profile: {label}: {sum(r[1] for r in rows)} device events in all")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=idle)
+
+
+# substrings of the hand-written kernels' names in a profile
+PORT_KERNELS = ("pixel_norm", "adain", "upsample_blur_2x",
+                "blur_downsample_2x", "mbstd")
+
+
+def device_events(fn) -> list[str]:
+    """Names of the device-side events (kernels, copies, memsets) of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e.name for e in prof.events() if e.device_type == cuda]
 
 
 # -- 4. gradients on the card ------------------------------------------------
@@ -561,6 +750,20 @@ def phase_gradients() -> None:
     moved = {n: KERNELS[n]["kernel"].launches - before[n] for n in before}
     if any(v == 0 for v in moved.values()):
         raise AssertionError(f"a Function did not launch its kernel: {moved}")
+
+    # the factor between the two resample ops' adjoints rides in the
+    # kernel's store: a backward is one kernel, with no elementwise pass
+    for name, other in (("blur_downsample_2x", "upsample_blur_2x"),
+                        ("upsample_blur_2x", "blur_downsample_2x")):
+        (xin,) = cases[name]
+        out = kern[name](xin)
+        ct = torch.randn(out.shape, generator=g, device="cuda")
+        names = device_events(lambda: torch.autograd.grad(out, xin, ct))
+        log(f"grad {name}: its backward ran {len(names)} device kernel(s): "
+            f"{[n[:60] for n in names]}")
+        if len(names) != 1 or other not in names[0]:
+            raise AssertionError(f"{name}: backward is not one {other} "
+                                 "kernel")
 
     x = torch.randn(8, 16, 16, 16, generator=g, device="cuda")
     w1, w2 = r(16, 16, 3, 3, scale=0.2), r(16, 16, 3, 3, scale=0.2)
@@ -795,16 +998,16 @@ def main() -> None:
     kind, card = phase_device()
     phase_build()
     mc = get_config("stylegan-256").model
-    results = phase_kernels(serving_shapes(mc), "served batch")
-    train_shapes = step_launches(mc, r1=False)
-    results.update(phase_kernels(
-        {n: train_shapes[n] for n in TRAINING_ONLY}, "R1-off step"))
+    results = phase_kernels({SERVED: serving_shapes(mc),
+                             STEP: step_launches(mc, r1=False)})
     phase_gradients()
     serve_counts = phase_serving(card)
     train = phase_training(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
+        per = SERVED if SERVED in r else STEP
+        u, st = r[per], r[STEP]
         tl = train["launches"][name]
         kernels.append({
             "name": name, "route": k["route"], "source": k["source"],
@@ -815,13 +1018,22 @@ def main() -> None:
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
             "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "ms_per": r["unit"]})
-    log(f"kernel times are summed over the launches of one served batch "
-        f"of {BATCH} (pixelnorm, AdaIN, up+blur) or one R1-off training "
-        f"step at batch {BATCH} (blur+down, mbstd), bf16 [{card}]")
+            "max_abs_err": r["max_abs_err"], "ms": u["ms"],
+            "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
+            "bound_by": u["bound_by"], "library_ms": u["library_ms"],
+            "ms_per": per,
+            "device_ms": u["device_ms"], "host_us": u["host_us"],
+            "library_device_ms": u["library_device_ms"],
+            "library_host_us": u["library_host_us"],
+            "ms_per_step": st["ms"], "bound_ms_per_step": st["bound_ms"],
+            "device_ms_per_step": st["device_ms"],
+            "plain_ms_per_step": st["plain_ms"],
+            "library_ms_per_step": st["library_ms"]})
+    log(f"kernel times (ms, plain_ms, library_ms, device_ms, bound_ms) are "
+        f"summed over the launches of one served batch of {BATCH} "
+        f"(pixelnorm, AdaIN, up+blur) or one R1-off training step at batch "
+        f"{BATCH} (blur+down, mbstd; *_per_step for all five), bf16; "
+        f"host_us is per call [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,8 @@
 // The two resampling kernels of StyleGAN, NCHW, for Hopper (sm_90a):
 // nearest-2x upsample + [1,2,1] blur, and [1,2,1] blur + 2x downsample
-// (further below). Each is the other's adjoint up to a factor 4.
+// (further below). Each is the other's adjoint up to a factor 4, so each
+// takes a `gain` that it multiplies into its store: the autograd Functions
+// pass 0.25 and 4 there instead of running a separate elementwise pass.
 //
 // Fused nearest-2x upsample + [1,2,1] FIR blur.
 //
@@ -11,31 +13,88 @@
 //     out[2i]   = 0.25 x[i-1] + 0.75 x[i]
 //     out[2i+1] = 0.75 x[i]   + 0.25 x[i+1]
 //
+// vertical lerps first, then horizontal, in float32 whatever the storage
+// type, then `gain *` and one rounding to the storage type.
+//
 // Bound: memory. It reads each input once and writes 4x as many outputs,
 // about 30 flops per input pixel, i.e. a few flops per byte moved, far
-// below the card's ~295 flop/byte balance point,
-// so the least time is (in + out bytes) / 3.35 TB/s.
+// below the card's ~295 flop/byte balance point, so the least time is
+// (in + out bytes) / 3.35 TB/s.
 //
-// Design: one thread per input pixel writes the 2x2 output quad that the
-// pixel owns, from its 3x3 input neighbourhood (vertical lerps first, then
-// horizontal, in float32 whatever the storage type). Neighbouring threads
-// take neighbouring columns, so the 9 reads hit the same few cache lines
-// across a warp and each output row pair is written as one 2-element
-// vector store per thread. A later PR can tile rows through shared memory
-// and widen the stores.
+// What limited the first design (one thread per input pixel, kept below as
+// the element path): each thread found (plane, i, j) by 64-bit divisions,
+// made nine predicated 2-byte loads with 64-bit addresses and two 4-byte
+// stores, some 250 machine operations to move 10 bytes. The SMs'
+// schedulers are then saturated long before the memory bandwidth is.
 //
-// C interface (loaded with ctypes): returns cudaGetLastError() after the
-// launch, 0 on success. dtype 0 = float32, 1 = bfloat16.
+// The vector path, taken where W is a multiple of V = 16 / itemsize (8
+// bf16, 4 float32) and both pointers are 16-byte aligned:
+//  * a thread owns V adjacent columns of one input row. It loads that row
+//    and the rows above and below as three independent 16-byte vectors
+//    (all three in flight before the first use) and writes the 2V output
+//    columns of each of its two output rows as two 16-byte stores: about
+//    20 machine operations per 10 bytes.
+//  * no division per pixel: threadIdx.x is the column chunk, threadIdx.y
+//    and blockIdx.x give the row among all planes' rows, and one 32-bit
+//    remainder per thread gives the row inside its plane, which only
+//    decides whether the rows above and below exist. NCHW is row-major
+//    over (plane, row), so the addresses need no plane at all.
+//  * each input element comes from device memory once: the rows above and
+//    below are the own rows of the threads beside this one in
+//    threadIdx.y, which load them at the same time, so those reads hit in
+//    L1/L2. A block covers 256 / (W / V) consecutive rows and so reads and
+//    writes one contiguous piece of memory. Walking each thread down a
+//    strip of 2 to 16 rows with the three rows kept in registers (fewer
+//    loads, no re-read) measured slower at every large shape,
+//    the more so the longer the strip: a block then writes many short
+//    pieces far apart at any one time.
+//  * the halo columns come from the neighbouring lanes: a thread shuffles
+//    its vertically-lerped edge columns to the lanes beside it
+//    (__shfl_up_sync / __shfl_down_sync, four per thread), which are
+//    bit-identical to what that lane would compute itself. A lane whose
+//    neighbour chunk lies in another warp (a row of more than 32 chunks,
+//    or a chunk count that does not divide 32) reads the three halo
+//    elements itself; at a row's first and last chunk the halo is zero,
+//    so nothing leaks from the row or plane that the next lane holds.
+//    Shared memory is not used: a tile staged there would cost a
+//    __syncthreads for the same bytes.
+//  * the output is written with streaming stores (__stcs): it is four
+//    fifths of the traffic and nothing in this kernel reads it again, and
+//    marking it evict-first measured faster than default stores, most of
+//    all at the maps that fit in L2.
+// The C function picks the path from the shape and the pointers
+// (ganlab_upsample_blur_2x_path tells which); both paths evaluate the same
+// expressions in the same order and agree bit for bit.
+//
+// C interface (loaded with ctypes): launches on `stream` of `device` and
+// returns cudaGetLastError() after the launch, 0 on success. dtype 0 =
+// float32, 1 = bfloat16.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+
+// The two polyphase taps, 0.25 a + 0.75 b and 0.75 b + 0.25 c. The product
+// by 0.25 is exact, so the one fused multiply-add rounds the sum once, and
+// writing it out keeps the compiler from contracting the two paths'
+// expressions differently: every path goes through these two functions.
+__device__ __forceinline__ float lerp_lo(float a, float b) {
+  return __fmaf_rn(0.75f, b, 0.25f * a);
+}
+__device__ __forceinline__ float lerp_hi(float b, float c) {
+  return __fmaf_rn(0.75f, b, 0.25f * c);
 }
 
 template <typename T>
@@ -57,10 +116,134 @@ struct Pair<__nv_bfloat16> {
   }
 };
 
+// Vec<T>: 16 bytes of T as one uint4, and their float32 values.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
+    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // a bf16 is the upper half of a float32; element 0 sits in the low bits
+  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(bf16x2_bits(f[0], f[1]), bf16x2_bits(f[2], f[3]),
+                      bf16x2_bits(f[4], f[5]), bf16x2_bits(f[6], f[7]));
+  }
+};
+
+// One output row's 2V columns from the V lerped columns v and the lerped
+// halo columns left and right of them: two 16-byte streaming stores.
+template <typename T>
+__device__ __forceinline__ void store_up_row(T* orow, const float* v,
+                                             float left, float right,
+                                             float gain) {
+  constexpr int V = Vec<T>::N;
+  float e[2 * V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const float a = k == 0 ? left : v[k - 1];
+    const float c = k == V - 1 ? right : v[k + 1];
+    e[2 * k] = gain * lerp_lo(a, v[k]);
+    e[2 * k + 1] = gain * lerp_hi(v[k], c);
+  }
+  __stcs(reinterpret_cast<uint4*>(orow), Vec<T>::pack(e));
+  __stcs(reinterpret_cast<uint4*>(orow + V), Vec<T>::pack(e + V));
+}
+
+// Vector path. blockDim = (chunks of a row in this block, rows in this
+// block); grid = (row blocks, chunk blocks); `rows` counts the rows of all
+// planes. Every thread reaches the shuffles, so they are always warp-wide;
+// a thread without work (past the last chunk or row) loads zeros and
+// stores nothing.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+upsample_blur_2x_vec_kernel(const T* __restrict__ x, T* __restrict__ o,
+                            int rows, int h, int w, int chunks, float gain) {
+  constexpr int V = Vec<T>::N;
+  const int tx = threadIdx.x;
+  const int lane = (threadIdx.y * blockDim.x + tx) & 31;
+  const int chunk = blockIdx.y * blockDim.x + tx;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool active = chunk < chunks && row < rows;
+  const int i = active ? row % h : 0;  // the row inside its plane
+  const bool above = active && i > 0, below = active && i + 1 < h;
+  const T* xr = x + (active ? static_cast<size_t>(row) * w + chunk * V : 0);
+
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 qa = above ? *reinterpret_cast<const uint4*>(xr - w) : zero;
+  const uint4 qb = active ? *reinterpret_cast<const uint4*>(xr) : zero;
+  const uint4 qc = below ? *reinterpret_cast<const uint4*>(xr + w) : zero;
+  float prev[V], cur[V], nxt[V], ve[V], vo[V];
+  Vec<T>::unpack(qa, prev);
+  Vec<T>::unpack(qb, cur);
+  Vec<T>::unpack(qc, nxt);
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    ve[c] = lerp_lo(prev[c], cur[c]);
+    vo[c] = lerp_hi(cur[c], nxt[c]);
+  }
+
+  // the lerped halo columns: zero at the row's ends, from the neighbouring
+  // lane where it holds the neighbouring chunk, else from memory
+  float le = __shfl_up_sync(kFullMask, ve[V - 1], 1);
+  float lo = __shfl_up_sync(kFullMask, vo[V - 1], 1);
+  float re = __shfl_down_sync(kFullMask, ve[0], 1);
+  float ro = __shfl_down_sync(kFullMask, vo[0], 1);
+  auto halo = [&](int c, float& even, float& odd) {  // c relative to chunk
+    const float b = load_f32(xr + c);
+    even = lerp_lo(above ? load_f32(xr - w + c) : 0.0f, b);
+    odd = lerp_hi(b, below ? load_f32(xr + w + c) : 0.0f);
+  };
+  if (!active || chunk == 0) {
+    le = lo = 0.0f;
+  } else if (tx == 0 || lane == 0) {
+    halo(-1, le, lo);
+  }
+  if (!active || chunk + 1 == chunks) {
+    re = ro = 0.0f;
+  } else if (tx + 1 == blockDim.x || lane == 31) {
+    halo(V, re, ro);
+  }
+  if (active) {
+    // plane * 4hw + 2i * 2w = 4w * row: no plane needed here either
+    T* orow = o + 4 * static_cast<size_t>(row) * w + 2 * chunk * V;
+    store_up_row<T>(orow, ve, le, re, gain);
+    store_up_row<T>(orow + 2 * w, vo, lo, ro, gain);
+  }
+}
+
+// Element path: one thread per input pixel writes the 2x2 output quad that
+// the pixel owns, from its 3x3 input neighbourhood. Any shape, any
+// alignment; 64-bit indices.
 template <typename T>
 __global__ void upsample_blur_2x_kernel(const T* __restrict__ x,
                                         T* __restrict__ o, int64_t total,
-                                        int h, int w) {
+                                        int h, int w, float gain) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (idx >= total) return;
@@ -86,16 +269,16 @@ __global__ void upsample_blur_2x_kernel(const T* __restrict__ x,
   float ve[3], vo[3];
 #pragma unroll
   for (int dj = 0; dj < 3; ++dj) {
-    ve[dj] = 0.25f * v[0][dj] + 0.75f * v[1][dj];
-    vo[dj] = 0.75f * v[1][dj] + 0.25f * v[2][dj];
+    ve[dj] = lerp_lo(v[0][dj], v[1][dj]);
+    vo[dj] = lerp_hi(v[1][dj], v[2][dj]);
   }
   using P = Pair<T>;
   const int64_t w2 = 2 * static_cast<int64_t>(w);
   T* op = o + plane * (4 * static_cast<int64_t>(h) * w) + (2 * i) * w2 + 2 * j;
   *reinterpret_cast<typename P::type*>(op) =
-      P::make(0.25f * ve[0] + 0.75f * ve[1], 0.75f * ve[1] + 0.25f * ve[2]);
+      P::make(gain * lerp_lo(ve[0], ve[1]), gain * lerp_hi(ve[1], ve[2]));
   *reinterpret_cast<typename P::type*>(op + w2) =
-      P::make(0.25f * vo[0] + 0.75f * vo[1], 0.75f * vo[1] + 0.25f * vo[2]);
+      P::make(gain * lerp_lo(vo[0], vo[1]), gain * lerp_hi(vo[1], vo[2]));
 }
 
 // Fused [1,2,1] blur + 2x2 average pool (replaces blur_downsample_2x_pallas
@@ -104,14 +287,16 @@ __global__ void upsample_blur_2x_kernel(const T* __restrict__ x,
 //
 //     out[i] = 0.125 x[2i-1] + 0.375 x[2i] + 0.375 x[2i+1] + 0.125 x[2i+2]
 //
-// Bound: memory. It reads each input once and writes a quarter as many
-// outputs, ~21 flops per output, so the least time is (in + out bytes) /
-// 3.35 TB/s. Design: one thread per output pixel reads its 4x4 input
-// window (vertical taps per column first, then the horizontal taps, in
-// float32, the order of the plain version). Neighbouring threads take
-// neighbouring output columns, so a warp's reads of one input row span 66
-// contiguous elements and its writes are one contiguous run. A later PR
-// can stage row tiles in shared memory and vectorize.
+// then `gain *` before the one store. Bound: memory. It reads each input
+// once and writes a quarter as many outputs, ~21 flops per output, so the
+// least time is (in + out bytes) / 3.35 TB/s. Design: one thread per
+// output pixel reads its 4x4 input window (vertical taps per column first,
+// then the horizontal taps, in float32, the order of the plain version).
+// Neighbouring threads take neighbouring output columns, so a warp's reads
+// of one input row span 66 contiguous elements and its writes are one
+// contiguous run. Like up+blur's element path it saturates the SMs'
+// schedulers, not the memory (two 64-bit divisions and sixteen predicated
+// element loads per output): the same vector redesign is still to do here.
 __device__ __forceinline__ float tap4(int k) {
   return (k == 0 || k == 3) ? 0.125f : 0.375f;
 }
@@ -124,7 +309,7 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 template <typename T>
 __global__ void blur_downsample_2x_kernel(const T* __restrict__ x,
                                           T* __restrict__ o, int64_t total,
-                                          int ho, int wo) {
+                                          int ho, int wo, float gain) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (idx >= total) return;
@@ -153,56 +338,110 @@ __global__ void blur_downsample_2x_kernel(const T* __restrict__ x,
   float acc = 0.0f;
 #pragma unroll
   for (int dc = 0; dc < 4; ++dc) acc += tap4(dc) * col[dc];
-  store_f32(o + idx, acc);
+  store_f32(o + idx, gain * acc);
 }
 
-constexpr int kThreads = 256;
+// How the vector path cuts (planes, h, w) into threads; ok = false where
+// the shape or the pointers leave it to the element path.
+struct VecPlan {
+  bool ok;
+  int chunks, rows;
+  dim3 block, grid;
+};
 
 template <typename T>
-int launch(const void* x, void* o, int64_t planes, int h, int w,
-           cudaStream_t stream) {
-  const int64_t total = planes * h * w;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  upsample_blur_2x_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               stream>>>(static_cast<const T*>(x),
-                                         static_cast<T*>(o), total, h, w);
+VecPlan plan_vec(const void* x, const void* o, long long planes, int h,
+                 int w) {
+  constexpr int V = Vec<T>::N;
+  VecPlan p{};
+  if (w % V != 0) return p;  // also W < V and W * itemsize % 16 != 0
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return p;
+  p.chunks = w / V;
+  const int bx = p.chunks < 32 ? p.chunks : 32;
+  const int by = kThreads / bx;
+  const long long rows = planes * h;
+  const long long chunk_blocks = (p.chunks + bx - 1) / bx;
+  if (rows > 0x3fffffffLL || chunk_blocks > 65535) return p;
+  p.rows = static_cast<int>(rows);
+  p.block = dim3(bx, by);
+  p.grid = dim3(static_cast<unsigned>((rows + by - 1) / by),
+                static_cast<unsigned>(chunk_blocks));
+  p.ok = true;
+  return p;
+}
+
+template <typename T>
+int launch_up(const void* x, void* o, long long planes, int h, int w,
+              float gain, cudaStream_t stream) {
+  const VecPlan p = plan_vec<T>(x, o, planes, h, w);
+  if (p.ok) {
+    upsample_blur_2x_vec_kernel<T><<<p.grid, p.block, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(o), p.rows, h, w, p.chunks,
+        gain);
+  } else {
+    const int64_t total = planes * h * w;
+    const int64_t blocks = (total + kThreads - 1) / kThreads;
+    upsample_blur_2x_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 stream>>>(static_cast<const T*>(x),
+                                           static_cast<T*>(o), total, h, w,
+                                           gain);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_down(const void* x, void* o, int64_t planes, int ho, int wo,
-                cudaStream_t stream) {
+int launch_down(const void* x, void* o, long long planes, int ho, int wo,
+                float gain, cudaStream_t stream) {
   const int64_t total = planes * ho * wo;
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   blur_downsample_2x_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                                  stream>>>(static_cast<const T*>(x),
-                                           static_cast<T*>(o), total, ho, wo);
+                                           static_cast<T*>(o), total, ho, wo,
+                                           gain);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// x (planes, h, w) -> o (planes, 2h, 2w) = gain * up+blur(x).
 extern "C" int ganlab_upsample_blur_2x(const void* x, void* o,
                                        long long planes, int h, int w,
-                                       int dtype, void* stream) {
+                                       float gain, int dtype, int device,
+                                       void* stream) {
   if (planes <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(x, o, planes, h, w, s);
-    case 1: return launch<__nv_bfloat16>(x, o, planes, h, w, s);
+    case 0: return launch_up<float>(x, o, planes, h, w, gain, s);
+    case 1: return launch_up<__nv_bfloat16>(x, o, planes, h, w, gain, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// x (planes, 2*ho, 2*wo) -> o (planes, ho, wo).
+// The path ganlab_upsample_blur_2x takes for these arguments: 1 = vector,
+// 0 = element, -1 = a dtype it does not take. Launches nothing.
+extern "C" int ganlab_upsample_blur_2x_path(const void* x, const void* o,
+                                            long long planes, int h, int w,
+                                            int dtype) {
+  switch (dtype) {
+    case 0: return plan_vec<float>(x, o, planes, h, w).ok ? 1 : 0;
+    case 1: return plan_vec<__nv_bfloat16>(x, o, planes, h, w).ok ? 1 : 0;
+    default: return -1;
+  }
+}
+
+// x (planes, 2*ho, 2*wo) -> o (planes, ho, wo) = gain * blur+down(x).
 extern "C" int ganlab_blur_downsample_2x(const void* x, void* o,
                                          long long planes, int ho, int wo,
-                                         int dtype, void* stream) {
+                                         float gain, int dtype, int device,
+                                         void* stream) {
   if (planes <= 0 || ho <= 0 || wo <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_down<float>(x, o, planes, ho, wo, s);
-    case 1: return launch_down<__nv_bfloat16>(x, o, planes, ho, wo, s);
+    case 0: return launch_down<float>(x, o, planes, ho, wo, gain, s);
+    case 1: return launch_down<__nv_bfloat16>(x, o, planes, ho, wo, gain, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,8 +6,9 @@ shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``. The file name carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+and loaded with ``ctypes``. The file name carries a hash of the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused.
 Nothing here includes PyTorch's headers (a build takes seconds, not
 minutes). There is no fallback: without ``nvcc`` or with a failing build
 the call raises.
@@ -58,6 +59,8 @@ def _target(name: str) -> tuple[Path, Path]:
     if not src.exists():
         raise FileNotFoundError(src)
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

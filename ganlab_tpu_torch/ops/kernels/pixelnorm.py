@@ -1,17 +1,28 @@
-"""PixelNorm ``x * rsqrt(mean(x^2, last axis) + eps)``: Triton kernel + plain.
+"""PixelNorm ``x * rsqrt(mean(x^2, last axis) + eps)``: CUDA C++ + plain.
 
 Replaces ``ganlab_tpu/ops/pallas/pixelnorm.py::pixel_norm_pallas``
 (``_rows_call`` / ``_fwd_kernel``). On the serving path it normalizes the
-mapping network's input z, (batch, latent).
+mapping network's input z, (batch, latent); a training step normalizes the
+two latents of its mixing pass as one (2 batch, latent) tensor.
 
 Bound: memory. One read and one write of (rows, C), about 3 flops per
-element, so the least time is the bytes over 3.35 TB/s (and at the
-serving shape, 32 x 512, launch latency dominates either way).
+element, so the least time is the bytes over 3.35 TB/s. At (32, 512) that
+is 64 KB, a microsecond or two on the card: what a caller waits for is the
+host's time to make the launch.
 
-Design: one program per block of rows; each row's C values sit in one
-power-of-two block (BLOCK_C = next pow2 of C, masked), so the row's sum of
-squares is one ``tl.sum`` in float32 and the scale is applied from
-registers: one pass over memory. Output in the input's dtype.
+What limited the first design: it was a Triton kernel, and Triton's Python
+launcher specialises the arguments and looks the compiled kernel up on
+every call, which together with the wrapper's own work took the host
+longer than PyTorch's dispatcher needs for ``F.rms_norm``.
+
+Design: the kernel is ``csrc/pixelnorm.cu`` (one warp per row, 16-byte
+loads, the row kept in registers, the sum of squares by warp shuffles, no
+shared memory), built by ``_build`` with nvcc and called through its plain
+C interface. The wrapper does as little as it can per call: the ``ctypes``
+function with its argument types is looked up once, the C function itself
+switches device (only when the tensor is not on the current one), and the
+stream handle is read without building a Stream object. Output in the input's
+dtype.
 
 ``PixelNorm`` is the autograd Function: forward is the kernel (CUDA) or
 the plain version (CPU); backward is the analytic VJP of the JAX package's
@@ -21,39 +32,25 @@ is never called).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import check_input
+from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
 
-tl = None  # triton.language; bound by _kernel() (no triton on CPU hosts)
-
-
-def _pixel_norm_kernel(x_ptr, o_ptr, rows, C, eps,
-                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-    r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-    c = tl.arange(0, BLOCK_C)
-    mask = (r[:, None] < rows) & (c[None, :] < C)
-    offs = r[:, None].to(tl.int64) * C + c[None, :]
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    ms = tl.sum(x * x, axis=1) / C
-    y = x * (1.0 / tl.sqrt(ms + eps))[:, None]
-    tl.store(o_ptr + offs, y.to(o_ptr.dtype.element_ty), mask=mask)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
-def _kernel():
-    global tl
-    import triton
-    import triton.language
-
-    tl = triton.language
-    return triton.jit(_pixel_norm_kernel)
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
+def _fn():
+    """The C function, looked up and given its argument types once."""
+    fn = _build.library("pixelnorm").lib.ganlab_pixel_norm
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def pixel_norm_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -74,25 +71,24 @@ def pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor,
     return (r * (gf - xf * prod * (r * r))).to(x.dtype)
 
 
-def pixel_norm_triton(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+def pixel_norm_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Launch the kernel on a contiguous CUDA (rows, C) tensor."""
-    check_input("pixel_norm", x, ndim=2,
-                dtypes=(torch.float32, torch.bfloat16, torch.float16))
-    rows, c = x.shape
+    check_input("pixel_norm", x, ndim=2, dtypes=_DTYPE_CODE)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    block_c = _next_pow2(c)
-    block_r = max(1, min(64, 4096 // block_c))
-    grid = (-(-rows // block_r),)
-    with torch.cuda.device(x.device):
-        _kernel()[grid](x, out, rows, c, float(eps),
-                        BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
-    pixel_norm_triton.launches += 1
+    rows, c = x.shape
+    index = x.device.index
+    err = _fn()(x.data_ptr(), out.data_ptr(), rows, c, eps,
+                _DTYPE_CODE[x.dtype], index, stream_handle(index))
+    if err != 0:
+        raise RuntimeError(f"pixel_norm kernel launch failed: CUDA error "
+                           f"{err} at shape {tuple(x.shape)}")
+    pixel_norm_cuda.launches += 1
     return out
 
 
-pixel_norm_triton.launches = 0
+pixel_norm_cuda.launches = 0
 
 
 class PixelNorm(torch.autograd.Function):
@@ -104,7 +100,7 @@ class PixelNorm(torch.autograd.Function):
         ctx.eps = eps
         if x.device.type == "cpu":
             return pixel_norm_ref(x, eps)
-        return pixel_norm_triton(x.contiguous(), eps)
+        return pixel_norm_cuda(x.contiguous(), eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -5,14 +5,21 @@ Replaces ``ganlab_tpu/ops/pallas/resample.py``: ``upsample_blur_2x_pallas``
 blur + 2x2 average pool). Both kernels live in ``csrc/resample.cu``, built
 by ``_build`` with nvcc for ``sm_90a`` and called through its C interface.
 They are memory-bound (a few flops per byte moved); the source says how
-each reads and writes. NCHW, float32 or bfloat16 storage, float32
-arithmetic.
+each reads and writes (up+blur: 16-byte vectors, one row chunk per thread,
+where the shape and the pointers allow, one element per thread
+elsewhere). NCHW, float32 or bfloat16 storage, float32 arithmetic.
+
+Every function here takes a ``gain`` that is multiplied into the result
+before it is stored (the kernels do it in their store). The two ops are
+adjoints up to a factor 4, ``vjp(up)(g) = 4 down(g)`` and
+``vjp(down)(g) = up(g) / 4``, so each autograd Function's backward is the
+other Function with that factor as its gain: gradients of any order, such
+as R1's double backward, run through the kernels, and none adds an
+elementwise pass.
 
 ``UpsampleBlur2x`` and ``BlurDownsample2x`` are the autograd Functions.
 Each forward runs the kernel on a CUDA tensor and the plain version on a
-CPU tensor; each backward is the other Function (the exact adjoints
-``vjp(up)(g) = 4 down(g)``, ``vjp(down)(g) = up(g) / 4``), so gradients of
-any order, such as R1's double backward, run through the kernels.
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ganlab_tpu_torch.ops.kernels import _build, check_input
+from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,8 +40,13 @@ def _math_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def upsample_blur_2x_ref(x: torch.Tensor) -> torch.Tensor:
-    """Plain version: the polyphase lerp per axis in float32, zero halo.
+def _scaled(v: torch.Tensor, gain: float) -> torch.Tensor:
+    return v if gain == 1.0 else gain * v
+
+
+def upsample_blur_2x_ref(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+    """Plain version: the polyphase lerp per axis in float32, zero halo,
+    times ``gain``.
 
     x (N, C, H, W) -> (N, C, 2H, 2W) in x's dtype.
     """
@@ -47,13 +59,15 @@ def upsample_blur_2x_ref(x: torch.Tensor) -> torch.Tensor:
     vp = F.pad(v, (1, 1))                             # columns
     even = 0.25 * vp[..., :-2] + 0.75 * vp[..., 1:-1]
     odd = 0.75 * vp[..., 1:-1] + 0.25 * vp[..., 2:]
-    return torch.stack([even, odd], dim=4).reshape(n, c, 2 * h, 2 * w) \
-        .to(x.dtype)
+    v = torch.stack([even, odd], dim=4).reshape(n, c, 2 * h, 2 * w)
+    return _scaled(v, gain).to(x.dtype)
 
 
-def blur_downsample_2x_ref(x: torch.Tensor) -> torch.Tensor:
+def blur_downsample_2x_ref(x: torch.Tensor, gain: float = 1.0
+                           ) -> torch.Tensor:
     """Plain version: per axis (rows, then columns) in float32, zero halo,
-    ``out[i] = .125 x[2i-1] + .375 x[2i] + .375 x[2i+1] + .125 x[2i+2]``.
+    ``out[i] = .125 x[2i-1] + .375 x[2i] + .375 x[2i+1] + .125 x[2i+2]``,
+    times ``gain``.
 
     x (N, C, H, W), H and W even -> (N, C, H/2, W/2) in x's dtype.
     """
@@ -65,46 +79,64 @@ def blur_downsample_2x_ref(x: torch.Tensor) -> torch.Tensor:
     vp = F.pad(v, (1, 1))                             # columns
     v = (0.125 * vp[..., 0:w:2] + 0.375 * vp[..., 1:w + 1:2]
          + 0.375 * vp[..., 2:w + 2:2] + 0.125 * vp[..., 3:w + 3:2])
-    return v.to(x.dtype)
+    return _scaled(v, gain).to(x.dtype)
+
+
+_LAUNCH_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p)
+_PATH_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int)
 
 
 @functools.cache
-def _fn(symbol: str):
+def _fn(symbol: str, argtypes=_LAUNCH_ARGS):
+    """The C function, looked up and given its argument types once."""
     fn = getattr(_build.library("resample").lib, symbol)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(op: str, symbol: str, x: torch.Tensor, out: torch.Tensor,
-            h: int, w: int) -> None:
-    n, c = x.shape[:2]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn(symbol)(x.data_ptr(), out.data_ptr(), n * c, h, w,
-                          _DTYPE_CODE[x.dtype], stream)
+def _launch(op: str, fn, x: torch.Tensor, out: torch.Tensor, h: int, w: int,
+            gain: float) -> None:
+    index = x.device.index
+    err = fn(x.data_ptr(), out.data_ptr(), x.shape[0] * x.shape[1], h, w,
+             gain, _DTYPE_CODE[x.dtype], index, stream_handle(index))
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err} at "
                            f"shape {tuple(x.shape)}")
 
 
-def upsample_blur_2x_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: x (N, C, H, W) CUDA, f32/bf16 -> (N, C, 2H, 2W)."""
-    check_input("upsample_blur_2x", x, dtypes=tuple(_DTYPE_CODE), ndim=4)
+def upsample_blur_2x_cuda(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+    """Launch the kernel: x (N, C, H, W) CUDA, f32/bf16 -> (N, C, 2H, 2W),
+    ``gain * up+blur(x)``."""
+    check_input("upsample_blur_2x", x, dtypes=_DTYPE_CODE, ndim=4)
     n, c, h, w = x.shape
     out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch("upsample_blur_2x", "ganlab_upsample_blur_2x", x, out, h, w)
+    _launch("upsample_blur_2x", _fn("ganlab_upsample_blur_2x"), x, out, h, w,
+            gain)
     upsample_blur_2x_cuda.launches += 1
     return out
 
 
-def blur_downsample_2x_cuda(x: torch.Tensor) -> torch.Tensor:
+def upsample_blur_2x_path(x: torch.Tensor, out: torch.Tensor) -> str:
+    """Which path of the up+blur kernel this input and output take:
+    "vector" (16-byte accesses) or "element". Launches nothing."""
+    check_input("upsample_blur_2x", x, dtypes=_DTYPE_CODE, ndim=4)
+    fn = _fn("ganlab_upsample_blur_2x_path", _PATH_ARGS)
+    n, c, h, w = x.shape
+    return {1: "vector", 0: "element"}[fn(
+        x.data_ptr(), out.data_ptr(), n * c, h, w, _DTYPE_CODE[x.dtype])]
+
+
+def blur_downsample_2x_cuda(x: torch.Tensor, gain: float = 1.0
+                            ) -> torch.Tensor:
     """Launch the kernel: x (N, C, H, W) CUDA, f32/bf16, H and W even ->
-    (N, C, H/2, W/2)."""
-    check_input("blur_downsample_2x", x, dtypes=tuple(_DTYPE_CODE), ndim=4)
+    (N, C, H/2, W/2), ``gain * blur+down(x)``."""
+    check_input("blur_downsample_2x", x, dtypes=_DTYPE_CODE, ndim=4)
     n, c, h, w = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"blur_downsample_2x: H and W must be even, got "
@@ -112,8 +144,8 @@ def blur_downsample_2x_cuda(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, c, h // 2, w // 2), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch("blur_downsample_2x", "ganlab_blur_downsample_2x", x, out,
-            h // 2, w // 2)
+    _launch("blur_downsample_2x", _fn("ganlab_blur_downsample_2x"), x, out,
+            h // 2, w // 2, gain)
     blur_downsample_2x_cuda.launches += 1
     return out
 
@@ -123,28 +155,32 @@ blur_downsample_2x_cuda.launches = 0
 
 
 class UpsampleBlur2x(torch.autograd.Function):
-    """Differentiable nearest-2x + blur; backward = 4 * BlurDownsample2x."""
+    """Differentiable ``gain *`` nearest-2x + blur; backward is
+    BlurDownsample2x with gain ``4 * gain``."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, gain=1.0):
+        ctx.gain = gain
         if x.device.type == "cpu":
-            return upsample_blur_2x_ref(x)
-        return upsample_blur_2x_cuda(x.contiguous())
+            return upsample_blur_2x_ref(x, gain)
+        return upsample_blur_2x_cuda(x.contiguous(), gain)
 
     @staticmethod
     def backward(ctx, g):
-        return 4.0 * BlurDownsample2x.apply(g)
+        return BlurDownsample2x.apply(g, 4.0 * ctx.gain), None
 
 
 class BlurDownsample2x(torch.autograd.Function):
-    """Differentiable blur + 2x down; backward = UpsampleBlur2x / 4."""
+    """Differentiable ``gain *`` blur + 2x down; backward is UpsampleBlur2x
+    with gain ``gain / 4``."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, gain=1.0):
+        ctx.gain = gain
         if x.device.type == "cpu":
-            return blur_downsample_2x_ref(x)
-        return blur_downsample_2x_cuda(x.contiguous())
+            return blur_downsample_2x_ref(x, gain)
+        return blur_downsample_2x_cuda(x.contiguous(), gain)
 
     @staticmethod
     def backward(ctx, g):
-        return 0.25 * UpsampleBlur2x.apply(g)
+        return UpsampleBlur2x.apply(g, 0.25 * ctx.gain), None

@@ -3,11 +3,12 @@
 Here on the CPU: a launching wrapper refuses a CPU tensor (it never falls
 back to the plain version). On a CUDA card (``-m gpu``): each kernel
 against its plain version, float32 within 1e-5 and bfloat16 within
-2**-6 relative (about 2 bf16 ulps); each autograd Function's gradient,
-and the second derivative through the resample and mbstd Functions,
-against autograd through the plain versions on the card, in float32
-within 1e-5 of the scale. This file imports no JAX, so it runs on a GPU
-host that has only PyTorch:
+2**-6 relative (about 2 bf16 ulps), up+blur on its vector and its element
+path and pixelnorm at widths that do and do not fill 16-byte vectors; each
+autograd Function's gradient, and the second derivative through the
+resample and mbstd Functions, against autograd through the plain versions
+on the card, in float32 within 1e-5 of the scale. This file imports no
+JAX, so it runs on a GPU host that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -m gpu
 """
@@ -18,7 +19,7 @@ import torch
 from ganlab_tpu_torch.ops.kernels.adain import adain_ref, adain_triton
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
-    pixel_norm_triton,
+    pixel_norm_cuda,
 )
 from ganlab_tpu_torch.ops.kernels.mbstd import (
     minibatch_stddev_ref,
@@ -28,12 +29,13 @@ from ganlab_tpu_torch.ops.kernels.resample import (
     blur_downsample_2x_cuda,
     blur_downsample_2x_ref,
     upsample_blur_2x_cuda,
+    upsample_blur_2x_path,
     upsample_blur_2x_ref,
 )
 
 
 @pytest.mark.parametrize("launch,args", [
-    (pixel_norm_triton, lambda: (torch.ones(2, 8),)),
+    (pixel_norm_cuda, lambda: (torch.ones(2, 8),)),
     (adain_triton, lambda: (torch.ones(2, 3, 4, 4), torch.ones(2, 3),
                             torch.ones(2, 3))),
     (upsample_blur_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
@@ -69,7 +71,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     tol = 1e-5 if dtype == torch.float32 else 2 ** -6
     with torch.inference_mode():
         for x in (r(32, 512), r(3, 100)):
-            torch.testing.assert_close(pixel_norm_triton(x),
+            torch.testing.assert_close(pixel_norm_cuda(x),
                                        pixel_norm_ref(x), rtol=tol, atol=tol)
         for shape in ((2, 8, 4, 4), (2, 3, 33, 31), (1, 2, 64, 64)):
             x, s, b = r(*shape), r(*shape[:2]), r(*shape[:2])
@@ -90,6 +92,67 @@ def test_kernels_match_plain_on_card(cuda, dtype):
             torch.testing.assert_close(minibatch_stddev_triton(x),
                                        minibatch_stddev_ref(x),
                                        rtol=tol, atol=tol)
+
+
+def _tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 2 ** -6
+
+
+def _randn(shape, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gain", [1.0, 0.25])
+@pytest.mark.parametrize("shape,path", [
+    ((2, 3, 16, 32), "vector"),      # 4 or 8 lanes a row, rows share a warp
+    ((3, 5, 7, 24), "vector"),       # a lane count that does not divide 32
+    ((1, 2, 5, 264), "vector"),      # more than a warp of vectors in a row
+    ((2, 2, 9, 8), "vector"),        # one bf16 vector a row, odd height
+    ((2, 3, 33, 31), "element"),     # width no multiple of a vector
+    ((2, 8, 4, 2), "element"),       # width below a vector
+], ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
+def test_upsample_blur_paths_on_card(cuda, shape, path, gain, dtype):
+    """Both paths of the up+blur kernel against the plain version, and
+    against each other on the same values at an unaligned pointer."""
+    tol = _tol(dtype)
+    with torch.inference_mode():
+        x = _randn(shape, dtype, 3, cuda)
+        out = upsample_blur_2x_cuda(x, gain)
+        assert upsample_blur_2x_path(x, out) == path
+        torch.testing.assert_close(out, upsample_blur_2x_ref(x, gain),
+                                   rtol=tol, atol=tol)
+        xu = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:] \
+            .view(shape).copy_(x)
+        out_u = upsample_blur_2x_cuda(xu, gain)
+        assert upsample_blur_2x_path(xu, out_u) == "element"
+        assert torch.equal(out, out_u)
+        y = _randn((*shape[:2], 2 * shape[2], 2 * shape[3]), dtype, 4, cuda)
+        torch.testing.assert_close(blur_downsample_2x_cuda(y, gain),
+                                   blur_downsample_2x_ref(y, gain),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("c", [96, 500, 512, 4096])
+def test_pixel_norm_widths_on_card(cuda, c, dtype):
+    """Vector loads (96, 512), one element a load (500), a row too wide to
+    stay in registers (4096), and rows at an unaligned pointer."""
+    tol = 1e-5 if dtype == torch.float32 else \
+        2 ** -6 if dtype == torch.bfloat16 else 2 ** -9
+    with torch.inference_mode():
+        x = _randn((7, c), dtype, 5, cuda)
+        want = pixel_norm_ref(x)
+        torch.testing.assert_close(pixel_norm_cuda(x), want,
+                                   rtol=tol, atol=tol)
+        xu = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:] \
+            .view(7, c).copy_(x)
+        torch.testing.assert_close(pixel_norm_cuda(xu), want,
+                                   rtol=tol, atol=tol)
 
 
 def _plain_ops():

@@ -10,7 +10,9 @@ themselves are held against the plain versions in test_torch_kernels.py.
 Gradients (jax.vjp against torch autograd through the port's autograd
 Functions, same cotangent) use the float32 tolerance; the Functions'
 own first and second derivatives are checked in float64 by
-``torch.autograd.gradcheck`` / ``gradgradcheck`` (their defaults).
+``torch.autograd.gradcheck`` / ``gradgradcheck`` (their defaults). The
+resample ops' ``gain`` is held to ``gain *`` the JAX op within 1e-6 of the
+output's scale in float32 (one more float32 multiply on either side).
 """
 
 import math
@@ -31,6 +33,13 @@ from ganlab_tpu.ops.pallas import (
     upsample_blur_2x_pallas,
 )
 from ganlab_tpu_torch import ops as tops
+from ganlab_tpu_torch.ops.kernels.pixelnorm import pixel_norm_ref
+from ganlab_tpu_torch.ops.kernels.resample import (
+    BlurDownsample2x,
+    UpsampleBlur2x,
+    blur_downsample_2x_ref,
+    upsample_blur_2x_ref,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -76,6 +85,19 @@ def test_pixel_norm(shape, ref, dtype):
     want = jops.pixel_norm(xj) if ref == "xla" \
         else pixel_norm_pallas(xj, 1e-8, True)
     got = tops.pixel_norm(torch.from_numpy(x).to(td))
+    assert got.dtype == td
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("c", [96, 500, 512])
+def test_pixel_norm_ref_vs_pallas_widths(c, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at
+    widths that are and are not a multiple of a 16-byte vector."""
+    jd, td = DTYPES[dtype]
+    x = rand(6, c, seed=30 + c)
+    want = pixel_norm_pallas(jnp.asarray(x, jd), 1e-8, True)
+    got = pixel_norm_ref(torch.from_numpy(x).to(td))
     assert got.dtype == td
     assert_close(got, want, dtype)
 
@@ -183,6 +205,27 @@ def test_blur_downsample_2x(shape, ref, dtype):
     assert_close(nhwc(to_np(got)), want, dtype)
 
 
+@pytest.mark.parametrize("gain", [0.25, 4.0, 0.3])
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+@pytest.mark.parametrize("op", ["up", "down"])
+def test_resample_ref_gain(op, ref, gain):
+    """``*_ref(x, gain)`` is ``gain *`` the JAX function: float32, within
+    1e-6 of the output's scale."""
+    x = rand(2, 6, 8, 3, seed=31)
+    xj = jnp.asarray(x)
+    if op == "up":
+        want = jops.upsample_blur_2x(xj) if ref == "xla" \
+            else upsample_blur_2x_pallas(xj, True)
+        got = upsample_blur_2x_ref(torch.from_numpy(nchw(x)), gain)
+    else:
+        want = jops.blur_downsample_2x(xj) if ref == "xla" \
+            else blur_downsample_2x_pallas(xj, True)
+        got = blur_downsample_2x_ref(torch.from_numpy(nchw(x)), gain)
+    want = gain * np.asarray(want)
+    np.testing.assert_allclose(nhwc(got.numpy()), want, rtol=0,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("ref", ["xla", "pallas"])
 @pytest.mark.parametrize("shape", [(4, 4, 4, 8), (3, 2, 3, 5)])
@@ -288,3 +331,45 @@ def test_functions_gradcheck_float64(name):
     inputs = args()
     assert torch.autograd.gradcheck(fn, inputs)
     assert torch.autograd.gradgradcheck(fn, inputs)
+
+
+@pytest.mark.parametrize("gain", [0.25, 4.0])
+@pytest.mark.parametrize("fn,shape", [(UpsampleBlur2x, (2, 2, 3, 4)),
+                                      (BlurDownsample2x, (2, 2, 6, 4))],
+                         ids=["upsample_blur_2x", "blur_downsample_2x"])
+def test_resample_functions_gradcheck_gain(fn, shape, gain):
+    """First and second derivatives of the resample Functions with a gain,
+    in float64 against finite differences."""
+    inputs = (_f64(*shape, seed=8),)
+    assert torch.autograd.gradcheck(lambda x: fn.apply(x, gain), inputs)
+    assert torch.autograd.gradgradcheck(lambda x: fn.apply(x, gain), inputs)
+
+
+def _graph_nodes(fn) -> list[str]:
+    seen, stack, names = set(), [fn], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        stack.extend(nxt for nxt, _ in node.next_functions)
+    return names
+
+
+@pytest.mark.parametrize("fn,other,shape", [
+    (BlurDownsample2x, "UpsampleBlur2xBackward", (1, 2, 6, 4)),
+    (UpsampleBlur2x, "BlurDownsample2xBackward", (1, 2, 3, 4))],
+    ids=["blur_downsample_2x", "upsample_blur_2x"])
+def test_resample_backward_has_no_separate_multiply(fn, other, shape):
+    """The factor between the two adjoints rides in the other Function's
+    gain: the backward graph is that Function alone, with no Mul node."""
+    x = _f64(*shape, seed=9)
+    y = fn.apply(x)
+    ct = torch.ones_like(y).requires_grad_(True)   # a leaf, as R1's is not
+    (g,) = torch.autograd.grad(y, x, ct, create_graph=True)
+    names = _graph_nodes(g.grad_fn)
+    assert names == [other, "AccumulateGrad"], names
+    want = {BlurDownsample2x: lambda a: 0.25 * upsample_blur_2x_ref(a),
+            UpsampleBlur2x: lambda a: 4.0 * blur_downsample_2x_ref(a)}[fn]
+    torch.testing.assert_close(g.detach(), want(ct.detach()))
