@@ -2,6 +2,7 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -12,10 +13,13 @@ Phases (any failure raises and the script exits non-zero):
    every shape the stylegan-256 serving path (pixelnorm, AdaIN, up+blur)
    and training step (all five) give it at batch 32, and at a few odd
    shapes, in float32 (TF32 off) and bfloat16; the resample kernels also
-   with a gain, and up+blur's vector path against its element path bit
-   for bit. Then kernel, plain and one library call timed with CUDA
-   events around back-to-back calls (``ms``), beside the bound (bytes /
-   3.35 TB/s or flops / 67 TFLOP/s, the larger); the kernel and the
+   with a gain, and each one's vector path against its element path bit
+   for bit; AdaIN on each of its paths, at an unaligned pointer, on
+   constant planes and on planes with a large mean, and with one block
+   against a thread block cluster per 256² plane. Then kernel, plain and
+   one library call timed with CUDA events around back-to-back calls
+   (``ms``), beside the bound (bytes / 3.35 TB/s or flops / 67 TFLOP/s,
+   the larger); the kernel and the
    library call also on the device alone (``device_ms``, a CUDA-graph
    replay of the same calls) and on the host alone (``host_us``, wall
    time per un-synchronised call). Sums per served batch and per R1-off
@@ -63,7 +67,11 @@ from ganlab_tpu_torch import BatchSampler, build_generator, get_config
 from ganlab_tpu_torch import ops as port_ops
 from ganlab_tpu_torch.models.stylegan import noise_shapes
 from ganlab_tpu_torch.ops.kernels import _build
-from ganlab_tpu_torch.ops.kernels.adain import adain_ref, adain_triton
+from ganlab_tpu_torch.ops.kernels.adain import (
+    adain_cuda,
+    adain_path,
+    adain_ref,
+)
 from ganlab_tpu_torch.ops.kernels.mbstd import (
     minibatch_stddev_ref,
     minibatch_stddev_triton,
@@ -74,6 +82,7 @@ from ganlab_tpu_torch.ops.kernels.pixelnorm import (
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
     blur_downsample_2x_cuda,
+    blur_downsample_2x_path,
     blur_downsample_2x_ref,
     upsample_blur_2x_cuda,
     upsample_blur_2x_path,
@@ -182,6 +191,11 @@ def host_time_us(fn, calls: int = 100) -> float:
 
 
 def tolerance(dtype, scale: float) -> float:
+    """Kernel against plain version. The resample kernels sum nothing
+    across threads (their two paths agree bit for bit); pixelnorm, AdaIN
+    and mbstd sum in another order than the plain version, and AdaIN in
+    another order on each of its paths, so float32 agrees to rounding:
+    1e-5 of the output's scale. bfloat16: both sides round once."""
     if dtype == torch.float32:
         return F32_RTOL * scale
     ulp = 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
@@ -284,10 +298,10 @@ KERNELS = {
         nbytes=lambda s, dt: 2 * math.prod(s) * _bsz(dt),
         flops=lambda s: 4 * math.prod(s)),
     "adain": dict(
-        route="triton",
-        source="ganlab_tpu_torch/ops/kernels/adain.py",
+        route="cuda",
+        source="ganlab_tpu_torch/csrc/adain.cu",
         replaces="ganlab_tpu/ops/pallas/adain.py:77",
-        kernel=adain_triton, plain=adain_ref,
+        kernel=adain_cuda, plain=adain_ref,
         inputs=lambda s, dt, g: (
             (torch.randn(s, generator=g, device="cuda") * 2 + 0.5).to(dt),
             (torch.randn(s[:2], generator=g, device="cuda") + 1).to(dt),
@@ -354,8 +368,18 @@ EXTRA_SHAPES = {
     "pixelnorm": [(3, 96), (5, 500), (4, 4096), (2, 2056)],
     "upsample_blur_2x": [(3, 5, 7, 24), (2, 3, 33, 31), (1, 2, 5, 264),
                          (2, 2, 9, 8)],
-    "blur_downsample_2x": [(2, 3, 34, 30)],
+    "blur_downsample_2x": [(2, 3, 34, 30), (3, 5, 14, 48), (1, 2, 10, 528),
+                           (2, 2, 18, 16), (2, 3, 66, 62)],
+    # one per path of the kernel and the edges between them: a plane that
+    # is no multiple of a vector (loop), 33x31, the largest warp plane
+    # (32x32) and the first block plane, a block that ends ragged, a
+    # cluster in float32
+    "adain": [(2, 3, 5, 7), (3, 5, 33, 31), (2, 3, 32, 32), (2, 3, 32, 36),
+              (2, 3, 48, 48), (1, 2, 256, 256)],
 }
+# resample kernel -> the function that tells which path a call takes
+RESAMPLE_PATHS = {"upsample_blur_2x": upsample_blur_2x_path,
+                  "blur_downsample_2x": blur_downsample_2x_path}
 SUMMED = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
           "bytes_ms", "ops_ms")
 SERVED, STEP = "served batch", "R1-off step"
@@ -398,22 +422,98 @@ def check_shape(name: str, shape, g) -> float:
             worst = max(worst, _check(
                 f"{label} gain {CHECK_GAIN}", k["kernel"](*inp, CHECK_GAIN),
                 k["plain"](*inp, CHECK_GAIN), dt))
-        if name == "upsample_blur_2x":
+        if name in RESAMPLE_PATHS:
             # the same values at a pointer that is not 16-byte aligned go
-            # down the element path, whatever path the shape took
+            # down the element path, whatever path the shape took, with
+            # and without a gain
             x = inp[0]
-            xu = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:] \
-                .view(shape).copy_(x)
-            out_u = k["kernel"](xu)
-            paths = (upsample_blur_2x_path(x, out),
-                     upsample_blur_2x_path(xu, out_u))
-            same = torch.equal(out, out_u)
-            log(f"path {label}: {paths[0]}; from an unaligned copy: "
-                f"{paths[1]}, bit-identical {same}")
-            if paths[1] != "element" or not same:
-                raise AssertionError(f"{label}: the two paths of up+blur "
-                                     "disagree")
+            xu = _unaligned_copy(x)
+            for gain in (1.0, CHECK_GAIN):
+                out, out_u = k["kernel"](x, gain), k["kernel"](xu, gain)
+                paths = (RESAMPLE_PATHS[name](x, out),
+                         RESAMPLE_PATHS[name](xu, out_u))
+                same = torch.equal(out, out_u)
+                log(f"path {label} gain {gain}: {paths[0]}; from an "
+                    f"unaligned copy: {paths[1]}, bit-identical {same}")
+                if paths[1] != "element" or not same:
+                    raise AssertionError(f"{label}: the two paths of {name} "
+                                         "disagree")
+        if name == "adain":
+            # the sums' order differs between the paths, so they are held
+            # to the plain version's tolerance, not to each other's bits
+            xu = _unaligned_copy(inp[0])
+            out_u = k["kernel"](xu, *inp[1:])
+            log(f"path {label}: {adain_path(inp[0], out)}; from an "
+                f"unaligned copy: {adain_path(xu, out_u)}")
+            if adain_path(xu, out_u) != "loop":
+                raise AssertionError(f"{label}: an unaligned input did not "
+                                     "take the loop path")
+            worst = max(worst, _check(f"{label} unaligned", out_u,
+                                      k["plain"](*inp), dt))
     return worst
+
+
+def _unaligned_copy(x):
+    """x's values in a contiguous tensor whose pointer is one element past
+    a 16-byte boundary."""
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:] \
+        .view(x.shape).copy_(x)
+
+
+def check_adain_planes(g) -> float:
+    """AdaIN where the variance formula matters: constant planes (variance
+    0, as StyleGAN's 4x4 planes at init: the output is the bias, while
+    E[x^2] - mean^2 would leave rounding noise for rsqrt(eps) = 1e4 to
+    multiply) and planes with a mean far above their spread
+    (1000 + 16 noise), on every path of the kernel."""
+    worst = 0.0
+    for shape in ((4, 8, 4, 4), (2, 3, 5, 7), (2, 3, 64, 64),
+                  (1, 2, 256, 256)):
+        for dt in (torch.float32, torch.bfloat16):
+            _, ys, yb = KERNELS["adain"]["inputs"](shape, dt, g)
+            noise = torch.randn(shape, generator=g, device="cuda")
+            for what, x in (("constant planes", torch.full(shape, 1.5)),
+                            ("planes 1000 + 16 noise", 1000 + 16 * noise)):
+                x = x.to("cuda", dt)
+                out = adain_cuda(x, ys, yb)
+                worst = max(worst, _check(
+                    f"adain {shape} {_dt(dt)} {what} "
+                    f"[{adain_path(x, out)}]", out, adain_ref(x, ys, yb), dt))
+                if what == "constant planes" and not torch.equal(
+                        out, yb[:, :, None, None].expand_as(out)):
+                    raise AssertionError("adain: a constant plane did not "
+                                         "come out as its bias")
+    return worst
+
+
+# (threads a block, blocks a plane) forced on AdaIN's 256x256 planes
+ADAIN_VARIANTS = {
+    torch.bfloat16: [(1024, 1), (512, 2), (256, 4), (512, 4), (256, 8)],
+    torch.float32: [(1024, 2), (512, 4), (256, 8), (512, 8)],
+}
+
+
+def adain_variants(g) -> None:
+    """One block against a thread block cluster per 256x256 plane: the
+    same call with the cut forced, each read three times in turns."""
+    shape = (BATCH, 64, 256, 256)
+    for dt, cuts in ADAIN_VARIANTS.items():
+        inp = KERNELS["adain"]["inputs"](shape, dt, g)
+        calls = {"chosen": lambda: adain_cuda(*inp)}
+        for threads, cluster in cuts:
+            calls[adain_path(inp[0], inp[0], threads=threads,
+                             cluster=cluster)] = functools.partial(
+                adain_cuda, *inp, threads=threads, cluster=cluster)
+        reads = {n: [] for n in calls}
+        for _ in range(3):
+            for n, fn in calls.items():
+                reads[n].append(cuda_time_ms(fn, iters=20, warmup=3))
+        nbytes = KERNELS["adain"]["nbytes"](shape, dt)
+        log(f"variants adain {shape} {_dt(dt)} (chosen: "
+            f"{adain_path(inp[0], inp[0])}; bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), ms, median of 3 in "
+            "turns: " + ", ".join(
+                f"{n} {statistics.median(v):.4f}" for n, v in reads.items()))
 
 
 def time_shape(name: str, shape, g) -> dict:
@@ -522,6 +622,10 @@ def phase_kernels(units: dict) -> dict:
             r = {"max_abs_err": max(
                 check_shape(name, s, g)
                 for s in shapes + EXTRA_SHAPES.get(name, []))}
+            if name == "adain":
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       check_adain_planes(g))
+                adain_variants(g)
             times = {s: time_shape(name, s, g) for s in shapes}
             if name == "pixelnorm":
                 pixelnorm_host_parts(g)
@@ -994,12 +1098,15 @@ def phase_train_card_vs_cpu() -> None:
         f"worst {worst:.3e} of the leaf scale (tol {STEP_GRAD_RTOL:g})")
 
 
-def main() -> None:
+def main(kernels_only: bool = False) -> None:
     kind, card = phase_device()
     phase_build()
     mc = get_config("stylegan-256").model
     results = phase_kernels({SERVED: serving_shapes(mc),
                              STEP: step_launches(mc, r1=False)})
+    if kernels_only:
+        log(f"--kernels-only: stopping after the kernel phase [{card}]")
+        return
     phase_gradients()
     serve_counts = phase_serving(card)
     train = phase_training(card)
@@ -1041,5 +1148,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        raise SystemExit(__doc__)
+    main(kernels_only=bool(sys.argv[1:]))
     sys.exit(0)

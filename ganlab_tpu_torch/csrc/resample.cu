@@ -75,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
+#include "vec.cuh"
 
 namespace {
 
@@ -113,46 +114,6 @@ struct Pair<__nv_bfloat16> {
   using type = __nv_bfloat162;
   static __device__ __forceinline__ __nv_bfloat162 make(float a, float b) {
     return __floats2bfloat162_rn(a, b);  // .x = a at the lower address
-  }
-};
-
-// Vec<T>: 16 bytes of T as one uint4, and their float32 values.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
-    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  // a bf16 is the upper half of a float32; element 0 sits in the low bits
-  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(bf16x2_bits(f[0], f[1]), bf16x2_bits(f[2], f[3]),
-                      bf16x2_bits(f[4], f[5]), bf16x2_bits(f[6], f[7]));
   }
 };
 
@@ -287,18 +248,44 @@ __global__ void upsample_blur_2x_kernel(const T* __restrict__ x,
 //
 //     out[i] = 0.125 x[2i-1] + 0.375 x[2i] + 0.375 x[2i+1] + 0.125 x[2i+2]
 //
-// then `gain *` before the one store. Bound: memory. It reads each input
-// once and writes a quarter as many outputs, ~21 flops per output, so the
-// least time is (in + out bytes) / 3.35 TB/s. Design: one thread per
-// output pixel reads its 4x4 input window (vertical taps per column first,
-// then the horizontal taps, in float32, the order of the plain version).
-// Neighbouring threads take neighbouring output columns, so a warp's reads
-// of one input row span 66 contiguous elements and its writes are one
-// contiguous run. Like up+blur's element path it saturates the SMs'
-// schedulers, not the memory (two 64-bit divisions and sixteen predicated
-// element loads per output): the same vector redesign is still to do here.
-__device__ __forceinline__ float tap4(int k) {
-  return (k == 0 || k == 3) ? 0.125f : 0.375f;
+// rows first, then columns, in float32, then `gain *` before the one store.
+// Bound: memory. It reads each input once and writes a quarter as many
+// outputs, ~21 flops per output, so the least time is (in + out bytes) /
+// 3.35 TB/s; the input is four fifths of the traffic.
+//
+// What limited the first design (one thread per output pixel, kept below as
+// the element path): two 64-bit divisions, sixteen predicated 2-byte loads
+// with 64-bit addresses and one 2-byte store per output. Like up+blur's
+// element path it saturates the SMs' schedulers, not the memory.
+//
+// The vector path, taken where the output width is a multiple of
+// V = 16 / itemsize and both pointers are 16-byte aligned, mirrors
+// up+blur's:
+//  * a thread owns V adjacent output columns of one output row (one 16-byte
+//    store) and reads the 2V input columns under them, two 16-byte loads
+//    from each of the four input rows 2i-1 .. 2i+2, all eight in flight
+//    before the first use;
+//  * no division per pixel: threadIdx.x is the chunk, threadIdx.y and
+//    blockIdx.x the output row among all planes' rows (input row 2 * row,
+//    no plane in any address), one 32-bit remainder gives the row inside
+//    its plane, which only decides whether rows 2i-1 and 2i+2 exist;
+//  * each input row comes from device memory once: rows 2i-1 and 2i+2 are
+//    own rows of the threads beside this one in threadIdx.y, which load
+//    them at the same time, so those reads hit in L1/L2, and a block reads
+//    one contiguous piece of memory;
+//  * the vertical taps first, per column; the two halo columns (2j-1 left
+//    of the chunk, 2j+2V right of it) come vertically combined from the
+//    neighbouring lanes by __shfl_up_sync / __shfl_down_sync, from memory
+//    at a warp's edge or where the neighbour lane holds another row, zero
+//    at the row's ends.
+// Every tap goes through blur4 below, one fixed order of explicit fused
+// multiply-adds with a zero for each tap that falls outside, so the two
+// paths agree bit for bit (ganlab_blur_downsample_2x_path tells which path
+// a call takes).
+__device__ __forceinline__ float blur4(float a, float b, float c, float d) {
+  // 0.125 d is exact; each fused multiply-add rounds once
+  return __fmaf_rn(
+      0.125f, a, __fmaf_rn(0.375f, b, __fmaf_rn(0.375f, c, 0.125f * d)));
 }
 
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
@@ -306,6 +293,87 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Vector path. Threads are laid out as in upsample_blur_2x_vec_kernel, over
+// the output: blockDim = (chunks of an output row in this block, output
+// rows in this block); `rows` counts the output rows of all planes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+blur_downsample_2x_vec_kernel(const T* __restrict__ x, T* __restrict__ o,
+                              int rows, int ho, int wo, int chunks,
+                              float gain) {
+  constexpr int V = Vec<T>::N;
+  const int tx = threadIdx.x;
+  const int lane = (threadIdx.y * blockDim.x + tx) & 31;
+  const int chunk = blockIdx.y * blockDim.x + tx;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool active = chunk < chunks && row < rows;
+  const int i = active ? row % ho : 0;  // the output row inside its plane
+  const bool above = active && i > 0, below = active && i + 1 < ho;
+  const int w = 2 * wo;
+  // input row 2i of this plane is row 2 * row of all planes' input rows
+  const T* xr =
+      x + (active ? 2 * static_cast<size_t>(row) * w + 2 * chunk * V : 0);
+
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 q[4][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    q[0][s] = above ? load16(xr - w + s * V) : zero;
+    q[1][s] = active ? load16(xr + s * V) : zero;
+    q[2][s] = active ? load16(xr + w + s * V) : zero;
+    q[3][s] = below ? load16(xr + 2 * w + s * V) : zero;
+  }
+  float v[2 * V];  // the 2V input columns, vertically combined
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float a[V], b[V], c[V], d[V];
+    Vec<T>::unpack(q[0][s], a);
+    Vec<T>::unpack(q[1][s], b);
+    Vec<T>::unpack(q[2][s], c);
+    Vec<T>::unpack(q[3][s], d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[s * V + k] = blur4(a[k], b[k], c[k], d[k]);
+  }
+
+  // the combined halo columns: zero at the row's ends, from the
+  // neighbouring lane where it holds the neighbouring chunk, else from
+  // memory
+  float left = __shfl_up_sync(kFullMask, v[2 * V - 1], 1);
+  float right = __shfl_down_sync(kFullMask, v[0], 1);
+  auto halo = [&](int c) {  // c relative to the chunk's first input column
+    return blur4(above ? load_f32(xr - w + c) : 0.0f, load_f32(xr + c),
+                 load_f32(xr + w + c), below ? load_f32(xr + 2 * w + c) : 0.0f);
+  };
+  if (!active || chunk == 0) {
+    left = 0.0f;
+  } else if (tx == 0 || lane == 0) {
+    left = halo(-1);
+  }
+  if (!active || chunk + 1 == chunks) {
+    right = 0.0f;
+  } else if (tx + 1 == blockDim.x || lane == 31) {
+    right = halo(2 * V);
+  }
+  if (active) {
+    float e[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float a = k == 0 ? left : v[2 * k - 1];
+      const float d = k == V - 1 ? right : v[2 * k + 2];
+      e[k] = gain * blur4(a, v[2 * k], v[2 * k + 1], d);
+    }
+    *reinterpret_cast<uint4*>(o + static_cast<size_t>(row) * wo + chunk * V) =
+        Vec<T>::pack(e);
+  }
+}
+
+// Element path: one thread per output pixel reads its 4x4 input window.
+// Any even shape, any alignment; 64-bit indices.
 template <typename T>
 __global__ void blur_downsample_2x_kernel(const T* __restrict__ x,
                                           T* __restrict__ o, int64_t total,
@@ -322,27 +390,25 @@ __global__ void blur_downsample_2x_kernel(const T* __restrict__ x,
 
   float col[4];
 #pragma unroll
-  for (int dc = 0; dc < 4; ++dc) col[dc] = 0.0f;
+  for (int dc = 0; dc < 4; ++dc) {
+    const int c = 2 * j - 1 + dc;
+    const bool col_in = c >= 0 && c < w;
+    float v[4];
 #pragma unroll
-  for (int dr = 0; dr < 4; ++dr) {
-    const int r = 2 * i - 1 + dr;
-    if (r < 0 || r >= h) continue;
-    const T* row = xp + static_cast<int64_t>(r) * w;
-#pragma unroll
-    for (int dc = 0; dc < 4; ++dc) {
-      const int c = 2 * j - 1 + dc;
-      const float v = (c >= 0 && c < w) ? load_f32(row + c) : 0.0f;
-      col[dc] += tap4(dr) * v;
+    for (int dr = 0; dr < 4; ++dr) {
+      const int r = 2 * i - 1 + dr;
+      v[dr] = (col_in && r >= 0 && r < h)
+                  ? load_f32(xp + static_cast<int64_t>(r) * w + c)
+                  : 0.0f;
     }
+    col[dc] = blur4(v[0], v[1], v[2], v[3]);
   }
-  float acc = 0.0f;
-#pragma unroll
-  for (int dc = 0; dc < 4; ++dc) acc += tap4(dc) * col[dc];
-  store_f32(o + idx, gain * acc);
+  store_f32(o + idx, gain * blur4(col[0], col[1], col[2], col[3]));
 }
 
-// How the vector path cuts (planes, h, w) into threads; ok = false where
-// the shape or the pointers leave it to the element path.
+// How a vector path cuts (planes, h, w) into threads, one per V columns of
+// a row: up+blur's input, blur+down's output. ok = false where the shape or
+// the pointers leave it to the element path.
 struct VecPlan {
   bool ok;
   int chunks, rows;
@@ -393,12 +459,19 @@ int launch_up(const void* x, void* o, long long planes, int h, int w,
 template <typename T>
 int launch_down(const void* x, void* o, long long planes, int ho, int wo,
                 float gain, cudaStream_t stream) {
-  const int64_t total = planes * ho * wo;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  blur_downsample_2x_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(static_cast<const T*>(x),
-                                           static_cast<T*>(o), total, ho, wo,
-                                           gain);
+  const VecPlan p = plan_vec<T>(x, o, planes, ho, wo);
+  if (p.ok) {
+    blur_downsample_2x_vec_kernel<T><<<p.grid, p.block, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(o), p.rows, ho, wo,
+        p.chunks, gain);
+  } else {
+    const int64_t total = planes * ho * wo;
+    const int64_t blocks = (total + kThreads - 1) / kThreads;
+    blur_downsample_2x_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                   stream>>>(static_cast<const T*>(x),
+                                             static_cast<T*>(o), total, ho,
+                                             wo, gain);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,5 +516,18 @@ extern "C" int ganlab_blur_downsample_2x(const void* x, void* o,
     case 0: return launch_down<float>(x, o, planes, ho, wo, gain, s);
     case 1: return launch_down<__nv_bfloat16>(x, o, planes, ho, wo, gain, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The path ganlab_blur_downsample_2x takes for these arguments, as
+// ganlab_upsample_blur_2x_path: 1 = vector, 0 = element, -1 = a dtype it
+// does not take. Launches nothing.
+extern "C" int ganlab_blur_downsample_2x_path(const void* x, const void* o,
+                                              long long planes, int ho,
+                                              int wo, int dtype) {
+  switch (dtype) {
+    case 0: return plan_vec<float>(x, o, planes, ho, wo).ok ? 1 : 0;
+    case 1: return plan_vec<__nv_bfloat16>(x, o, planes, ho, wo).ok ? 1 : 0;
+    default: return -1;
   }
 }

@@ -1,23 +1,33 @@
-"""AdaIN: instance norm over H x W, then ``s * x_hat + b``: Triton + plain.
+"""AdaIN: instance norm over H x W, then ``s * x_hat + b``: CUDA C++ + plain.
 
 Replaces ``ganlab_tpu/ops/pallas/adain.py::adain_pallas`` (``_impl`` /
 ``_kernel``): per (n, c) plane, mean and biased variance (the two-pass
 formula, float32), ``r = rsqrt(var + eps)``, ``y = (x - mean) * r * s + b``,
 output in x's dtype. The JAX package runs its kernel only where a
 per-image tile fits VMEM; this one takes every shape the synthesis network
-makes, planes of 4x4 up to 256x256.
+makes, planes of 4x4 up to 256x256, and any other.
 
 Bound: memory. The function needs one read and one write of x (plus the
 (N, C) styles), a handful of flops per element, so the least time is those
 bytes over 3.35 TB/s.
 
-Design: x is NCHW-contiguous, so each (n, c) plane is one contiguous run
-of H*W elements. One program per plane loops over it in BLOCK-sized
-chunks three times: sum (mean), sum of squared deviations (variance), and
-the normalize-and-modulate write. The second and third reads of a plane
-mostly hit L2 (a plane is at most 256 KiB in float32), so device memory
-sees about one read and one write. Fusing the preceding noise + bias +
-LeakyReLU epilogue is left to a later PR.
+What limited the first design, a Triton program per plane that looped over
+it three times (sum, squared deviations, write): each pass waited for the
+reduction of the one before it, the second and third reads went through
+L2, and nothing of the plane was held between passes; and at the small
+planes a call cost what Triton's Python launcher costs the host.
+
+Design: the kernel is ``csrc/adain.cu``, built by ``_build`` with nvcc and
+called through its plain C interface with the trimmed wrapper that
+pixelnorm uses. x is NCHW-contiguous, so each (n, c) plane is one
+contiguous run of H*W elements; it is loaded once with 16-byte loads and
+stays in registers through both reductions and the write: a group of
+lanes of a warp per plane up to 32x32, a block per plane above that, a
+thread block cluster per plane (partial sums exchanged through distributed
+shared memory) where one block's registers cannot hold it; a looped path
+takes every other shape and unaligned pointers. ``adain_path`` tells which
+path a call takes. The sums are taken in another order than the plain
+version's, so float32 agrees with it to rounding, not bit for bit.
 
 ``AdaIN`` is the autograd Function: forward is the kernel (CUDA) or the
 plain version (CPU); backward is the analytic VJP of the JAX package's
@@ -26,54 +36,28 @@ plain version (CPU); backward is the analytic VJP of the JAX package's
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import check_input
+from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
 
-tl = None  # triton.language; bound by _kernel() (no triton on CPU hosts)
-
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-
-
-def _adain_kernel(x_ptr, s_ptr, b_ptr, o_ptr, HW, eps,
-                  BLOCK: tl.constexpr):
-    p = tl.program_id(0)
-    base = p.to(tl.int64) * HW
-    lane = tl.arange(0, BLOCK)
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, HW, BLOCK):
-        offs = start + lane
-        acc += tl.load(x_ptr + base + offs, mask=offs < HW,
-                       other=0.0).to(tl.float32)
-    mean = tl.sum(acc, axis=0) / HW
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, HW, BLOCK):
-        offs = start + lane
-        m = offs < HW
-        x = tl.load(x_ptr + base + offs, mask=m, other=0.0).to(tl.float32)
-        d = tl.where(m, x - mean, 0.0)
-        acc += d * d
-    r = 1.0 / tl.sqrt(tl.sum(acc, axis=0) / HW + eps)
-    s = tl.load(s_ptr + p).to(tl.float32)
-    b = tl.load(b_ptr + p).to(tl.float32)
-    for start in range(0, HW, BLOCK):
-        offs = start + lane
-        m = offs < HW
-        x = tl.load(x_ptr + base + offs, mask=m, other=0.0).to(tl.float32)
-        y = (x - mean) * r * s + b
-        tl.store(o_ptr + base + offs, y.to(o_ptr.dtype.element_ty), mask=m)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PATHS = ("loop", "warp", "block", "cluster")
 
 
 @functools.cache
-def _kernel():
-    global tl
-    import triton
-    import triton.language
-
-    tl = triton.language
-    return triton.jit(_adain_kernel)
+def _fn(symbol: str):
+    """A C function of the library, given its argument types once."""
+    fn = getattr(_build.library("adain").lib, symbol)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = {
+        "ganlab_adain": [p, p, p, p, ll, ll, ctypes.c_float, i, i, i, i, i, i,
+                         p],
+        "ganlab_adain_path": [p, p, ll, i, i, i]}[symbol]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def adain_ref(x: torch.Tensor, style_scale: torch.Tensor,
@@ -108,29 +92,66 @@ def adain_bwd(x: torch.Tensor, style_scale: torch.Tensor, g: torch.Tensor,
             db.to(style_scale.dtype))
 
 
-def adain_triton(x: torch.Tensor, style_scale: torch.Tensor,
-                 style_bias: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Launch the kernel: x (N, C, H, W) and styles (N, C), all CUDA."""
-    check_input("adain", x, dtypes=_DTYPES, ndim=4)
-    n, c, h, w = x.shape
+def _check(x, style_scale, style_bias):
+    check_input("adain", x, dtypes=_DTYPE_CODE, ndim=4)
+    n, c = x.shape[:2]
     for name, t in (("style_scale", style_scale), ("style_bias", style_bias)):
-        check_input(f"adain {name}", t, dtypes=_DTYPES, ndim=2)
+        check_input(f"adain {name}", t, dtypes=_DTYPE_CODE, ndim=2)
         if t.shape != (n, c) or t.device != x.device:
             raise ValueError(f"adain: {name} must be ({n}, {c}) on "
                              f"{x.device}, got {tuple(t.shape)} on {t.device}")
+
+
+def adain_cuda(x: torch.Tensor, style_scale: torch.Tensor,
+               style_bias: torch.Tensor, eps: float = 1e-8, *,
+               threads: int = 0, cluster: int = 0) -> torch.Tensor:
+    """Launch the kernel: x (N, C, H, W) and styles (N, C), all CUDA.
+
+    ``threads`` and ``cluster`` (0: the kernel's own choice) force the
+    block path (``cluster=1``) or the cluster path with that many threads
+    a block and blocks a plane, to measure one against the other; a
+    request that cannot hold the plane in registers raises.
+    """
+    _check(x, style_scale, style_bias)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    hw = h * w
-    block = min(1 << max(hw - 1, 0).bit_length(), 2048)
-    with torch.cuda.device(x.device):
-        _kernel()[(n * c,)](x, style_scale, style_bias, out, hw, float(eps),
-                            BLOCK=block, num_warps=4 if block <= 512 else 8)
-    adain_triton.launches += 1
+    n, c, h, w = x.shape
+    index = x.device.index
+    err = _fn("ganlab_adain")(
+        x.data_ptr(), style_scale.data_ptr(), style_bias.data_ptr(),
+        out.data_ptr(), n * c, h * w, eps, _DTYPE_CODE[x.dtype],
+        _DTYPE_CODE[style_scale.dtype], _DTYPE_CODE[style_bias.dtype],
+        threads, cluster, index, stream_handle(index))
+    if err != 0:
+        raise RuntimeError(f"adain kernel launch failed: CUDA error {err} at "
+                           f"shape {tuple(x.shape)} (threads {threads}, "
+                           f"cluster {cluster})")
+    adain_cuda.launches += 1
     return out
 
 
-adain_triton.launches = 0
+adain_cuda.launches = 0
+
+
+def adain_path(x: torch.Tensor, out: torch.Tensor, *, threads: int = 0,
+               cluster: int = 0) -> str:
+    """Which path of the kernel this input and output take and how it is
+    cut: "warp 8 lanes x 1", "block 512 x 4", "cluster 4 x 512 x 4"
+    (blocks x threads x 16-byte vectors a thread) or "loop". Launches
+    nothing."""
+    check_input("adain", x, dtypes=_DTYPE_CODE, ndim=4)
+    code = _fn("ganlab_adain_path")(
+        x.data_ptr(), out.data_ptr(), x.shape[2] * x.shape[3],
+        _DTYPE_CODE[x.dtype], threads, cluster)
+    if code < 0:
+        raise ValueError(f"adain: threads {threads}, cluster {cluster} "
+                         f"cannot hold a plane of {tuple(x.shape)}")
+    path = _PATHS[code & 3]
+    blocks, k, width = 1 << (code >> 2 & 3), 1 << (code >> 4 & 3), code >> 6
+    return {"loop": "loop", "warp": f"warp {width} lanes x {k}",
+            "block": f"block {width} x {k}",
+            "cluster": f"cluster {blocks} x {width} x {k}"}[path]
 
 
 class AdaIN(torch.autograd.Function):
@@ -142,8 +163,8 @@ class AdaIN(torch.autograd.Function):
         ctx.eps = eps
         if x.device.type == "cpu":
             return adain_ref(x, style_scale, style_bias, eps)
-        return adain_triton(x.contiguous(), style_scale.contiguous(),
-                            style_bias.contiguous(), eps)
+        return adain_cuda(x.contiguous(), style_scale.contiguous(),
+                          style_bias.contiguous(), eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -5,9 +5,10 @@ Replaces ``ganlab_tpu/ops/pallas/resample.py``: ``upsample_blur_2x_pallas``
 blur + 2x2 average pool). Both kernels live in ``csrc/resample.cu``, built
 by ``_build`` with nvcc for ``sm_90a`` and called through its C interface.
 They are memory-bound (a few flops per byte moved); the source says how
-each reads and writes (up+blur: 16-byte vectors, one row chunk per thread,
-where the shape and the pointers allow, one element per thread
-elsewhere). NCHW, float32 or bfloat16 storage, float32 arithmetic.
+each reads and writes (16-byte vectors, one row chunk per thread, where
+the shape and the pointers allow, one element per thread elsewhere; the
+two paths agree bit for bit). NCHW, float32 or bfloat16 storage, float32
+arithmetic.
 
 Every function here takes a ``gain`` that is multiplied into the result
 before it is stored (the kernels do it in their store). The two ops are
@@ -122,14 +123,18 @@ def upsample_blur_2x_cuda(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     return out
 
 
+def _path(op: str, x: torch.Tensor, out: torch.Tensor, h: int, w: int) -> str:
+    check_input(op, x, dtypes=_DTYPE_CODE, ndim=4)
+    fn = _fn(f"ganlab_{op}_path", _PATH_ARGS)
+    return {1: "vector", 0: "element"}[fn(
+        x.data_ptr(), out.data_ptr(), x.shape[0] * x.shape[1], h, w,
+        _DTYPE_CODE[x.dtype])]
+
+
 def upsample_blur_2x_path(x: torch.Tensor, out: torch.Tensor) -> str:
     """Which path of the up+blur kernel this input and output take:
     "vector" (16-byte accesses) or "element". Launches nothing."""
-    check_input("upsample_blur_2x", x, dtypes=_DTYPE_CODE, ndim=4)
-    fn = _fn("ganlab_upsample_blur_2x_path", _PATH_ARGS)
-    n, c, h, w = x.shape
-    return {1: "vector", 0: "element"}[fn(
-        x.data_ptr(), out.data_ptr(), n * c, h, w, _DTYPE_CODE[x.dtype])]
+    return _path("upsample_blur_2x", x, out, *x.shape[2:])
 
 
 def blur_downsample_2x_cuda(x: torch.Tensor, gain: float = 1.0
@@ -148,6 +153,12 @@ def blur_downsample_2x_cuda(x: torch.Tensor, gain: float = 1.0
             h // 2, w // 2, gain)
     blur_downsample_2x_cuda.launches += 1
     return out
+
+
+def blur_downsample_2x_path(x: torch.Tensor, out: torch.Tensor) -> str:
+    """Which path of the blur+down kernel this input and output take:
+    "vector" (16-byte accesses) or "element". Launches nothing."""
+    return _path("blur_downsample_2x", x, out, *out.shape[2:])
 
 
 upsample_blur_2x_cuda.launches = 0

@@ -3,8 +3,10 @@
 Here on the CPU: a launching wrapper refuses a CPU tensor (it never falls
 back to the plain version). On a CUDA card (``-m gpu``): each kernel
 against its plain version, float32 within 1e-5 and bfloat16 within
-2**-6 relative (about 2 bf16 ulps), up+blur on its vector and its element
-path and pixelnorm at widths that do and do not fill 16-byte vectors; each
+2**-6 relative (about 2 bf16 ulps), each resample kernel on its vector and
+its element path (bit-identical), AdaIN on each of its paths (they sum in
+different orders, so each is held to the plain version, not to another
+path's bits), pixelnorm at widths that do and do not fill 16-byte vectors; each
 autograd Function's gradient, and the second derivative through the
 resample and mbstd Functions, against autograd through the plain versions
 on the card, in float32 within 1e-5 of the scale. This file imports no
@@ -16,7 +18,11 @@ JAX, so it runs on a GPU host that has only PyTorch:
 import pytest
 import torch
 
-from ganlab_tpu_torch.ops.kernels.adain import adain_ref, adain_triton
+from ganlab_tpu_torch.ops.kernels.adain import (
+    adain_cuda,
+    adain_path,
+    adain_ref,
+)
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
     pixel_norm_cuda,
@@ -27,6 +33,7 @@ from ganlab_tpu_torch.ops.kernels.mbstd import (
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
     blur_downsample_2x_cuda,
+    blur_downsample_2x_path,
     blur_downsample_2x_ref,
     upsample_blur_2x_cuda,
     upsample_blur_2x_path,
@@ -36,7 +43,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
 
 @pytest.mark.parametrize("launch,args", [
     (pixel_norm_cuda, lambda: (torch.ones(2, 8),)),
-    (adain_triton, lambda: (torch.ones(2, 3, 4, 4), torch.ones(2, 3),
+    (adain_cuda, lambda: (torch.ones(2, 3, 4, 4), torch.ones(2, 3),
                             torch.ones(2, 3))),
     (upsample_blur_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
     (blur_downsample_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
@@ -76,7 +83,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         for shape in ((2, 8, 4, 4), (2, 3, 33, 31), (1, 2, 64, 64)):
             x, s, b = r(*shape), r(*shape[:2]), r(*shape[:2])
             want = adain_ref(x, s, b)
-            torch.testing.assert_close(adain_triton(x, s, b), want,
+            torch.testing.assert_close(adain_cuda(x, s, b), want,
                                        rtol=tol,
                                        atol=tol * want.abs().max().item())
             x = r(*shape)
@@ -124,8 +131,7 @@ def test_upsample_blur_paths_on_card(cuda, shape, path, gain, dtype):
         assert upsample_blur_2x_path(x, out) == path
         torch.testing.assert_close(out, upsample_blur_2x_ref(x, gain),
                                    rtol=tol, atol=tol)
-        xu = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:] \
-            .view(shape).copy_(x)
+        xu = _unaligned_copy(x)
         out_u = upsample_blur_2x_cuda(xu, gain)
         assert upsample_blur_2x_path(xu, out_u) == "element"
         assert torch.equal(out, out_u)
@@ -133,6 +139,81 @@ def test_upsample_blur_paths_on_card(cuda, shape, path, gain, dtype):
         torch.testing.assert_close(blur_downsample_2x_cuda(y, gain),
                                    blur_downsample_2x_ref(y, gain),
                                    rtol=tol, atol=tol)
+
+
+def _unaligned_copy(x):
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:] \
+        .view(x.shape).copy_(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gain", [1.0, 4.0])
+@pytest.mark.parametrize("shape,path", [
+    ((2, 3, 32, 64), "vector"),      # 4 or 8 lanes a row, rows share a warp
+    ((3, 5, 14, 48), "vector"),      # a lane count that does not divide 32
+    ((1, 2, 10, 528), "vector"),     # more than a warp of vectors in a row
+    ((2, 2, 18, 16), "vector"),      # one bf16 vector a row, odd height
+    ((2, 3, 66, 62), "element"),     # output width no multiple of a vector
+    ((2, 8, 8, 4), "element"),       # output width below a vector
+], ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
+def test_blur_downsample_paths_on_card(cuda, shape, path, gain, dtype):
+    """Both paths of the blur+down kernel against the plain version, and
+    against each other on the same values at an unaligned pointer."""
+    tol = _tol(dtype)
+    with torch.inference_mode():
+        x = _randn(shape, dtype, 6, cuda)
+        out = blur_downsample_2x_cuda(x, gain)
+        assert blur_downsample_2x_path(x, out) == path
+        torch.testing.assert_close(out, blur_downsample_2x_ref(x, gain),
+                                   rtol=tol, atol=tol * gain)
+        xu = _unaligned_copy(x)
+        out_u = blur_downsample_2x_cuda(xu, gain)
+        assert blur_downsample_2x_path(xu, out_u) == "element"
+        assert torch.equal(out, out_u)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("planes", ["random", "constant", "large mean"])
+@pytest.mark.parametrize("shape,path", [
+    ((4, 8, 4, 4), "warp"),          # several planes a warp
+    ((2, 3, 32, 32), "warp"),        # the largest plane a warp holds
+    ((2, 3, 5, 7), "loop"),          # H*W no multiple of a vector
+    ((3, 5, 33, 31), "loop"),
+    ((2, 3, 48, 48), "block"),       # a block whose last vectors are ragged
+    ((1, 2, 128, 128), "block"),
+    ((1, 2, 256, 256), {torch.float32: "cluster"}),  # 16-bit types: a block
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+def test_adain_paths_on_card(cuda, shape, path, planes, dtype):
+    """Each path of the AdaIN kernel against the plain version, also from
+    an unaligned pointer (the loop path), on random planes, constant
+    planes (the output is the bias, bit for bit) and planes whose mean is
+    far above their spread (where a one-pass variance fails)."""
+    if isinstance(path, dict):
+        path = path.get(dtype, "block")
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6,
+           torch.float16: 2 ** -9}[dtype]
+    with torch.inference_mode():
+        noise = _randn(shape, torch.float32, 7, cuda)
+        x = {"random": 0.5 + 2 * noise, "large mean": 1000 + 16 * noise,
+             "constant": torch.full(shape, 1.5, device=cuda)}[planes]
+        x = x.to(dtype)
+        s = (1 + _randn(shape[:2], torch.float32, 9, cuda)).to(dtype)
+        b = _randn(shape[:2], dtype, 10, cuda)
+        want = adain_ref(x, s, b)
+        atol = tol * want.abs().max().item()
+        out = adain_cuda(x, s, b)
+        assert adain_path(x, out).split()[0] == path
+        torch.testing.assert_close(out, want, rtol=0, atol=atol)
+        xu = _unaligned_copy(x)
+        out_u = adain_cuda(xu, s, b)
+        assert adain_path(xu, out_u) == "loop"
+        torch.testing.assert_close(out_u, want, rtol=0, atol=atol)
+        if planes == "constant":
+            assert torch.equal(out, b[:, :, None, None].expand_as(out))
+            assert torch.equal(out_u, out)
 
 
 @pytest.mark.gpu
@@ -149,9 +230,7 @@ def test_pixel_norm_widths_on_card(cuda, c, dtype):
         want = pixel_norm_ref(x)
         torch.testing.assert_close(pixel_norm_cuda(x), want,
                                    rtol=tol, atol=tol)
-        xu = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:] \
-            .view(7, c).copy_(x)
-        torch.testing.assert_close(pixel_norm_cuda(xu), want,
+        torch.testing.assert_close(pixel_norm_cuda(_unaligned_copy(x)), want,
                                    rtol=tol, atol=tol)
 
 

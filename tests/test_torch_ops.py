@@ -33,6 +33,7 @@ from ganlab_tpu.ops.pallas import (
     upsample_blur_2x_pallas,
 )
 from ganlab_tpu_torch import ops as tops
+from ganlab_tpu_torch.ops.kernels.adain import adain_ref
 from ganlab_tpu_torch.ops.kernels.pixelnorm import pixel_norm_ref
 from ganlab_tpu_torch.ops.kernels.resample import (
     BlurDownsample2x,
@@ -120,6 +121,45 @@ def test_adain(shape, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,planes", [
+    ((2, 5, 7, 3), "random"),        # H*W no multiple of a 16-byte vector
+    ((3, 33, 31, 5), "random"),
+    ((2, 48, 48, 3), "random"),      # a plane that fills no power of two
+    ((2, 4, 4, 8), "constant"),      # variance 0, as StyleGAN's 4x4 at init
+    ((2, 16, 16, 4), "constant"),
+    ((2, 8, 8, 4), "large mean"),    # where E[x^2] - mean^2 would fail
+    ((2, 48, 48, 3), "large mean"),
+], ids=lambda v: v.replace(" ", "_") if isinstance(v, str)
+    else "x".join(map(str, v)))
+def test_adain_ref_vs_pallas_planes(shape, planes, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at odd
+    plane sizes, on constant planes (the output is the bias) and on planes
+    whose mean is far above their spread (1000 + 16 noise)."""
+    jd, td = DTYPES[dtype]
+    n, _, _, c = shape
+    x = {"random": lambda: rand(*shape, seed=40, loc=0.5, scale=2.0),
+         "constant": lambda: np.full(shape, 1.5, np.float32),
+         "large mean": lambda: rand(*shape, seed=41, loc=1000.0, scale=16.0),
+         }[planes]()
+    s = rand(n, c, seed=42, loc=1.0)
+    b = rand(n, c, seed=43)
+    want = adain_pallas(*(jnp.asarray(a, jd) for a in (x, s, b)), 1e-8, True)
+    got = adain_ref(*(torch.from_numpy(a).to(td) for a in (nchw(x), s, b)))
+    assert got.dtype == td
+    if planes == "large mean" and dtype == "float32":
+        # the mean of values near 1000 is good to ~1e-4 in float32 on
+        # either side: 1e-5 of the output's scale, not of each element
+        want = to_np(want)
+        np.testing.assert_allclose(nhwc(to_np(got)), want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()))
+    else:
+        assert_close(nhwc(to_np(got)), want, dtype)
+    if planes == "constant":
+        bias = torch.from_numpy(b).to(td)[:, :, None, None]
+        assert torch.equal(got, bias.expand_as(got))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("ref", ["xla", "pallas"])
 @pytest.mark.parametrize("shape", [(2, 4, 4, 8), (1, 5, 7, 3)])
 def test_upsample_blur_2x(shape, ref, dtype):
@@ -201,6 +241,23 @@ def test_blur_downsample_2x(shape, ref, dtype):
     want = jops.blur_downsample_2x(xj) if ref == "xla" \
         else blur_downsample_2x_pallas(xj, True)
     got = tops.blur_downsample_2x(torch.from_numpy(nchw(x)).to(td))
+    assert got.dtype == td
+    assert_close(nhwc(to_np(got)), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [
+    (2, 34, 30, 3), (3, 14, 48, 5), (1, 10, 528, 2), (2, 18, 16, 2),
+    (2, 66, 62, 3)], ids=lambda v: "x".join(map(str, v)))
+def test_blur_downsample_2x_ref_vs_pallas_shapes(shape, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at the
+    shapes that exercise both paths of the CUDA kernel: output widths that
+    are and are not a multiple of a 16-byte vector, rows wider than a
+    warp's worth of vectors, odd heights."""
+    jd, td = DTYPES[dtype]
+    x = rand(*shape, seed=44)
+    want = blur_downsample_2x_pallas(jnp.asarray(x, jd), True)
+    got = blur_downsample_2x_ref(torch.from_numpy(nchw(x)).to(td))
     assert got.dtype == td
     assert_close(nhwc(to_np(got)), want, dtype)
 
