@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training-step and progressive-trainer
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -11,8 +12,11 @@ Phases (any failure raises and the script exits non-zero):
    with nvcc, all sources at once (build time and ``-Xptxas -v`` output).
 3. Kernels: each hand-written kernel against its plain PyTorch version at
    every shape the stylegan-256 serving path (pixelnorm, AdaIN, up+blur)
-   and training step (all five) give it at batch 32, and at a few odd
-   shapes, in float32 (TF32 off) and bfloat16; the resample kernels also
+   and training step (all five) give it at batch 32 (the progressive
+   phases' steps use the same shapes), and at a few odd shapes, in float32
+   (TF32 off) and bfloat16; mbstd on both its paths, with the batch held
+   in registers and read twice, bit-equal across two calls and with fewer
+   blocks than its cluster of 8; the resample kernels also
    with a gain, and each one's vector path against its element path bit
    for bit; AdaIN on each of its paths, at an unaligned pointer, on
    constant planes and on planes with a large mean, and with one block
@@ -43,7 +47,20 @@ Phases (any failure raises and the script exits non-zero):
    cycle, peak memory and a profile of one R1-on and one R1-off step. Then
    one R1-on step of a narrow 32² model in float32, on the card and on the
    CPU from the same state and draws: losses and every gradient leaf agree.
-7. One JSON line of per-kernel numbers, then the final ``{"ok": true, ...}``.
+7. Trainer: ``cli train --preset stylegan-256`` into a temporary workdir
+   on the ``ellipses`` source, at full width, through the preset's own 11
+   phases 8x8 -> 256x256 (fade and stabilize), 16 steps each (the
+   schedule's length is the only cut besides batch 32 throughout), R1 on
+   at each phase's first step: every step's launch counts against those
+   derived for its resolution, the logged alpha (0 -> 15/16 in a fade
+   phase, 1.0 in a stabilize phase), finite losses, the checkpoints; a
+   second ``Trainer`` on the workdir holds the live state bit for bit and
+   its next two steps equal the live state's; ``BatchSampler(cfg,
+   workdir=...)`` serves the live G-EMA's batch bit for bit; ``cli
+   sample`` writes a PNG. Per phase: ms per step, img/s by step time and
+   by the loop's clock; peak memory; one R1-off step of 8x8 and of 64x64
+   profiled (the device's idle share); the host's time to make a batch.
+8. One JSON line of per-kernel numbers, then the final ``{"ok": true, ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -54,9 +71,12 @@ import copy
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,7 +84,9 @@ import torch
 import torch.nn.functional as F
 
 from ganlab_tpu_torch import BatchSampler, build_generator, get_config
+from ganlab_tpu_torch import cli as port_cli
 from ganlab_tpu_torch import ops as port_ops
+from ganlab_tpu_torch.data import make_source
 from ganlab_tpu_torch.models.stylegan import noise_shapes
 from ganlab_tpu_torch.ops.kernels import _build
 from ganlab_tpu_torch.ops.kernels.adain import (
@@ -73,8 +95,9 @@ from ganlab_tpu_torch.ops.kernels.adain import (
     adain_ref,
 )
 from ganlab_tpu_torch.ops.kernels.mbstd import (
+    minibatch_stddev_cuda,
+    minibatch_stddev_path,
     minibatch_stddev_ref,
-    minibatch_stddev_triton,
 )
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
@@ -90,10 +113,13 @@ from ganlab_tpu_torch.ops.kernels.resample import (
 )
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train import (
+    Trainer,
     build_phases,
     create_train_state,
     make_lazy_stepper,
+    state_tensors,
 )
+from ganlab_tpu_torch.train import loop as train_loop
 from ganlab_tpu_torch.train import steps as train_steps
 
 BATCH = 32
@@ -206,14 +232,16 @@ def _bsz(dtype):
     return torch.finfo(dtype).bits // 8
 
 
-def serving_shapes(mc):
-    """shape -> launches per batch, for each kernel on the serving path."""
+def serving_shapes(mc, res_log2=None):
+    """shape -> launches per batch, for each kernel of a G forward at
+    2^res_log2 (the serving path runs it at the model's full resolution)."""
+    top = mc.res_log2 if res_log2 is None else res_log2
     adain = {}
-    for lg in range(2, mc.res_log2 + 1):
+    for lg in range(2, top + 1):
         s = (BATCH, mc.nf(lg - 1), 2 ** lg, 2 ** lg)
         adain[s] = adain.get(s, 0) + 2
     up = {(BATCH, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
-          for lg in range(3, mc.res_log2 + 1)}
+          for lg in range(3, top + 1)}
     return {"pixelnorm": {(BATCH, mc.latent_dim): 1},
             "adain": adain, "upsample_blur_2x": up}
 
@@ -225,9 +253,13 @@ def _add(total: dict, part: dict) -> None:
             d[shape] = d.get(shape, 0) + n
 
 
-def step_launches(mc, r1: bool) -> dict:
-    """kernel -> {shape: launches} of one training step, derived from the
-    model's structure (``mc``, full resolution) and the step's code:
+def step_launches(mc, r1: bool, res_log2=None) -> dict:
+    """kernel -> {shape: launches} of one training step at 2^res_log2 (the
+    model's full resolution when None), derived from the model's structure
+    (``mc``) and the step's code. A fade phase adds no launch: its extra
+    toRGB / fromRGB, nearest upsample, average pool and blend are plain
+    PyTorch. At batch 32 throughout, every shape of a lower resolution's
+    step is one of the full resolution's.
 
     * G forward: one pixelnorm over the 2B rows of concat([z1, z2]), two
       AdaIN per resolution, one up+blur per block from 8x8 up;
@@ -245,11 +277,11 @@ def step_launches(mc, r1: bool) -> dict:
     UpsampleBlur2x node (blur+down at the block shapes) and of every
     blur+down node of that D forward (up+blur).
     """
-    lg = mc.res_log2
+    lg = mc.res_log2 if res_log2 is None else res_log2
     down = {(BATCH, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
     up = {(BATCH, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
           for l in range(3, lg + 1)}
-    serve = serving_shapes(mc)
+    serve = serving_shapes(mc, lg)
     g_fwd = {"pixelnorm": {(2 * BATCH, mc.latent_dim): 1},
              "adain": serve["adain"], "upsample_blur_2x": up}
     d_fwd = {"blur_downsample_2x": down,
@@ -338,10 +370,10 @@ KERNELS = {
         nbytes=lambda s, dt: 1.25 * math.prod(s) * _bsz(dt),
         flops=lambda s: 21 * math.prod(s) / 4),
     "minibatch_stddev": dict(
-        route="triton",
-        source="ganlab_tpu_torch/ops/kernels/mbstd.py",
+        route="cuda",
+        source="ganlab_tpu_torch/csrc/mbstd.cu",
         replaces="ganlab_tpu/ops/pallas/mbstd.py:45",
-        kernel=minibatch_stddev_triton,
+        kernel=minibatch_stddev_cuda,
         plain=minibatch_stddev_ref,
         inputs=lambda s, dt, g: (
             (torch.randn(s, generator=g, device="cuda") * 1.5 + 0.3)
@@ -376,6 +408,15 @@ EXTRA_SHAPES = {
     # cluster in float32
     "adain": [(2, 3, 5, 7), (3, 5, 33, 31), (2, 3, 32, 32), (2, 3, 32, 36),
               (2, 3, 48, 48), (1, 2, 256, 256)],
+    # both paths of the kernel, with the batch in registers (N <= 32) and
+    # read twice: N = 1, 3, 33, 64, the largest batch; an odd C; H*W = 9
+    # and M no multiple of a vector (element path); more chunks than the
+    # cluster has threads; the batches of the progressive presets
+    "minibatch_stddev": [(1, 512, 4, 4), (3, 511, 4, 4), (33, 512, 4, 4),
+                         (64, 512, 4, 4), (1024, 8, 4, 4), (4, 3, 5, 7),
+                         (3, 5, 3, 3), (33, 7, 3, 3), (1, 1, 1, 1),
+                         (5, 2048, 4, 4), (40, 1100, 2, 2), (16, 512, 4, 4),
+                         (8, 512, 4, 4)],
 }
 # resample kernel -> the function that tells which path a call takes
 RESAMPLE_PATHS = {"upsample_blur_2x": upsample_blur_2x_path,
@@ -450,7 +491,54 @@ def check_shape(name: str, shape, g) -> float:
                                      "take the loop path")
             worst = max(worst, _check(f"{label} unaligned", out_u,
                                       k["plain"](*inp), dt))
+        if name == "minibatch_stddev":
+            worst = max(worst, check_mbstd_paths(label, inp[0], out, dt))
     return worst
+
+
+def check_mbstd_paths(label: str, x, out, dt) -> float:
+    """mbstd beyond the plain comparison: a second call gives the same
+    bits, the same values at an unaligned pointer take the element path,
+    and every cluster size agrees with the plain version."""
+    want = minibatch_stddev_ref(x)
+    if not torch.equal(out, minibatch_stddev_cuda(x)):
+        raise AssertionError(f"{label}: two calls gave other bits")
+    xu = _unaligned_copy(x)
+    out_u = minibatch_stddev_cuda(xu)
+    paths = minibatch_stddev_path(x, out), minibatch_stddev_path(xu, out_u)
+    log(f"path {label}: {paths[0]}; from an unaligned copy: {paths[1]}; "
+        "bit-equal across two calls")
+    if not paths[1].startswith("element"):
+        raise AssertionError(f"{label}: an unaligned input did not take "
+                             "the element path")
+    worst = _check(f"{label} unaligned", out_u, want, dt)
+    for cluster in (1, 2, 4):
+        worst = max(worst, _check(
+            f"{label} cluster {cluster}",
+            minibatch_stddev_cuda(x, cluster=cluster), want, dt))
+    return worst
+
+
+def mbstd_variants(g) -> None:
+    """The cluster of 8 blocks against fewer blocks at the training shape:
+    the same call with the cluster size forced, each read three times in
+    turns (ms by CUDA events, device_ms by graph replay)."""
+    shape = (BATCH, 512, 4, 4)
+    (x,) = KERNELS["minibatch_stddev"]["inputs"](shape, torch.bfloat16, g)
+    calls = {f"cluster {c}": functools.partial(minibatch_stddev_cuda, x,
+                                               cluster=c)
+             for c in (8, 4, 2, 1)}
+    reads = {n: [] for n in calls}
+    for _ in range(3):
+        for n, fn in calls.items():
+            reads[n].append((cuda_time_ms(fn, iters=50, warmup=5),
+                             device_time_ms(fn)))
+    log(f"variants minibatch_stddev {shape} bf16 "
+        f"({minibatch_stddev_path(x, x)}), ms / device_ms, median of 3 in "
+        "turns: " + ", ".join(
+            f"{n} {statistics.median(v[0] for v in r):.4f} / "
+            f"{statistics.median(v[1] for v in r):.4f}"
+            for n, r in reads.items()))
 
 
 def _unaligned_copy(x):
@@ -629,6 +717,8 @@ def phase_kernels(units: dict) -> dict:
             times = {s: time_shape(name, s, g) for s in shapes}
             if name == "pixelnorm":
                 pixelnorm_host_parts(g)
+            if name == "minibatch_stddev":
+                mbstd_variants(g)
             for unit, by_kernel in units.items():
                 if by_kernel.get(name):
                     u = r[unit] = unit_sums(times, by_kernel[name])
@@ -1098,6 +1188,280 @@ def phase_train_card_vs_cpu() -> None:
         f"worst {worst:.3e} of the leaf scale (tol {STEP_GRAD_RTOL:g})")
 
 
+# -- 7. the progressive trainer ------------------------------------------------
+PHASE_STEPS = 16               # steps a phase: one lazy-R1 cycle, R1 on first
+CKPT_EVERY = 80
+
+
+def _assert_states_equal(what: str, a, b) -> int:
+    ta, tb = state_tensors(a), state_tensors(b)
+    if set(ta) != set(tb):
+        raise AssertionError(f"{what}: the states hold other leaves: "
+                             f"{sorted(set(ta) ^ set(tb))[:6]}")
+    bad = [k for k in ta if not torch.equal(ta[k].cpu(), tb[k].cpu())]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(ta)} leaves "
+                             f"differ, first {bad[:4]}")
+    return len(ta)
+
+
+def phase_trainer(card: str) -> dict:
+    """The progressive trainer through its command line at full width: the
+    stylegan-256 preset's own 11 phases, 8x8 stabilize up to 256x256
+    stabilize, on the ``ellipses`` source. The step functions the Trainer
+    builds are wrapped here to set the launch counts to 0 before each step
+    and to read them and the clock (after a synchronize) after it."""
+    kimg = PHASE_STEPS * BATCH / 1000.0
+    sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
+            "schedule.stabilize_kimg": kimg, "schedule.total_kimg": 0.001,
+            "schedule.batch_schedule": {2 ** lg: BATCH for lg in range(2, 9)},
+            "run.log_every": 1, "run.checkpoint_every": CKPT_EVERY}
+    cfg = get_config("stylegan-256", **sets)
+    mc = cfg.model
+    phases = build_phases(cfg.schedule, mc)
+    assert (mc.resolution, mc.latent_dim, mc.mapping_layers, mc.fmap_base,
+            cfg.run.compute_dtype, cfg.loss.penalty_every,
+            cfg.schedule.progressive) == (256, 512, 8, 8192, "bfloat16", 16,
+                                          True)
+    assert [(p.resolution, p.kind) for p in phases] == \
+        [(8, "stabilize")] + [(2 ** lg, kind) for lg in range(4, 9)
+                              for kind in ("fade", "stabilize")]
+    log(f"trainer: stylegan-256 preset, all widths and its {len(phases)} "
+        f"phases; cut: schedule.fade_kimg and stabilize_kimg 600 -> {kimg} "
+        f"({PHASE_STEPS} steps a phase), schedule.total_kimg 12000 -> the "
+        f"phases' own end ({phases[-1].end_img} images), batch {BATCH} at "
+        "every resolution (preset: 16, 8 from 128x128), data.dataset "
+        "ellipses, run.log_every 1, run.checkpoint_every "
+        f"{CKPT_EVERY}")
+
+    records, live = [], {}
+    make = train_loop.make_lazy_stepper
+
+    def instrumented(cfg_, phase, initial_step=0):
+        stepper = make(cfg_, phase, initial_step=initial_step)
+        count = {"i": int(initial_step)}
+
+        def step(state, real, draws=None):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = stepper(state, real, draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            records.append(dict(
+                phase=phase.index, step=count["i"], ms=ms, t0=t0,
+                r1=count["i"] % cfg.loss.penalty_every == 0,
+                shape=tuple(real.shape), device=real.device.type,
+                counts={n: k["kernel"].launches
+                        for n, k in KERNELS.items()}))
+            count["i"] += 1
+            live["state"] = out[0]
+            return out
+
+        return step
+
+    workdir = tempfile.mkdtemp(prefix="ganlab_smoke_")
+    try:
+        args = ["--preset", "stylegan-256", "--workdir", workdir]
+        for k, v in sets.items():
+            args += ["--set", f"{k}={v}"]
+        torch.cuda.reset_peak_memory_stats()
+        train_loop.make_lazy_stepper = instrumented
+        try:
+            t0 = time.perf_counter()
+            rc = port_cli.main(["train", *args])
+            wall = time.perf_counter() - t0
+        finally:
+            train_loop.make_lazy_stepper = make
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if rc != 0:
+            raise AssertionError(f"cli train returned {rc}")
+        totals = check_trainer_run(cfg, phases, records, workdir, card)
+        log(f"trainer: cli train took {wall:.1f} s for {len(records)} steps; "
+            f"peak memory {peak_gib:.2f} GiB [{card}]")
+        check_resume_and_serving(cfg, phases, live["state"], workdir)
+        profile_phase_steps(cfg, phases, live["state"], card)
+        png = os.path.join(workdir, "smoke_sample.png")
+        rc = port_cli.main(["sample", "--workdir", workdir, "--num", "4",
+                            "--psi", "0.7", "--out", png])
+        if rc != 0 or not os.path.getsize(png) > 0:
+            raise AssertionError("cli sample wrote no PNG")
+        with open(png, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("cli sample: not a PNG file")
+        log(f"trainer: cli sample wrote a PNG of {os.path.getsize(png)} "
+            "bytes from the workdir's own config.json")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return dict(launches=totals, peak_gib=peak_gib)
+
+
+def check_trainer_run(cfg, phases, records, workdir, card) -> dict:
+    """Every phase ran its steps at its resolution with the derived launch
+    counts; the logged alpha rises from 0 in a fade phase and is 1.0 in a
+    stabilize phase; losses finite; checkpoints written, newest 3 kept."""
+    mc = cfg.model
+    with open(os.path.join(workdir, "train.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    n_steps = PHASE_STEPS * len(phases)
+    if len(records) != n_steps or [r["step"] for r in rows] != \
+            list(range(1, n_steps + 1)):
+        raise AssertionError(f"trainer: {len(records)} steps, {len(rows)} "
+                             f"log rows, expected {n_steps}")
+    totals = {n: 0 for n in KERNELS}
+    for ph in phases:
+        recs = [r for r in records if r["phase"] == ph.index]
+        logged = rows[ph.index * PHASE_STEPS:(ph.index + 1) * PHASE_STEPS]
+        res = ph.resolution
+        if len(recs) != PHASE_STEPS or any(
+                r["shape"] != (BATCH, res, res, 3) or r["device"] != "cuda"
+                for r in recs):
+            raise AssertionError(f"trainer: phase {ph.index} ran "
+                                 f"{[(r['shape']) for r in recs][:3]}")
+        for r in recs:
+            want = {n: sum(v.values()) for n, v in
+                    step_launches(mc, r["r1"], ph.res_log2).items()}
+            want = {n: want.get(n, 0) for n in KERNELS}
+            if r["counts"] != want:
+                raise AssertionError(
+                    f"trainer: phase {ph.index} step {r['step']}: launches "
+                    f"{r['counts']}, derived {want}")
+            for n in totals:
+                totals[n] += r["counts"][n]
+        if sum(r["r1"] for r in recs) != 1 or not recs[0]["r1"]:
+            raise AssertionError(f"trainer: phase {ph.index}: R1 steps "
+                                 f"{[r['step'] for r in recs if r['r1']]}")
+        alphas = [row["alpha"] for row in logged]
+        want_alpha = [k / PHASE_STEPS if ph.kind == "fade" else 1.0
+                      for k in range(PHASE_STEPS)]
+        for row, a in zip(logged, want_alpha):
+            # bf16 blend: the step rounds alpha to the compute dtype
+            if (row["res"], row["kind"]) != (res, ph.kind) or \
+                    abs(row["alpha"] - a) > 2 ** -8:
+                raise AssertionError(f"trainer: log row {row}, expected "
+                                     f"res {res} {ph.kind} alpha {a}")
+            vals = [row[k] for k in ("d_loss", "g_loss", "penalty",
+                                     "real_score", "fake_score")]
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"trainer: non-finite metrics {row}")
+            if (row["penalty"] > 0) != (row["step"] % 16 == 1):
+                raise AssertionError(f"trainer: penalty in {row}")
+        off = [r["ms"] for r in recs[2:] if not r["r1"]]
+        steady = sum(r["ms"] for r in recs[2:]) / 1e3
+        # between two steps the loop logs and waits for the next batch
+        gaps = [(b["t0"] - a["t0"]) * 1e3 - a["ms"]
+                for a, b in zip(recs[2:], recs[3:])]
+        log(f"trainer: phase {ph.index} {res}x{res} {ph.kind}: "
+            f"{len(recs)} steps, alpha {alphas[0]:.4f}..{alphas[-1]:.4f}, "
+            f"{statistics.median(off):.2f} ms per R1-off step (median of "
+            f"{len(off)}), R1-on step {recs[0]['ms']:.2f} ms (the phase's "
+            f"first), second step {recs[1]['ms']:.2f} ms, "
+            f"{(len(recs) - 2) * BATCH / steady:.1f} img/s over steps "
+            f"3..{len(recs)} by step time, "
+            f"{(len(recs) - 3) * BATCH / (recs[-1]['t0'] - recs[2]['t0']):.1f}"
+            f" img/s by the loop's clock (between steps: median "
+            f"{statistics.median(gaps):.2f} ms, checkpoints included), "
+            f"launches R1-off {recs[1]['counts']} [{card}]")
+    ckpts = sorted(os.listdir(os.path.join(workdir, cfg.run.checkpoint_dir)))
+    want = [f"ckpt_{s:08d}.pt" for s in
+            sorted({*range(CKPT_EVERY, n_steps + 1, CKPT_EVERY), n_steps})
+            ][-cfg.run.keep_checkpoints:]
+    if ckpts != want:
+        raise AssertionError(f"trainer: checkpoints {ckpts}, expected {want}")
+    log(f"trainer: all {len(phases)} phases ran {PHASE_STEPS} steps each at "
+        "their resolution with the derived launch counts; alpha 0 -> "
+        f"{(PHASE_STEPS - 1) / PHASE_STEPS} in fade phases, 1.0 in "
+        f"stabilize phases; metrics finite; checkpoints {ckpts}")
+    return totals
+
+
+def profile_phase_steps(cfg, phases, state, card) -> None:
+    """Where an R1-off step of a low resolution spends its time (the
+    device's idle share says how far the host holds the card back), and
+    what the host needs to make one batch of each resolution."""
+    for index in (0, 6):                       # 8x8 and 64x64 stabilize
+        phase = phases[index]
+        source = make_source(cfg.data, cfg.model.resolution, seed=5)
+        real = torch.from_numpy(source.batch(BATCH, phase.resolution)).cuda()
+        stepper = make_lazy_stepper(cfg, phase, initial_step=1)
+        for _ in range(2):
+            stepper(state, real)
+
+        def one():
+            stepper(state, real)
+
+        profile_call(f"one R1-off step of phase {index} "
+                     f"({phase.resolution}x{phase.resolution} {phase.kind})",
+                     one, card, top=6)
+    source = make_source(cfg.data, cfg.model.resolution, seed=5)
+    times = {}
+    for lg in range(3, cfg.model.res_log2 + 1):
+        reads = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            source.batch(BATCH, 2 ** lg)
+            reads.append((time.perf_counter() - t0) * 1e3)
+        times[2 ** lg] = statistics.median(reads)
+    log(f"trainer: host ms to make one {cfg.data.dataset} batch of {BATCH} "
+        "(median of 3, one thread, beside the idle main thread): "
+        + ", ".join(f"{r}x{r} {t:.1f}" for r, t in times.items()))
+
+
+def check_resume_and_serving(cfg, phases, live, workdir) -> None:
+    """A second Trainer on the workdir holds the first one's state bit for
+    bit; the sampler built from the workdir serves the live G-EMA's batch;
+    and the next two steps (one with R1) of the restored and of the live
+    state, on the same batches, end in the same bits. cuDNN is held to
+    its deterministic algorithms for those steps, or two runs of one step
+    from one state need not agree at all."""
+    second = Trainer(cfg, workdir)
+    try:
+        if second.state.step != live.step or live.step != \
+                PHASE_STEPS * len(phases):
+            raise AssertionError(f"resume: at step {second.state.step}, "
+                                 f"live {live.step}")
+        n = _assert_states_equal("resume", second.state, live)
+        log(f"trainer: a second Trainer resumed at step {live.step}, shown "
+            f"{live.shown_imgs}: all {n} leaves of the state (G, D, G-EMA, "
+            "both Adam states, w_avg, counters, generator) bit-equal to "
+            "the live state")
+
+        from_disk = BatchSampler(cfg, workdir=workdir, batch_size=BATCH)
+        from_live = BatchSampler(cfg, state=live, batch_size=BATCH)
+        a = from_disk.generate(BATCH, seed=3)
+        b = from_live.generate(BATCH, seed=3)
+        if a.shape != (BATCH, 256, 256, 3) or not np.array_equal(a, b):
+            raise AssertionError("serving from the workdir differs from "
+                                 "serving the live G-EMA")
+        log(f"trainer: BatchSampler(cfg, workdir=...) served a batch of "
+            f"{BATCH} bit-equal to the live state's G-EMA (image std "
+            f"{a.astype(np.float32).std():.2f})")
+        del from_disk, from_live
+
+        phase = phases[-1]
+        source = make_source(cfg.data, cfg.model.resolution, seed=123)
+        reals = [torch.from_numpy(source.batch(BATCH, phase.resolution))
+                 .cuda() for _ in range(2)]
+        step_live = make_lazy_stepper(cfg, phase, initial_step=live.step)
+        step_second = second._step_fn(phase)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for real in reals:
+                live, m1 = step_live(live, real)
+                _, m2 = step_second(second.state, real)
+                if {k: float(v) for k, v in m1.items()} != \
+                        {k: float(v) for k, v in m2.items()}:
+                    raise AssertionError(f"resume: metrics {m1} vs {m2}")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        n = _assert_states_equal("resume + 2 steps", second.state, live)
+        log(f"trainer: two more steps ({live.step - 2} with R1, "
+            f"{live.step - 1} without) from the restored and from the live "
+            f"state: all {n} leaves bit-equal")
+    finally:
+        second.close()
+
+
 def main(kernels_only: bool = False) -> None:
     kind, card = phase_device()
     phase_build()
@@ -1110,18 +1474,21 @@ def main(kernels_only: bool = False) -> None:
     phase_gradients()
     serve_counts = phase_serving(card)
     train = phase_training(card)
+    trainer = phase_trainer(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
         per = SERVED if SERVED in r else STEP
         u, st = r[per], r[STEP]
         tl = train["launches"][name]
+        pl = trainer["launches"][name]
         kernels.append({
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": serve_counts.get(name, 0) + tl,
+            "launches": serve_counts.get(name, 0) + tl + pl,
             "launches_serving": serve_counts.get(name, 0),
             "launches_training": tl,
+            "launches_trainer": pl,
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
             "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],

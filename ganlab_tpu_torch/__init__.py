@@ -2,13 +2,14 @@
 
 The JAX package ``ganlab_tpu`` stays the reference; this package re-homes
 its paths in PyTorch, one slice at a time, with every TPU (Pallas) kernel
-on a ported path rewritten by hand for the H100 (Triton or CUDA C++ under
-``ops/kernels`` and ``csrc``). It imports ``torch`` and numpy, never
+on a ported path rewritten by hand for the H100 (CUDA C++ under ``csrc``,
+wrapped in ``ops/kernels``). It imports ``torch`` and numpy, never
 ``jax``/``flax`` and nothing of ``ganlab_tpu``.
 
-Ported so far: StyleGAN G-EMA serving (``BatchSampler``) and the
-StyleGAN training step (``create_train_state`` -> ``make_lazy_stepper``).
-Entry points run
+Ported so far: StyleGAN G-EMA serving (``BatchSampler``), the StyleGAN
+training step (``create_train_state`` -> ``make_lazy_stepper``) and the
+progressive trainer with its checkpoints and command line (``Trainer``,
+``python -m ganlab_tpu_torch.cli train|sample``). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel wrapper computes its plain PyTorch version, on a CUDA tensor it
 launches the kernel or raises.
@@ -24,6 +25,9 @@ _API = {
     "create_train_state": "ganlab_tpu_torch.train",
     "make_lazy_stepper": "ganlab_tpu_torch.train",
     "build_phases": "ganlab_tpu_torch.train",
+    "Trainer": "ganlab_tpu_torch.train",
+    "CheckpointManager": "ganlab_tpu_torch.train",
+    "StyleGANLearner": "ganlab_tpu_torch.learners",
     "BatchSampler": "ganlab_tpu_torch.serve",
     "from_flax": "ganlab_tpu_torch.convert",
 }

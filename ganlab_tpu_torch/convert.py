@@ -13,6 +13,10 @@ StyleGAN generator and the ProGAN discriminator. Layouts:
   so ``block4_out.dense.w`` needs no reordering).
 
 Values are float32 (parameters stay float32 in both packages).
+
+``load_jax_train_state(state, arrays)`` carries a whole JAX ``TrainState``
+(parameters of G, D and G-EMA, both Adam states, w-average, counters) into
+the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,41 @@ def from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected leaf {name} of shape {a.shape}")
         out[name] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def load_jax_train_state(state, arrays: Mapping[str, Any]):
+    """Fill the port's ``TrainState`` from a JAX ``TrainState`` given as
+    numpy arrays; returns ``state``.
+
+    ``arrays`` holds ``params_g`` / ``params_d`` / ``params_ema`` (flax
+    trees), ``opt_g`` / ``opt_d`` (each ``{"count", "mu", "nu"}``: optax's
+    Adam step count and its two moment trees, shaped like the parameters),
+    ``w_avg``, ``step`` and ``shown_imgs``. optax keeps one count and a
+    moment for every leaf; the same is written for every parameter here,
+    so the next Adam update of the two packages agrees. The JAX PRNG key is
+    not carried: torch's streams are not JAX's.
+    """
+    for module, key in ((state.g, "params_g"), (state.d, "params_d"),
+                        (state.g_ema, "params_ema")):
+        module.load_state_dict(from_flax(arrays[key]))
+    for opt, module, key in ((state.opt_g, state.g, "opt_g"),
+                             (state.opt_d, state.d, "opt_d")):
+        saved = arrays[key]
+        mu, nu = from_flax(saved["mu"]), from_flax(saved["nu"])
+        opt.state.clear()
+        for name, p in module.named_parameters():
+            opt.state[p] = {
+                "step": torch.tensor(float(saved["count"])),
+                "exp_avg": mu[name].to(p.device),
+                "exp_avg_sq": nu[name].to(p.device)}
+    with torch.no_grad():
+        state.w_avg.copy_(torch.from_numpy(
+            np.asarray(arrays["w_avg"], dtype=np.float32)))
+    state.step = int(arrays["step"])
+    state.shown_imgs = int(arrays["shown_imgs"])
+    # the moments' count and the step counter start together in a JAX run
+    state.opt_step0 = state.step - int(arrays["opt_g"]["count"])
+    return state
 
 
 def is_flax_tree(params: Mapping[str, Any]) -> bool:

@@ -5,8 +5,10 @@ flax parameter names, so ``convert.from_flax`` maps one tree onto the
 other: ``fromrgb{R}`` (1x1 conv per resolution R), ``block{R}.conv0`` /
 ``block{R}.conv1`` (R = 8 .. resolution) and ``block4_out.conv`` /
 ``.dense`` / ``.score``. Every resolution's head and block exists up front;
-the current resolution is a call argument, and ``alpha < 1`` blends in the
-previous head on an average-pooled image (the fade branch).
+the current resolution is a call argument, and a fade phase blends in the
+previous head on an average-pooled image with weight ``alpha`` (the fade
+branch; ``fade=`` says whether it runs, else it is skipped exactly when
+``alpha`` is the Python constant 1.0).
 
 ``blur_resample=True`` is StyleGAN's variant: each block ends in the fused
 [1,2,1] blur + 2x downsample (``ops.blur_downsample_2x``) instead of the
@@ -36,6 +38,15 @@ def static_stable(alpha) -> bool:
     """True when alpha is the Python constant 1.0: the fade branch is dead
     and skipped."""
     return isinstance(alpha, (int, float)) and float(alpha) == 1.0
+
+
+def takes_fade_branch(alpha, fade: bool | None) -> bool:
+    """Whether a forward blends in the previous resolution's head. A
+    training step says so (``fade`` = the phase is a fade phase, whatever
+    alpha's value: ``old + 1.0 * (new - old)`` is not ``new`` bit for
+    bit); with ``fade=None`` the branch is skipped exactly when alpha is
+    the Python constant 1.0."""
+    return not static_stable(alpha) if fade is None else bool(fade)
 
 
 class DBlock(nn.Module):
@@ -94,7 +105,8 @@ class ProDiscriminator(nn.Module):
         self.block4_out = DOutputBlock(cfg.nf(1), cfg.mbstd_group_size)
 
     def forward(self, img: torch.Tensor, res_log2: int | None = None,
-                alpha: float = 1.0) -> torch.Tensor:
+                alpha: float = 1.0, fade: bool | None = None
+                ) -> torch.Tensor:
         """img (N, C, 2^lg, 2^lg) -> scores (N,) in img's dtype."""
         lg = self.max_log2 if res_log2 is None else res_log2
         if not 2 <= lg <= self.max_log2:
@@ -102,7 +114,7 @@ class ProDiscriminator(nn.Module):
         x = leaky_relu(getattr(self, f"fromrgb{2 ** lg}")(img))
         if lg > 2:
             x = getattr(self, f"block{2 ** lg}")(x)
-            if not static_stable(alpha):
+            if takes_fade_branch(alpha, fade):
                 img_lo = downsample_avg_2x(img)
                 x_old = leaky_relu(
                     getattr(self, f"fromrgb{2 ** (lg - 1)}")(img_lo))

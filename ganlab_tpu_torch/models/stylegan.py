@@ -30,6 +30,7 @@ from ganlab_tpu_torch.models.layers import (
     NoiseInjection,
     StyleAffine,
 )
+from ganlab_tpu_torch.models.progan import takes_fade_branch
 from ganlab_tpu_torch.ops import (
     adain,
     fade_in,
@@ -133,11 +134,14 @@ class SynthesisNetwork(nn.Module):
     def forward(self, ws: torch.Tensor, res_log2: int | None = None,
                 alpha: float = 1.0,
                 noises: Sequence[torch.Tensor] | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                fade: bool | None = None) -> torch.Tensor:
         """ws (N, L, w_dim) -> images (N, C, 2^lg, 2^lg) in ws's dtype.
 
         ``noises``: explicit per-style-layer noise maps; None draws fresh
-        noise from ``generator`` (or torch's default generator)."""
+        noise from ``generator`` (or torch's default generator). ``fade``:
+        whether the previous resolution's toRGB is blended in with weight
+        ``alpha`` (None: unless alpha is the Python constant 1.0)."""
         lg = self.max_log2 if res_log2 is None else res_log2
         if not 2 <= lg <= self.max_log2:
             raise ValueError(f"res_log2 {lg} outside [2, {self.max_log2}]")
@@ -158,7 +162,7 @@ class SynthesisNetwork(nn.Module):
                 x, ws[:, 2 * i + 2], ws[:, 2 * i + 3],
                 nz(2 * i + 2), nz(2 * i + 3), generator)
         new_rgb = getattr(self, f"torgb{2 ** lg}")(x)
-        if isinstance(alpha, (int, float)) and float(alpha) == 1.0:
+        if not takes_fade_branch(alpha, fade):
             return new_rgb  # stabilize phase: the fade branch is dead
         old_rgb = upsample_nearest_2x(
             getattr(self, f"torgb{2 ** (lg - 1)}")(prev))
@@ -201,8 +205,8 @@ class StyleGenerator(nn.Module):
         return self.mapping(z)
 
     def synthesize(self, ws, res_log2=None, alpha=1.0, noises=None,
-                   generator=None):
-        return self.synthesis(ws, res_log2, alpha, noises, generator)
+                   generator=None, fade=None):
+        return self.synthesis(ws, res_log2, alpha, noises, generator, fade)
 
     def forward(self, z, res_log2=None, alpha=1.0, z2=None, crossover=None,
                 generator=None):

@@ -7,7 +7,7 @@ pixelnorm      ops/pallas/pixelnorm.py          CUDA C++, ``csrc/pixelnorm.cu``
 adain          ops/pallas/adain.py              CUDA C++, ``csrc/adain.cu``
 upsample_blur  ops/pallas/resample.py (up)      CUDA C++, ``csrc/resample.cu``
 blur_down      ops/pallas/resample.py (down)    CUDA C++, ``csrc/resample.cu``
-mbstd          ops/pallas/mbstd.py              Triton, ``mbstd.py``
+mbstd          ops/pallas/mbstd.py              CUDA C++, ``csrc/mbstd.cu``
 =============  ==============================  ======================
 
 Every launching wrapper takes CUDA tensors only: it checks device, dtype,

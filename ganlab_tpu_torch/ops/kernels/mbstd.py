@@ -1,4 +1,4 @@
-"""Minibatch stddev (whole-batch group): Triton kernel + plain + autograd.
+"""Minibatch stddev (whole-batch group): CUDA C++ kernel + plain + autograd.
 
 Replaces ``ganlab_tpu/ops/pallas/mbstd.py::minibatch_stddev_pallas``
 (``_impl`` / ``_kernel``): x (N, C, H, W) -> (N, C+1, H, W), a copy of x
@@ -8,21 +8,26 @@ with one channel appended last, filled with the scalar
 
 (biased variance, float32 math, output in x's dtype).
 
-Bound: memory, and at the training shape (32, 512, 4, 4) launch latency.
-The function moves one read of x and one write of x plus the new channel
-(about 1 MB in bf16), with a few flops per element.
+Bound: memory by its bytes (one read of x, one write of x plus the new
+channel, about 1 MB in bf16 at the training shape (32, 512, 4, 4)), and at
+that size launch latency: a caller waits for the host to make the launch.
 
-Design: x is viewed as an (N, M) matrix, M = C*H*W, and the output as
-(N, M + H*W) with the new channel in the last H*W columns of each row. A
-first kernel gives each program a block of BLOCK_M columns with the whole
-batch in registers (BLOCK_N = next power of two of N): it copies the block
-to the output, takes each column's two-pass variance over the batch, and
-writes the block's sum of sqrt(var + eps) to a partial buffer. A second,
-one-program kernel sums the partials in a fixed order (deterministic, no
-atomics), divides by M and fills the new channel. The Pallas kernel did
-both in one program over a VMEM-resident batch; a Hopper block cannot hold
-the 0.5 MB input, and one SM alone would stream it slowly, hence the split.
-``minibatch_stddev_triton`` counts one launch per call (two kernels).
+What limited the first design: it was two Triton kernels (per-column
+partial sums into a scratch buffer, then a one-program sum and fill), so
+two dependent launches, an allocation, and Triton's Python launcher twice
+per call.
+
+Design: the kernel is ``csrc/mbstd.cu``: one launch of one thread block
+cluster, no scratch buffer and no atomics. x is viewed as an (N, M) matrix,
+M = C*H*W, the output as (N, M + H*W); each thread walks the batch for one
+16-byte vector of adjacent columns (one element on the element path, which
+takes every shape and pointer the vector path cannot), copies as it goes,
+takes the two-pass variance, and the sum of sqrt(var + eps) goes warp ->
+block -> cluster through distributed shared memory in a fixed order, so a
+call is bit-reproducible. With N <= 32 the batch stays in registers and x
+is read once. Built by ``_build`` with nvcc and called through its plain C
+interface like the other kernels: the ``ctypes`` function is looked up
+once, the C function switches device, the stream handle is an int.
 
 ``MinibatchStddev`` is the autograd Function: forward is the kernel (CUDA)
 or the plain version (CPU); backward is plain PyTorch on the saved x, as
@@ -32,67 +37,27 @@ because it lies inside R1's double backward.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import check_input
+from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
 
-tl = None  # triton.language; bound by _kernels() (no triton on CPU hosts)
-
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 1024
 
 
-def _mbstd_partial_kernel(x_ptr, o_ptr, part_ptr, N, M, HW, eps,
-                          BLOCK_N: tl.constexpr, BLOCK_M: tl.constexpr):
-    p = tl.program_id(0)
-    cols = p * BLOCK_M + tl.arange(0, BLOCK_M)
-    rows = tl.arange(0, BLOCK_N)
-    cmask = cols < M
-    mask = (rows[:, None] < N) & cmask[None, :]
-    r64 = rows[:, None].to(tl.int64)
-    xr = tl.load(x_ptr + r64 * M + cols[None, :], mask=mask, other=0.0)
-    tl.store(o_ptr + r64 * (M + HW) + cols[None, :], xr, mask=mask)
-    x = xr.to(tl.float32)
-    mean = tl.sum(x, axis=0) / N
-    d = tl.where(mask, x - mean[None, :], 0.0)
-    var = tl.sum(d * d, axis=0) / N
-    std = tl.where(cmask, tl.sqrt(var + eps), 0.0)
-    tl.store(part_ptr + p, tl.sum(std, axis=0))
-
-
-def _mbstd_fill_kernel(part_ptr, o_ptr, P, N, M, HW,
-                       BLOCK_P: tl.constexpr, BLOCK: tl.constexpr):
-    offs = tl.arange(0, BLOCK_P)
-    acc = tl.zeros([BLOCK_P], dtype=tl.float32)
-    for start in range(0, P, BLOCK_P):
-        acc += tl.load(part_ptr + start + offs, mask=start + offs < P,
-                       other=0.0)
-    stat = tl.sum(acc, axis=0) / M
-    lane = tl.arange(0, BLOCK)
-    total = N * HW
-    for start in range(0, total, BLOCK):
-        e = start + lane
-        n = e // HW
-        k = e - n * HW
-        val = tl.zeros([BLOCK], dtype=tl.float32) + stat
-        tl.store(o_ptr + n.to(tl.int64) * (M + HW) + M + k,
-                 val.to(o_ptr.dtype.element_ty), mask=e < total)
-
-
 @functools.cache
-def _kernels():
-    global tl
-    import triton
-    import triton.language
-
-    tl = triton.language
-    return triton.jit(_mbstd_partial_kernel), triton.jit(_mbstd_fill_kernel)
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
+def _fn(symbol: str):
+    """A C function of the library, given its argument types once."""
+    fn = getattr(_build.library("mbstd").lib, symbol)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = {
+        "ganlab_mbstd": [p, p, i, ll, i, ctypes.c_float, i, i, i, p],
+        "ganlab_mbstd_path": [p, p, i, ll, i, i]}[symbol]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def minibatch_stddev_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -121,34 +86,52 @@ def minibatch_stddev_bwd(x: torch.Tensor, g: torch.Tensor,
     return dx.to(x.dtype)
 
 
-def minibatch_stddev_triton(x: torch.Tensor,
-                            eps: float = 1e-8) -> torch.Tensor:
-    """Launch the kernels on a contiguous CUDA (N, C, H, W) tensor."""
-    check_input("minibatch_stddev", x, dtypes=_DTYPES, ndim=4)
-    n, c, h, w = x.shape
-    if n > MAX_BATCH:
+def _check(x: torch.Tensor) -> None:
+    check_input("minibatch_stddev", x, dtypes=_DTYPE_CODE, ndim=4)
+    if x.shape[0] > MAX_BATCH:
         raise ValueError(f"minibatch_stddev: the kernel takes a batch of at "
-                         f"most {MAX_BATCH}, got {n}")
+                         f"most {MAX_BATCH}, got {x.shape[0]}")
+
+
+def minibatch_stddev_cuda(x: torch.Tensor, eps: float = 1e-8, *,
+                          cluster: int = 0) -> torch.Tensor:
+    """Launch the kernel on a contiguous CUDA (N, C, H, W) tensor.
+
+    ``cluster`` (0: the kernel's own choice, 8) runs the call with that
+    many thread blocks (1, 2, 4 or 8), to measure one against another.
+    """
+    _check(x)
+    n, c, h, w = x.shape
     out = torch.empty((n, c + 1, h, w), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
-    hw, m = h * w, c * h * w
-    block_n = _next_pow2(n)
-    block_m = max(16, 2048 // block_n)
-    parts = -(-m // block_m)
-    partial = torch.empty(parts, dtype=torch.float32, device=x.device)
-    partial_k, fill_k = _kernels()
-    with torch.cuda.device(x.device):
-        partial_k[(parts,)](x, out, partial, n, m, hw, float(eps),
-                            BLOCK_N=block_n, BLOCK_M=block_m, num_warps=4)
-        fill_k[(1,)](partial, out, parts, n, m, hw,
-                     BLOCK_P=min(_next_pow2(parts), 1024), BLOCK=1024,
-                     num_warps=4)
-    minibatch_stddev_triton.launches += 1
+    index = x.device.index
+    err = _fn("ganlab_mbstd")(
+        x.data_ptr(), out.data_ptr(), n, c * h * w, h * w, eps,
+        _DTYPE_CODE[x.dtype], cluster, index, stream_handle(index))
+    if err != 0:
+        raise RuntimeError(f"minibatch_stddev kernel launch failed: CUDA "
+                           f"error {err} at shape {tuple(x.shape)} "
+                           f"(cluster {cluster})")
+    minibatch_stddev_cuda.launches += 1
     return out
 
 
-minibatch_stddev_triton.launches = 0
+minibatch_stddev_cuda.launches = 0
+
+
+def minibatch_stddev_path(x: torch.Tensor, out: torch.Tensor) -> str:
+    """Which path of the kernel this input and output take: "vector" or
+    "element", then "held" (the batch stays in registers) or "reread",
+    then the threads a block, as in "vector held 128". Launches nothing."""
+    _check(x)
+    n, c, h, w = x.shape
+    code = _fn("ganlab_mbstd_path")(x.data_ptr(), out.data_ptr(), n,
+                                    c * h * w, h * w, _DTYPE_CODE[x.dtype])
+    if code < 0:
+        raise ValueError(f"minibatch_stddev: no path for {tuple(x.shape)}")
+    return (f"{'vector' if code & 1 else 'element'} "
+            f"{'held' if code & 2 else 'reread'} {code >> 2}")
 
 
 class MinibatchStddev(torch.autograd.Function):
@@ -160,7 +143,7 @@ class MinibatchStddev(torch.autograd.Function):
         ctx.eps = eps
         if x.device.type == "cpu":
             return minibatch_stddev_ref(x, eps)
-        return minibatch_stddev_triton(x.contiguous(), eps)
+        return minibatch_stddev_cuda(x.contiguous(), eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -3,7 +3,7 @@
 Port of ``ganlab_tpu/ops/minibatch_stddev.py``: appends one channel, last,
 holding the mean over channels and pixels of the batch standard deviation.
 The whole-batch form (``group_size=None``) goes through the autograd
-Function ``MinibatchStddev`` (Triton kernel on the card, plain version on
+Function ``MinibatchStddev`` (CUDA C++ kernel on the card, plain version on
 the CPU); the grouped form (StyleGAN's variant) is plain PyTorch, as in
 the JAX package. Under data parallelism the statistic is per device.
 """

@@ -18,13 +18,15 @@ other latents and noise than ``ganlab_tpu.serve.BatchSampler``. The
 contract (prefix stability, repeatability) is the same. Given the same z
 and zero noise scales, both packages give the same images.
 
-The sampler takes the G-EMA parameters directly (``params=``, a port
-``state_dict`` or a flax numpy tree, converted on entry). Loading from a
-training ``workdir`` waits for the port's training checkpoints.
+The sampler takes a training ``workdir`` (the G-EMA and w-average of its
+latest checkpoint), a live ``TrainState`` (``state=``), or the G-EMA
+parameters directly (``params=``, a port ``state_dict`` or a flax numpy
+tree, converted on entry, with ``w_avg=``): exactly one of the three.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -50,14 +52,35 @@ def stream_seed(*parts: int) -> int:
 class BatchSampler:
     """Fixed-batch G-EMA inference service for one trained model::
 
+        s = BatchSampler(cfg, workdir="runs/stylegan256")
         s = BatchSampler(cfg, params=g_ema_state, w_avg=w_avg)
         imgs = s.generate(64, seed=0)            # (64, H, W, 3) uint8
         frames = s.interpolate(seed_a=0, seed_b=1, steps=30)
     """
 
-    def __init__(self, cfg: Config, *, params: Mapping[str, Any], w_avg,
-                 batch_size: int = 64, res_log2: int | None = None,
+    def __init__(self, cfg: Config, workdir: str | None = None, *,
+                 state=None, params: Mapping[str, Any] | None = None,
+                 w_avg=None, batch_size: int = 64,
+                 res_log2: int | None = None,
                  device: str | torch.device = "cuda"):
+        if sum(x is not None for x in (workdir, state, params)) != 1:
+            raise ValueError("pass exactly one of workdir=, state= or "
+                             "params= (with w_avg=)")
+        if workdir is not None:
+            from ganlab_tpu_torch.train.checkpoint import CheckpointManager
+
+            directory = os.path.join(workdir, cfg.run.checkpoint_dir)
+            saved = CheckpointManager(directory).load() \
+                if os.path.isdir(directory) else None
+            if saved is None:
+                raise FileNotFoundError(f"no checkpoint under {directory}")
+            params, w_avg = saved["g_ema"], saved["w_avg"]
+        elif state is not None:
+            params = {k: v.detach().clone()
+                      for k, v in state.g_ema.state_dict().items()}
+            w_avg = state.w_avg.detach().clone()
+        elif w_avg is None:
+            raise ValueError("params= needs w_avg=")
         self.cfg = cfg
         self.device = torch.device(device)
         self.batch_size = int(batch_size)

@@ -31,10 +31,31 @@ class TrainState:
     generator: torch.Generator      # the step's random draws
     step: int = 0                   # optimizer-step counter
     shown_imgs: int = 0             # images shown so far
+    opt_step0: int = 0              # ``step`` when the Adam moments were
+                                    # last (re)initialized
 
     @property
     def device(self) -> torch.device:
         return self.w_avg.device
+
+
+def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """Every tensor and counter of the state, by name: the parameters of G,
+    D and G-EMA, each parameter's Adam state, the w-average, the
+    generator's state and the counters. Two states are the same training
+    run at the same point exactly when these agree."""
+    out = {"w_avg": state.w_avg, "generator": state.generator.get_state(),
+           "counters": torch.tensor([state.step, state.shown_imgs,
+                                     state.opt_step0])}
+    for net in ("g", "d", "g_ema"):
+        for k, v in getattr(state, net).state_dict().items():
+            out[f"{net}.{k}"] = v
+    for name, net in (("opt_g", state.g), ("opt_d", state.d)):
+        opt = getattr(state, name)
+        for pname, p in net.named_parameters():
+            for k, v in opt.state.get(p, {}).items():
+                out[f"{name}.{pname}.{k}"] = v
+    return out
 
 
 def optimizer_hparams(cfg: Config, resolution: int | None = None
@@ -77,6 +98,33 @@ def make_optimizers(cfg: Config, g: torch.nn.Module, d: torch.nn.Module,
     hp_g, hp_d = optimizer_hparams(cfg, resolution)
     return (torch.optim.Adam(g.parameters(), **hp_g),
             torch.optim.Adam(d.parameters(), **hp_d))
+
+
+def seed_new_moments(opt: torch.optim.Adam, count: int) -> None:
+    """Give every parameter that has a gradient but no Adam state yet zero
+    moments and the step count ``count`` (optimizer steps since the moments
+    were initialized). torch's Adam counts steps per parameter from its
+    first gradient; the JAX package's optax Adam keeps one count for the
+    whole tree, so a head or block that a progressive phase switches on
+    late is bias-corrected there with the run's count, not with 1. Called
+    before ``opt.step()``, it makes the two agree."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is not None and p not in opt.state:
+                opt.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": torch.zeros_like(
+                        p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(
+                        p, memory_format=torch.preserve_format)}
+
+
+def reset_moments(state: TrainState) -> None:
+    """Drop both optimizers' moments and restart their step count, as
+    ``optim.reset_moments_on_phase`` does at a phase boundary."""
+    state.opt_g.state.clear()
+    state.opt_d.state.clear()
+    state.opt_step0 = state.step
 
 
 def create_train_state(cfg: Config, seed: int = 0,

@@ -13,6 +13,11 @@ Port of the sequential branch of ``ganlab_tpu/train/steps.py``
 4. G-EMA with ``optim.ema_beta_for(batch)`` and the running w-average;
 5. counters.
 
+In a fade phase alpha = clip((shown - phase start) / fade images, 0, 1) from
+the state's shown-image count before the step, one value for the D step,
+R1's critic and the G step, and every forward of G and D takes the fade
+branch, whatever alpha's value.
+
 The host picks one of two step functions per step (lazy regularization,
 ``loss.penalty_every`` = k): the penalty step, weight x k, every k-th step,
 and the step without it otherwise. Every random draw (latents, mixing,
@@ -21,9 +26,9 @@ injected through ``draws=`` (``StepDraws``), which the parity tests use.
 
 Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
 A): the fused steps, two-phase regularization, path-length
-regularization, augmentation, gradient accumulation, n-critic, and fade
-phases. Entry: ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)``
--> ``stepper(state, real_u8)``.
+regularization, augmentation, gradient accumulation and n-critic. Entry:
+``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
+``stepper(state, real_u8)``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ganlab_tpu_torch.config import Config
@@ -41,7 +47,11 @@ from ganlab_tpu_torch.models.stylegan import (
 )
 from ganlab_tpu_torch.ops import losses as L
 from ganlab_tpu_torch.train.schedule import PhaseSpec
-from ganlab_tpu_torch.train.state import TrainState, optimizer_hparams
+from ganlab_tpu_torch.train.state import (
+    TrainState,
+    optimizer_hparams,
+    seed_new_moments,
+)
 
 
 def _dtype_of(cfg: Config) -> torch.dtype:
@@ -139,21 +149,21 @@ def _ema_update(ema: torch.nn.Module, model: torch.nn.Module,
 
 
 def build_generator_forward(cfg: Config, res_log2: int) -> Callable:
-    """(g, GenDraws, alpha) -> (fake images NCHW, w_mean float32).
+    """(g, GenDraws, alpha, fade) -> (fake images NCHW, w_mean float32).
 
     One mapping pass over concat([z1, z2]); with probability
     ``style_mixing_prob`` (one draw per batch) the styles cross over from
     w1 to w2 at the drawn layer; w_mean is the batch mean of w1."""
     nl = num_style_layers(res_log2)
 
-    def forward(g, dr: GenDraws, alpha):
+    def forward(g, dr: GenDraws, alpha, fade=None):
         batch = dr.z1.shape[0]
         ww = g.map_latents(torch.cat([dr.z1, dr.z2], dim=0))
         w1, w2 = ww[:batch], ww[batch:]
         crossover = torch.where(dr.use_mix, dr.cross,
                                 torch.full_like(dr.cross, nl))
         ws = mix_styles(w1, w2, crossover, nl)
-        img = g.synthesize(ws, res_log2, alpha, dr.noises)
+        img = g.synthesize(ws, res_log2, alpha, dr.noises, fade=fade)
         return img, w1.float().mean(dim=0)
 
     return forward
@@ -167,11 +177,25 @@ def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
                      ("loss.pl_weight > 0", lc.pl_weight > 0),
                      ("aug.mode (ADA)", cfg.aug_active),
                      ("optim.grad_accum > 1", cfg.optim.grad_accum > 1),
-                     ("loss.d_steps_per_g > 1", lc.d_steps_per_g > 1),
-                     ("a fade phase", phase.kind == "fade")):
+                     ("loss.d_steps_per_g > 1", lc.d_steps_per_g > 1)):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP.md A)")
+
+
+def phase_alpha(phase: PhaseSpec, shown_imgs: int,
+                dtype: torch.dtype = torch.float32) -> float:
+    """The fade-in weight of a step that starts at ``shown_imgs``: 1.0 in
+    a stabilize phase, clip((shown - start) / fade images, 0, 1) in a fade
+    phase, computed in float32 and rounded to ``dtype`` (the blend's
+    dtype), as the JAX package's step and ``fade_in`` do. Host arithmetic
+    on the host's counter: no device work."""
+    if phase.kind != "fade":
+        return 1.0
+    a = (np.float32(shown_imgs) - np.float32(phase.start_img)) \
+        / np.float32(max(phase.fade_images, 1))
+    a = float(np.clip(a, np.float32(0.0), np.float32(1.0)))
+    return a if dtype == torch.float32 else float(torch.tensor(a).to(dtype))
 
 
 def build_train_step(cfg: Config, phase: PhaseSpec,
@@ -194,7 +218,7 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         else penalty_override
     pen_weight = lc.penalty_weight * (
         lc.penalty_every if penalty_override is True else 1)
-    alpha = 1.0  # stabilize phase (fade phases are rejected above)
+    fade = phase.kind == "fade"
     w_beta = torch.tensor(cfg.model.w_avg_beta, dtype=torch.float32)
 
     def ema_beta(batch: int, shown: int) -> float:
@@ -204,11 +228,11 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             return 0.5 ** (batch / max(nimg, 1.0))
         return o.ema_beta_for(batch)
 
-    def penalty_term(d, real, fake, draws, real_s):
+    def penalty_term(d, real, fake, draws, real_s, alpha):
         penalty = torch.zeros((), device=real.device)
         if with_penalty:
             def critic(x):
-                return d(x, res_log2, alpha).float()
+                return d(x, res_log2, alpha, fade).float()
 
             if lc.penalty == "wgan-gp":
                 penalty = L.wgan_gp(critic, real, fake, None, pen_weight,
@@ -232,31 +256,34 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         else:
             draws = draws.to(dev)
         g, d = state.g, state.d
+        alpha = phase_alpha(phase, state.shown_imgs, dtype)
         real = _preprocess(real_u8.to(dev), cfg.data.hflip, draws.flip,
                            dtype)
 
         # -- D step --------------------------------------------------------
         with torch.no_grad():
-            fake_d, _ = gen_forward(g, draws.d, alpha)
-        real_s = d(real, res_log2, alpha).float()
-        fake_s = d(fake_d, res_log2, alpha).float()
+            fake_d, _ = gen_forward(g, draws.d, alpha, fade)
+        real_s = d(real, res_log2, alpha, fade).float()
+        fake_s = d(fake_d, res_log2, alpha, fade).float()
         d_loss = d_loss_fn(real_s, fake_s)
-        penalty = penalty_term(d, real, fake_d, draws, real_s)
+        penalty = penalty_term(d, real, fake_d, draws, real_s, alpha)
         state.opt_d.zero_grad(set_to_none=True)
         (d_loss + penalty).backward()
         set_hparams(state.opt_d, hp_d)
+        seed_new_moments(state.opt_d, state.step - state.opt_step0)
         state.opt_d.step()
 
         # -- G step, against the updated D ---------------------------------
         d.requires_grad_(False)
         try:
-            fake, w_mean = gen_forward(g, draws.g, alpha)
-            g_loss = g_loss_fn(d(fake, res_log2, alpha).float())
+            fake, w_mean = gen_forward(g, draws.g, alpha, fade)
+            g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
             state.opt_g.zero_grad(set_to_none=True)
             g_loss.backward()
         finally:
             d.requires_grad_(True)
         set_hparams(state.opt_g, hp_g)
+        seed_new_moments(state.opt_g, state.step - state.opt_step0)
         state.opt_g.step()
 
         with torch.no_grad():

@@ -1,1 +1,1 @@
-"""Host-side helpers of the PyTorch port."""
+"""Small host-side utilities: latent sampling, image grids, metric logging."""

@@ -1,8 +1,18 @@
-"""Latent interpolation (port of ``ganlab_tpu/utils/latents.py::slerp``)."""
+"""Latent sampling and interpolation (port of
+``ganlab_tpu/utils/latents.py``: ``gen_latents``, ``slerp``)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def gen_latents(generator: torch.Generator, batch: int, dim: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """z ~ N(0, I) of shape (batch, dim), drawn from ``generator`` on the
+    generator's device. torch's streams are not JAX's: the same seed gives
+    other latents than the JAX package's ``gen_latents``."""
+    return torch.randn(batch, dim, generator=generator,
+                       device=generator.device, dtype=dtype)
 
 
 def slerp(a: torch.Tensor, b: torch.Tensor, t: float,

@@ -6,7 +6,8 @@ against its plain version, float32 within 1e-5 and bfloat16 within
 2**-6 relative (about 2 bf16 ulps), each resample kernel on its vector and
 its element path (bit-identical), AdaIN on each of its paths (they sum in
 different orders, so each is held to the plain version, not to another
-path's bits), pixelnorm at widths that do and do not fill 16-byte vectors; each
+path's bits), mbstd on its vector and element paths with the batch held
+in registers and read twice, pixelnorm at widths that do and do not fill 16-byte vectors; each
 autograd Function's gradient, and the second derivative through the
 resample and mbstd Functions, against autograd through the plain versions
 on the card, in float32 within 1e-5 of the scale. This file imports no
@@ -28,8 +29,9 @@ from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_cuda,
 )
 from ganlab_tpu_torch.ops.kernels.mbstd import (
+    minibatch_stddev_cuda,
+    minibatch_stddev_path,
     minibatch_stddev_ref,
-    minibatch_stddev_triton,
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
     blur_downsample_2x_cuda,
@@ -47,7 +49,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
                             torch.ones(2, 3))),
     (upsample_blur_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
     (blur_downsample_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
-    (minibatch_stddev_triton, lambda: (torch.ones(4, 2, 4, 4),)),
+    (minibatch_stddev_cuda, lambda: (torch.ones(4, 2, 4, 4),)),
 ], ids=["pixelnorm", "adain", "upsample_blur_2x", "blur_downsample_2x",
         "minibatch_stddev"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch, args):
@@ -96,7 +98,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
                                        rtol=tol, atol=tol)
         for shape in ((32, 512, 4, 4), (4, 3, 5, 7), (3, 1, 1, 1)):
             x = r(*shape)
-            torch.testing.assert_close(minibatch_stddev_triton(x),
+            torch.testing.assert_close(minibatch_stddev_cuda(x),
                                        minibatch_stddev_ref(x),
                                        rtol=tol, atol=tol)
 
@@ -232,6 +234,45 @@ def test_pixel_norm_widths_on_card(cuda, c, dtype):
                                    rtol=tol, atol=tol)
         torch.testing.assert_close(pixel_norm_cuda(_unaligned_copy(x)), want,
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,path", [
+    ((32, 512, 4, 4), "vector held"),    # the training shape
+    ((1, 512, 4, 4), "vector held"),     # N = 1: the variance is 0
+    ((3, 511, 4, 4), "vector held"),     # an odd C
+    ((33, 512, 4, 4), "vector reread"),  # a batch the registers cannot hold
+    ((5, 2048, 4, 4), "vector held"),    # more chunks than threads
+    ((3, 5, 3, 3), "element held"),      # H*W = 9
+    ((33, 7, 3, 3), "element reread"),
+    ((4, 3, 5, 7), "element held"),
+], ids=lambda v: v.replace(" ", "-") if isinstance(v, str)
+    else "x".join(map(str, v)))
+def test_minibatch_stddev_paths_on_card(cuda, shape, path, dtype):
+    """Both paths of the mbstd kernel, with the batch in registers and
+    read twice, against the plain version (float32 1e-5, bfloat16 2**-6 of
+    the output scale: the paths sum in other orders), also from an
+    unaligned pointer (the element path) and with fewer blocks; a second
+    call gives the same bits."""
+    tol = _tol(dtype)
+    with torch.inference_mode():
+        x = (_randn(shape, torch.float32, 11, cuda) * 1.5 + 0.3).to(dtype)
+        want = minibatch_stddev_ref(x)
+        atol = tol * want.abs().max().item()
+        out = minibatch_stddev_cuda(x)
+        assert minibatch_stddev_path(x, out).startswith(path)
+        torch.testing.assert_close(out, want, rtol=0, atol=atol)
+        assert torch.equal(out, minibatch_stddev_cuda(x))
+        assert torch.equal(out[:, :-1], x)
+        xu = _unaligned_copy(x)
+        out_u = minibatch_stddev_cuda(xu)
+        assert minibatch_stddev_path(xu, out_u).startswith("element")
+        torch.testing.assert_close(out_u, want, rtol=0, atol=atol)
+        for cluster in (1, 2, 4):
+            torch.testing.assert_close(
+                minibatch_stddev_cuda(x, cluster=cluster), want, rtol=0,
+                atol=atol)
 
 
 def _plain_ops():

@@ -9,6 +9,12 @@ numpy. The JAX side is assembled from ``map_latents`` / ``synthesize``,
 ``make_optimizers`` (optax), ``_preprocess`` and ``_ema_update`` -- not
 from ``build_train_step``, which draws its own keys.
 
+The same again for a fade phase (16x16 fading in over 8x8, ``shown_imgs``
+set mid-phase so that alpha = 0.4): the port's step takes alpha from the
+state's counter, the harness is handed the same alpha as a traced scalar,
+so that both packages run the fade branch of G and of D (and of R1's
+critic), with the same limits as the stabilize cases.
+
 Compared, for one R1-on and one R1-off step: the losses, the penalty and
 the mean scores (1e-4 relative), every gradient leaf of D and of G (1e-4
 of the leaf's largest magnitude: float32, other summation orders, a
@@ -45,12 +51,22 @@ from ganlab_tpu_torch.train import (
 )
 from ganlab_tpu_torch.train import steps as tsteps
 
+# The tensors here are small: one intra-op thread is as fast as eight, and
+# test processes that run side by side do not fight over the cores.
+torch.set_num_threads(1)
+
 RES, B, LG, NL = 16, 4, 4, 6
 SMALL = {"model.resolution": RES, "model.fmap_base": 128,
          "model.fmap_max": 16, "model.latent_dim": 16,
          "model.mapping_layers": 2, "run.compute_dtype": "float32",
          "schedule.progressive": False, "schedule.batch_schedule": {RES: B}}
 REL = 1e-4
+# the fade world: 8x8 stabilize [0, 20), 16x16 fade [20, 40), then stabilize
+FADE = dict(SMALL, **{"schedule.progressive": True, "schedule.start_res": 8,
+                      "schedule.fade_kimg": 0.02,
+                      "schedule.stabilize_kimg": 0.02,
+                      "schedule.batch_schedule": {8: B, RES: B}})
+FADE_SHOWN = 28                # alpha = (28 - 20) / 20 = 0.4
 
 
 def perturb(tree, seed, scale=0.3):
@@ -117,13 +133,20 @@ def make_world():
                 dd=gen_draws_np(rs), dg=gen_draws_np(rs),
                 w_avg=rs.randn(16).astype(np.float32))
     cfg = get_config("stylegan-256", **SMALL)
+    fade_cfg = get_config("stylegan-256", **FADE)
+    fade_phase = build_phases(fade_cfg.schedule, fade_cfg.model)[1]
+    assert (fade_phase.kind, fade_phase.resolution, fade_phase.start_img,
+            fade_phase.end_img) == ("fade", RES, 20, 40)
     return dict(jcfg=jcfg, jg=jg, jd=jd, pg=pg, pd=pd, pema=pema,
                 cfg=cfg, phase=build_phases(cfg.schedule, cfg.model)[-1],
-                **data)
+                fade_cfg=fade_cfg, fade_phase=fade_phase, **data)
 
 
-def port_state(w):
-    st = create_train_state(w["cfg"], seed=0, device="cpu")
+def port_state(w, fade=False):
+    st = create_train_state(w["fade_cfg" if fade else "cfg"], seed=0,
+                            device="cpu")
+    if fade:
+        st.shown_imgs = FADE_SHOWN
     st.g.load_state_dict(from_flax(w["pg"]))
     st.d.load_state_dict(from_flax(w["pd"]))
     st.g_ema.load_state_dict(from_flax(w["pema"]))
@@ -131,8 +154,12 @@ def port_state(w):
     return st
 
 
-def jax_harness(w, penalty_on: bool, port_new_d: dict):
+def jax_harness(w, penalty_on: bool, port_new_d: dict, alpha=None):
+    """``alpha`` None: a stabilize phase (the static 1.0 that skips the
+    fade branch); a float: a fade phase at that alpha, passed as a traced
+    scalar as ``build_train_step`` does, so the fade branch runs."""
     jg, jd, jcfg = w["jg"], w["jd"], w["jcfg"]
+    alpha = 1.0 if alpha is None else jnp.float32(alpha)
     real = jax_steps._preprocess(jnp.asarray(w["real"]), False, None,
                                  jnp.float32)
     real = jnp.where(jnp.asarray(w["flip"])[:, None, None, None],
@@ -144,12 +171,12 @@ def jax_harness(w, penalty_on: bool, port_new_d: dict):
         w1, w2 = ww[:B], ww[B:]
         crossover = jnp.where(d["use_mix"], d["cross"], NL)
         ws = jax_mix_styles(w1, w2, crossover, NL)
-        img = jg.apply(params_g, ws, LG, 1.0, list(d["noises"]),
+        img = jg.apply(params_g, ws, LG, alpha, list(d["noises"]),
                        method="synthesize")
         return img, jnp.mean(w1.astype(jnp.float32), axis=0)
 
     def d_apply(params_d, x):
-        return jd.apply(params_d, x, LG, 1.0).astype(jnp.float32)
+        return jd.apply(params_d, x, LG, alpha).astype(jnp.float32)
 
     gamma = jcfg.loss.penalty_weight * jcfg.loss.penalty_every
 
@@ -194,22 +221,32 @@ def assert_grads(module, want_tree, what):
                                    atol=REL * scale, err_msg=f"{what} {name}")
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["r1_on", "r1_off"])
+@pytest.fixture(scope="module",
+                params=[(True, False), (False, False), (True, True),
+                        (False, True)],
+                ids=["r1_on", "r1_off", "fade_r1_on", "fade_r1_off"])
 def stepped(world, request):
-    """One port step (penalty on or off) and the JAX harness beside it."""
-    penalty_on = request.param
-    st = port_state(world)
+    """One port step (penalty on or off, stabilize or fade phase) and the
+    JAX harness beside it."""
+    penalty_on, fade = request.param
+    st = port_state(world, fade)
+    shown_before = st.shown_imgs
     g_before = {k: v.clone() for k, v in st.g.state_dict().items()}
     ema_before = to_flax(st.g_ema)
-    step = tsteps.build_train_step(world["cfg"], world["phase"],
-                                   penalty_override=penalty_on)
+    step = tsteps.build_train_step(
+        world["fade_cfg" if fade else "cfg"],
+        world["fade_phase" if fade else "phase"],
+        penalty_override=penalty_on)
     draws = to_port_draws(world["flip"], world["dd"], world["dg"])
     st, metrics = step(st, torch.from_numpy(world["real"]), draws)
+    alpha = 0.4 if fade else None
+    assert metrics["alpha"] == pytest.approx(0.4 if fade else 1.0, abs=1e-7)
     want, d_grads, g_grads, w_mean = jax_harness(world, penalty_on,
-                                                 to_flax(st.d))
+                                                 to_flax(st.d), alpha)
     return dict(st=st, metrics=metrics, want=want, d_grads=d_grads,
                 g_grads=g_grads, w_mean=w_mean, g_before=g_before,
-                ema_before=ema_before, penalty_on=penalty_on)
+                ema_before=ema_before, penalty_on=penalty_on, fade=fade,
+                shown_before=shown_before)
 
 
 def test_step_losses_and_scores(stepped):
@@ -248,7 +285,10 @@ def test_step_ema_w_avg_and_counters(stepped, world):
     assert changed == with_grad
     assert all(k.startswith("synthesis.torgb") for k in
                set(stepped["g_before"]) - changed)   # other resolutions
-    assert (st.step, st.shown_imgs) == (1, B)
+    assert (st.step, st.shown_imgs) == (1, stepped["shown_before"] + B)
+    if stepped["fade"]:  # the fade branch reached the 8x8 heads too
+        assert {"synthesis.torgb8.w", "synthesis.torgb16.w"} <= changed
+        assert stepped["st"].d.fromrgb8.w.grad is not None
 
 
 def test_adam_matches_optax(world):
@@ -322,9 +362,82 @@ def test_unported_options_raise(world, knob):
 
 
 def test_fade_phase_raises():
-    cfg = get_config("stylegan-256", **dict(
-        SMALL, **{"schedule.progressive": True, "schedule.start_res": 8}))
+    """A fade phase builds and steps (it no longer raises); an option that
+    is not ported still raises in a fade phase."""
+    cfg = get_config("stylegan-256", **FADE)
     fade = [p for p in build_phases(cfg.schedule, cfg.model)
             if p.kind == "fade"][0]
-    with pytest.raises(NotImplementedError, match="fade"):
-        tsteps.build_train_step(cfg, fade)
+    assert callable(tsteps.build_train_step(cfg, fade))
+    bad = get_config("stylegan-256", **dict(FADE, **{"loss.fused_seq": True}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsteps.build_train_step(bad, fade)
+
+
+def test_fade_alpha_follows_the_jax_schedule(world):
+    """alpha of a step = the JAX package's ``alpha_at`` at the state's
+    shown-image count before the step: 0.0 at the phase's first step,
+    below 1.0 at its last, and the static 1.0 in a stabilize phase."""
+    from ganlab_tpu.train.schedule import alpha_at as jax_alpha_at
+    from ganlab_tpu.train.schedule import build_phases as jax_build_phases
+
+    jcfg = jax_get_config("stylegan-256", **FADE)
+    jfade = jax_build_phases(jcfg.schedule, jcfg.model)[1]
+    fade = world["fade_phase"]
+    assert (jfade.start_img, jfade.end_img) == (fade.start_img, fade.end_img)
+    for shown in range(fade.start_img, fade.end_img, B):
+        assert tsteps.phase_alpha(fade, shown) == pytest.approx(
+            jax_alpha_at(jfade, shown), abs=1e-6)
+    assert tsteps.phase_alpha(fade, fade.start_img) == 0.0
+    assert tsteps.phase_alpha(fade, fade.end_img + 5) == 1.0
+    assert tsteps.phase_alpha(world["phase"], 3) == 1.0
+    # rounded to the blend's dtype, as fade_in rounds it in the JAX package
+    a = tsteps.phase_alpha(fade, fade.start_img + 3, torch.bfloat16)
+    assert a == float(torch.tensor(3 / 20).bfloat16())
+
+    st = port_state(world, fade=True)
+    st.shown_imgs = fade.start_img
+    step = tsteps.build_train_step(world["fade_cfg"], fade,
+                                   penalty_override=False)
+    st, m = step(st, torch.from_numpy(world["real"]),
+                 to_port_draws(world["flip"], world["dd"], world["dg"]))
+    assert m["alpha"] == 0.0 and isinstance(m["alpha"], float)
+    assert st.shown_imgs == fade.start_img + B
+
+
+def test_fade_branch_runs_at_alpha_one(world):
+    """In a fade phase the models blend whatever alpha's value: with
+    ``fade=True`` and alpha 1.0 the old heads stay in the graph (zero
+    gradient, not none), as in the JAX package's traced-alpha step."""
+    st = port_state(world)
+    x = torch.from_numpy(world["real"]).permute(0, 3, 1, 2).float() / 127.5 - 1
+    st.d(x, LG, 1.0, fade=True).sum().backward()
+    assert st.d.fromrgb8.w.grad is not None
+    assert not st.d.fromrgb8.w.grad.any()
+    st.d.zero_grad(set_to_none=True)
+    st.d(x, LG, 1.0).sum().backward()
+    assert st.d.fromrgb8.w.grad is None          # the static skip
+
+
+def test_d_fade_branch_second_derivative_float64():
+    """R1 differentiates twice through the D's fade branch (average pool,
+    the old fromRGB, the blend, blur+down and mbstd): first and second
+    derivatives with respect to the image against finite differences, in
+    float64 (gradcheck's defaults)."""
+    from ganlab_tpu_torch.models import build_models
+
+    cfg = get_config("stylegan-256", **{
+        "model.resolution": 8, "model.fmap_base": 16, "model.fmap_max": 4,
+        "model.latent_dim": 8, "model.mapping_layers": 1})
+    torch.manual_seed(0)
+    _, d = build_models(cfg.model)
+    d = d.double()
+    with torch.no_grad():
+        for p in d.parameters():            # biases are zero at init
+            p.add_(0.3 * torch.randn_like(p))
+    x = torch.randn(3, 3, 8, 8, dtype=torch.float64, requires_grad=True)
+
+    def critic(img):
+        return d(img, 3, 0.4, fade=True)
+
+    assert torch.autograd.gradcheck(critic, (x,))
+    assert torch.autograd.gradgradcheck(critic, (x,))
