@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training-step and progressive-trainer
-paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training-step, progressive-trainer and
+user-data paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -13,8 +13,11 @@ Phases (any failure raises and the script exits non-zero):
 3. Kernels: each hand-written kernel against its plain PyTorch version at
    every shape the stylegan-256 serving path (pixelnorm, AdaIN, up+blur)
    and training step (all five) give it at batch 32 (the progressive
-   phases' steps use the same shapes), and at a few odd shapes, in float32
-   (TF32 off) and bfloat16; mbstd on both its paths, with the batch held
+   phases' steps use the same shapes), at every shape of a stylegan-1024
+   R1-off step at its batch of 4 (512x512 and 1024x1024 planes; AdaIN's
+   loop path) and of a served batch of 16 at 1024x1024, and at a few odd
+   shapes, in float32 (TF32 off) and bfloat16, with the path each call
+   took; mbstd on both its paths, with the batch held
    in registers and read twice, bit-equal across two calls and with fewer
    blocks than its cluster of 8; the resample kernels also
    with a gain, and each one's vector path against its element path bit
@@ -27,7 +30,9 @@ Phases (any failure raises and the script exits non-zero):
    library call also on the device alone (``device_ms``, a CUDA-graph
    replay of the same calls) and on the host alone (``host_us``, wall
    time per un-synchronised call). Sums per served batch and per R1-off
-   training step.
+   training step of each preset. Then up+blur, blur+down and AdaIN on
+   tensors of 2^31 elements: first and last planes against the plain
+   version, so that an offset that wraps at 32 bits shows.
 4. Gradients: each autograd Function's gradient against autograd through
    its plain version on the card (float32); the resample Functions'
    backwards must each be one device kernel (the gain rides in the
@@ -60,7 +65,24 @@ Phases (any failure raises and the script exits non-zero):
    sample`` writes a PNG. Per phase: ms per step, img/s by step time and
    by the loop's clock; peak memory; one R1-off step of 8x8 and of 64x64
    profiled (the device's idle share); the host's time to make a batch.
-8. One JSON line of per-kernel numbers, then the final ``{"ok": true, ...}``.
+8. The user's own images at 1024x1024: 64 PNGs (PIL, three of four sizes
+   not square) -> ``cli prepare-data --max-res 1024`` (the native gather
+   library must have built) -> ``cli train --preset stylegan-1024`` on the
+   ``npy`` shards at full width with remat and the preset's batches
+   16 / 8 / 4, all 15 phases 8x8 -> 1024x1024, cut in length only (fade
+   256 images, stabilize 64: the 512x512 and 1024x1024 phases start with
+   an R1 step and run one lazy-R1 cycle or more); the checks of phase 7 per
+   phase (launch counts with remat's recomputes), resume bit for bit;
+   ``cli sample``, ``interpolate``, ``mixgrid`` and ``eval-fid --metrics
+   fid,kid,pr`` (random-conv features), each with the launch counts read
+   around it. Then the time of one synchronous checkpoint save, the host's
+   ms per ``npy`` batch through the native gather, ``image_folder`` and
+   ``image_folder_stream`` batches from the PNG folder, and peak memory
+   of 1024x1024 steps with and without remat.
+9. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
+   weights), ms per 64 images.
+10. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+    ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -69,6 +91,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import gc
 import json
 import math
 import os
@@ -232,17 +255,17 @@ def _bsz(dtype):
     return torch.finfo(dtype).bits // 8
 
 
-def serving_shapes(mc, res_log2=None):
+def serving_shapes(mc, res_log2=None, batch=BATCH):
     """shape -> launches per batch, for each kernel of a G forward at
     2^res_log2 (the serving path runs it at the model's full resolution)."""
     top = mc.res_log2 if res_log2 is None else res_log2
     adain = {}
     for lg in range(2, top + 1):
-        s = (BATCH, mc.nf(lg - 1), 2 ** lg, 2 ** lg)
+        s = (batch, mc.nf(lg - 1), 2 ** lg, 2 ** lg)
         adain[s] = adain.get(s, 0) + 2
-    up = {(BATCH, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
+    up = {(batch, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
           for lg in range(3, top + 1)}
-    return {"pixelnorm": {(BATCH, mc.latent_dim): 1},
+    return {"pixelnorm": {(batch, mc.latent_dim): 1},
             "adain": adain, "upsample_blur_2x": up}
 
 
@@ -253,13 +276,14 @@ def _add(total: dict, part: dict) -> None:
             d[shape] = d.get(shape, 0) + n
 
 
-def step_launches(mc, r1: bool, res_log2=None) -> dict:
+def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
     """kernel -> {shape: launches} of one training step at 2^res_log2 (the
-    model's full resolution when None), derived from the model's structure
-    (``mc``) and the step's code. A fade phase adds no launch: its extra
-    toRGB / fromRGB, nearest upsample, average pool and blend are plain
-    PyTorch. At batch 32 throughout, every shape of a lower resolution's
-    step is one of the full resolution's.
+    model's full resolution when None) and ``batch``, derived from the
+    model's structure (``mc``, ``mc.remat``) and the step's code. A fade
+    phase adds no launch: its extra toRGB / fromRGB, nearest upsample,
+    average pool and blend are plain PyTorch. At one batch throughout,
+    every shape of a lower resolution's step is one of the full
+    resolution's.
 
     * G forward: one pixelnorm over the 2B rows of concat([z1, z2]), two
       AdaIN per resolution, one up+blur per block from 8x8 up;
@@ -276,20 +300,31 @@ def step_launches(mc, r1: bool, res_log2=None) -> dict:
     double backward then runs the backward of every first-order
     UpsampleBlur2x node (blur+down at the block shapes) and of every
     blur+down node of that D forward (up+blur).
+
+    With ``model.remat`` each block is recomputed in the backward, up to
+    its last tensor the backward needs (``torch.utils.checkpoint`` stops
+    there): a synthesis block's up+blur and its two AdaIN run again in the
+    G phase's backward; a D block ends in blur+down, which saves nothing,
+    so its recompute launches no kernel of ours (the CPU tests count this
+    on a small model: tests/test_torch_remat_launches.py).
     """
     lg = mc.res_log2 if res_log2 is None else res_log2
-    down = {(BATCH, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
-    up = {(BATCH, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
+    down = {(batch, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
+    up = {(batch, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
           for l in range(3, lg + 1)}
-    serve = serving_shapes(mc, lg)
-    g_fwd = {"pixelnorm": {(2 * BATCH, mc.latent_dim): 1},
+    serve = serving_shapes(mc, lg, batch)
+    g_fwd = {"pixelnorm": {(2 * batch, mc.latent_dim): 1},
              "adain": serve["adain"], "upsample_blur_2x": up}
     d_fwd = {"blur_downsample_2x": down,
-             "minibatch_stddev": {(BATCH, mc.nf(1), 4, 4): 1}}
+             "minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
     d_bwd = {"upsample_blur_2x": up}
     g_bwd = {"blur_downsample_2x": down}
     parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,      # D phase
              g_fwd, d_fwd, d_bwd, g_bwd]             # G phase
+    if mc.remat:                                     # G phase's recompute
+        parts.append({"adain": {s: n for s, n in serve["adain"].items()
+                                if s[2] > 4},
+                      "upsample_blur_2x": up})
     if r1:
         parts += [d_fwd, d_bwd, {"blur_downsample_2x": down}, d_bwd]
     total: dict = {}
@@ -424,6 +459,7 @@ RESAMPLE_PATHS = {"upsample_blur_2x": upsample_blur_2x_path,
 SUMMED = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
           "bytes_ms", "ops_ms")
 SERVED, STEP = "served batch", "R1-off step"
+SERVED_1K, STEP_1K = "1024 served batch", "1024 R1-off step"
 SMALL_MS = 0.05                # below this a timing is read five more times
 
 
@@ -1205,12 +1241,64 @@ def _assert_states_equal(what: str, a, b) -> int:
     return len(ta)
 
 
+def run_cli_train(preset: str, sets: dict, workdir: str) -> dict:
+    """``cli train --preset <preset> --set k=v ...`` into ``workdir``. The
+    step functions the Trainer builds are wrapped to set the launch counts
+    to 0 before each step and to read them and the clock (after a
+    synchronize) after it."""
+    records, live = [], {}
+    make = train_loop.make_lazy_stepper
+
+    def instrumented(cfg_, phase, initial_step=0):
+        stepper = make(cfg_, phase, initial_step=initial_step)
+        count = {"i": int(initial_step)}
+
+        def step(state, real, draws=None):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = stepper(state, real, draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            records.append(dict(
+                phase=phase.index, step=count["i"], ms=ms, t0=t0,
+                r1=count["i"] % cfg_.loss.penalty_every == 0,
+                shape=tuple(real.shape), device=real.device.type,
+                counts={n: k["kernel"].launches
+                        for n, k in KERNELS.items()}))
+            count["i"] += 1
+            live["state"] = out[0]
+            return out
+
+        return step
+
+    args = ["--preset", preset, "--workdir", workdir]
+    for k, v in sets.items():
+        args += ["--set", f"{k}={v}"]
+    torch.cuda.reset_peak_memory_stats()
+    train_loop.make_lazy_stepper = instrumented
+    try:
+        t0 = time.perf_counter()
+        rc = port_cli.main(["train", *args])
+        wall = time.perf_counter() - t0
+    finally:
+        train_loop.make_lazy_stepper = make
+    if rc != 0:
+        raise AssertionError(f"cli train returned {rc}")
+    return dict(records=records, live=live["state"], wall_s=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_steps(ph) -> int:
+    n, rest = divmod(ph.end_img - ph.start_img, ph.batch_size)
+    assert rest == 0, (ph, rest)
+    return n
+
+
 def phase_trainer(card: str) -> dict:
     """The progressive trainer through its command line at full width: the
     stylegan-256 preset's own 11 phases, 8x8 stabilize up to 256x256
-    stabilize, on the ``ellipses`` source. The step functions the Trainer
-    builds are wrapped here to set the launch counts to 0 before each step
-    and to read them and the clock (after a synchronize) after it."""
+    stabilize, on the ``ellipses`` source."""
     kimg = PHASE_STEPS * BATCH / 1000.0
     sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
             "schedule.stabilize_kimg": kimg, "schedule.total_kimg": 0.001,
@@ -1234,106 +1322,82 @@ def phase_trainer(card: str) -> dict:
         "ellipses, run.log_every 1, run.checkpoint_every "
         f"{CKPT_EVERY}")
 
-    records, live = [], {}
-    make = train_loop.make_lazy_stepper
-
-    def instrumented(cfg_, phase, initial_step=0):
-        stepper = make(cfg_, phase, initial_step=initial_step)
-        count = {"i": int(initial_step)}
-
-        def step(state, real, draws=None):
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = stepper(state, real, draws)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            records.append(dict(
-                phase=phase.index, step=count["i"], ms=ms, t0=t0,
-                r1=count["i"] % cfg.loss.penalty_every == 0,
-                shape=tuple(real.shape), device=real.device.type,
-                counts={n: k["kernel"].launches
-                        for n, k in KERNELS.items()}))
-            count["i"] += 1
-            live["state"] = out[0]
-            return out
-
-        return step
-
     workdir = tempfile.mkdtemp(prefix="ganlab_smoke_")
     try:
-        args = ["--preset", "stylegan-256", "--workdir", workdir]
-        for k, v in sets.items():
-            args += ["--set", f"{k}={v}"]
-        torch.cuda.reset_peak_memory_stats()
-        train_loop.make_lazy_stepper = instrumented
-        try:
-            t0 = time.perf_counter()
-            rc = port_cli.main(["train", *args])
-            wall = time.perf_counter() - t0
-        finally:
-            train_loop.make_lazy_stepper = make
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        if rc != 0:
-            raise AssertionError(f"cli train returned {rc}")
-        totals = check_trainer_run(cfg, phases, records, workdir, card)
-        log(f"trainer: cli train took {wall:.1f} s for {len(records)} steps; "
-            f"peak memory {peak_gib:.2f} GiB [{card}]")
-        check_resume_and_serving(cfg, phases, live["state"], workdir)
-        profile_phase_steps(cfg, phases, live["state"], card)
+        run = run_cli_train("stylegan-256", sets, workdir)
+        checked = check_trainer_run(cfg, phases, run["records"], workdir,
+                                    card, CKPT_EVERY, r1_first_from=8)
+        log(f"trainer: cli train took {run['wall_s']:.1f} s for "
+            f"{len(run['records'])} steps; peak memory "
+            f"{run['peak_gib']:.2f} GiB [{card}]")
+        check_resume_and_serving(cfg, phases, run["live"], workdir)
+        profile_phase_steps(cfg, phases, run["live"], card)
         png = os.path.join(workdir, "smoke_sample.png")
-        rc = port_cli.main(["sample", "--workdir", workdir, "--num", "4",
-                            "--psi", "0.7", "--out", png])
-        if rc != 0 or not os.path.getsize(png) > 0:
-            raise AssertionError("cli sample wrote no PNG")
-        with open(png, "rb") as f:
-            if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                raise AssertionError("cli sample: not a PNG file")
+        if port_cli.main(["sample", "--workdir", workdir, "--num", "4",
+                          "--psi", "0.7", "--out", png]) != 0:
+            raise AssertionError("cli sample failed")
+        check_png(png, "cli sample")
         log(f"trainer: cli sample wrote a PNG of {os.path.getsize(png)} "
             "bytes from the workdir's own config.json")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    return dict(launches=totals, peak_gib=peak_gib)
+    return dict(launches=checked["launches"], peak_gib=run["peak_gib"])
 
 
-def check_trainer_run(cfg, phases, records, workdir, card) -> dict:
-    """Every phase ran its steps at its resolution with the derived launch
-    counts; the logged alpha rises from 0 in a fade phase and is 1.0 in a
-    stabilize phase; losses finite; checkpoints written, newest 3 kept."""
+def check_png(path: str, what: str) -> None:
+    if not os.path.exists(path) or not os.path.getsize(path):
+        raise AssertionError(f"{what} wrote no PNG")
+    with open(path, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"{what}: not a PNG file")
+
+
+def check_trainer_run(cfg, phases, records, workdir, card,
+                      ckpt_every, r1_first_from: int) -> dict:
+    """Every phase ran its steps at its resolution and batch with the
+    derived launch counts; R1 on every 16th step of the run, and every
+    phase from ``r1_first_from`` pixels up runs 16 steps or more and
+    starts with an R1 step; the logged alpha rises
+    from 0 in a fade phase and is 1.0 in a stabilize phase; losses finite;
+    checkpoints written, the newest kept. Prints each phase's step times
+    and img/s by step time and by the loop's clock."""
     mc = cfg.model
     with open(os.path.join(workdir, "train.jsonl")) as f:
         rows = [json.loads(line) for line in f]
-    n_steps = PHASE_STEPS * len(phases)
+    counts = [phase_steps(ph) for ph in phases]
+    n_steps = sum(counts)
     if len(records) != n_steps or [r["step"] for r in rows] != \
             list(range(1, n_steps + 1)):
         raise AssertionError(f"trainer: {len(records)} steps, {len(rows)} "
                              f"log rows, expected {n_steps}")
     totals = {n: 0 for n in KERNELS}
-    for ph in phases:
+    per_phase = {}
+    first = 0
+    for ph, n in zip(phases, counts):
         recs = [r for r in records if r["phase"] == ph.index]
-        logged = rows[ph.index * PHASE_STEPS:(ph.index + 1) * PHASE_STEPS]
-        res = ph.resolution
-        if len(recs) != PHASE_STEPS or any(
-                r["shape"] != (BATCH, res, res, 3) or r["device"] != "cuda"
+        logged = rows[first:first + n]
+        first += n
+        res, b = ph.resolution, ph.batch_size
+        if len(recs) != n or any(
+                r["shape"] != (b, res, res, 3) or r["device"] != "cuda"
                 for r in recs):
             raise AssertionError(f"trainer: phase {ph.index} ran "
                                  f"{[(r['shape']) for r in recs][:3]}")
         for r in recs:
-            want = {n: sum(v.values()) for n, v in
-                    step_launches(mc, r["r1"], ph.res_log2).items()}
-            want = {n: want.get(n, 0) for n in KERNELS}
+            want = {k: sum(v.values()) for k, v in
+                    step_launches(mc, r["r1"], ph.res_log2, b).items()}
+            want = {k: want.get(k, 0) for k in KERNELS}
             if r["counts"] != want:
                 raise AssertionError(
                     f"trainer: phase {ph.index} step {r['step']}: launches "
                     f"{r['counts']}, derived {want}")
-            for n in totals:
-                totals[n] += r["counts"][n]
-        if sum(r["r1"] for r in recs) != 1 or not recs[0]["r1"]:
-            raise AssertionError(f"trainer: phase {ph.index}: R1 steps "
-                                 f"{[r['step'] for r in recs if r['r1']]}")
+            for k in totals:
+                totals[k] += r["counts"][k]
+        if res >= r1_first_from and (n < 16 or not recs[0]["r1"]):
+            raise AssertionError(f"trainer: phase {ph.index} ({n} steps) "
+                                 "is no lazy-R1 cycle from an R1 step")
         alphas = [row["alpha"] for row in logged]
-        want_alpha = [k / PHASE_STEPS if ph.kind == "fade" else 1.0
-                      for k in range(PHASE_STEPS)]
+        want_alpha = [k / n if ph.kind == "fade" else 1.0 for k in range(n)]
         for row, a in zip(logged, want_alpha):
             # bf16 blend: the step rounds alpha to the compute dtype
             if (row["res"], row["kind"]) != (res, ph.kind) or \
@@ -1347,32 +1411,38 @@ def check_trainer_run(cfg, phases, records, workdir, card) -> dict:
             if (row["penalty"] > 0) != (row["step"] % 16 == 1):
                 raise AssertionError(f"trainer: penalty in {row}")
         off = [r["ms"] for r in recs[2:] if not r["r1"]]
+        on = [r["ms"] for r in recs if r["r1"]]
         steady = sum(r["ms"] for r in recs[2:]) / 1e3
         # between two steps the loop logs and waits for the next batch
-        gaps = [(b["t0"] - a["t0"]) * 1e3 - a["ms"]
-                for a, b in zip(recs[2:], recs[3:])]
-        log(f"trainer: phase {ph.index} {res}x{res} {ph.kind}: "
-            f"{len(recs)} steps, alpha {alphas[0]:.4f}..{alphas[-1]:.4f}, "
-            f"{statistics.median(off):.2f} ms per R1-off step (median of "
-            f"{len(off)}), R1-on step {recs[0]['ms']:.2f} ms (the phase's "
-            f"first), second step {recs[1]['ms']:.2f} ms, "
-            f"{(len(recs) - 2) * BATCH / steady:.1f} img/s over steps "
-            f"3..{len(recs)} by step time, "
-            f"{(len(recs) - 3) * BATCH / (recs[-1]['t0'] - recs[2]['t0']):.1f}"
-            f" img/s by the loop's clock (between steps: median "
-            f"{statistics.median(gaps):.2f} ms, checkpoints included), "
-            f"launches R1-off {recs[1]['counts']} [{card}]")
+        gaps = [(y["t0"] - x["t0"]) * 1e3 - x["ms"]
+                for x, y in zip(recs[2:], recs[3:])]
+        pp = per_phase[ph.index] = dict(
+            res=res, kind=ph.kind, batch=b, steps=n,
+            ms_r1_off=statistics.median(off),
+            ms_r1_on=on, img_s_step=(n - 2) * b / steady,
+            img_s_loop=(n - 3) * b / (recs[-1]["t0"] - recs[2]["t0"]),
+            gap_ms=statistics.median(gaps))
+        log(f"trainer: phase {ph.index} {res}x{res} {ph.kind} batch {b}: "
+            f"{n} steps, alpha {alphas[0]:.4f}..{alphas[-1]:.4f}, "
+            f"{pp['ms_r1_off']:.2f} ms per R1-off step (median of "
+            f"{len(off)}), R1-on steps "
+            f"{', '.join(f'{v:.2f}' for v in on) or 'none'} ms, first step "
+            f"{recs[0]['ms']:.2f} ms, {pp['img_s_step']:.1f} img/s over "
+            f"steps 3..{n} by step time, {pp['img_s_loop']:.1f} img/s by "
+            f"the loop's clock (between steps: median {pp['gap_ms']:.2f} "
+            f"ms, checkpoints included), launches R1-off "
+            f"{next(r['counts'] for r in recs if not r['r1'])} [{card}]")
     ckpts = sorted(os.listdir(os.path.join(workdir, cfg.run.checkpoint_dir)))
     want = [f"ckpt_{s:08d}.pt" for s in
-            sorted({*range(CKPT_EVERY, n_steps + 1, CKPT_EVERY), n_steps})
+            sorted({*range(ckpt_every, n_steps + 1, ckpt_every), n_steps})
             ][-cfg.run.keep_checkpoints:]
     if ckpts != want:
         raise AssertionError(f"trainer: checkpoints {ckpts}, expected {want}")
-    log(f"trainer: all {len(phases)} phases ran {PHASE_STEPS} steps each at "
-        "their resolution with the derived launch counts; alpha 0 -> "
-        f"{(PHASE_STEPS - 1) / PHASE_STEPS} in fade phases, 1.0 in "
-        f"stabilize phases; metrics finite; checkpoints {ckpts}")
-    return totals
+    log(f"trainer: all {len(phases)} phases ran their steps ({counts}) at "
+        "their resolution and batch with the derived launch counts; alpha "
+        "0 -> (n-1)/n in fade phases, 1.0 in stabilize phases; metrics "
+        f"finite; checkpoints {ckpts}")
+    return dict(launches=totals, phases=per_phase)
 
 
 def profile_phase_steps(cfg, phases, state, card) -> None:
@@ -1414,10 +1484,12 @@ def check_resume_and_serving(cfg, phases, live, workdir) -> None:
     state, on the same batches, end in the same bits. cuDNN is held to
     its deterministic algorithms for those steps, or two runs of one step
     from one state need not agree at all."""
+    phase = phases[-1]
+    batch, res = phase.batch_size, phase.resolution
+    n_steps = sum(phase_steps(ph) for ph in phases)
     second = Trainer(cfg, workdir)
     try:
-        if second.state.step != live.step or live.step != \
-                PHASE_STEPS * len(phases):
+        if second.state.step != live.step or live.step != n_steps:
             raise AssertionError(f"resume: at step {second.state.step}, "
                                  f"live {live.step}")
         n = _assert_states_equal("resume", second.state, live)
@@ -1426,22 +1498,21 @@ def check_resume_and_serving(cfg, phases, live, workdir) -> None:
             "both Adam states, w_avg, counters, generator) bit-equal to "
             "the live state")
 
-        from_disk = BatchSampler(cfg, workdir=workdir, batch_size=BATCH)
-        from_live = BatchSampler(cfg, state=live, batch_size=BATCH)
-        a = from_disk.generate(BATCH, seed=3)
-        b = from_live.generate(BATCH, seed=3)
-        if a.shape != (BATCH, 256, 256, 3) or not np.array_equal(a, b):
+        from_disk = BatchSampler(cfg, workdir=workdir, batch_size=batch)
+        from_live = BatchSampler(cfg, state=live, batch_size=batch)
+        a = from_disk.generate(batch, seed=3)
+        b = from_live.generate(batch, seed=3)
+        if a.shape != (batch, res, res, 3) or not np.array_equal(a, b):
             raise AssertionError("serving from the workdir differs from "
                                  "serving the live G-EMA")
         log(f"trainer: BatchSampler(cfg, workdir=...) served a batch of "
-            f"{BATCH} bit-equal to the live state's G-EMA (image std "
+            f"{batch} bit-equal to the live state's G-EMA (image std "
             f"{a.astype(np.float32).std():.2f})")
         del from_disk, from_live
 
-        phase = phases[-1]
         source = make_source(cfg.data, cfg.model.resolution, seed=123)
-        reals = [torch.from_numpy(source.batch(BATCH, phase.resolution))
-                 .cuda() for _ in range(2)]
+        reals = [torch.from_numpy(source.batch(batch, res)).cuda()
+                 for _ in range(2)]
         step_live = make_lazy_stepper(cfg, phase, initial_step=live.step)
         step_second = second._step_fn(phase)
         torch.backends.cudnn.deterministic = True
@@ -1462,12 +1533,369 @@ def check_resume_and_serving(cfg, phases, live, workdir) -> None:
         second.close()
 
 
+# -- 8. the user's own images at 1024x1024 ---------------------------------------
+USER_IMAGES = 64
+USER_SIZES = ((1024, 1024), (1280, 1024), (1024, 1216), (1100, 1100))
+# fade 256 images, stabilize 64: at the preset's batches (16 to 64x64, 8 to
+# 256x256, 4 above) a fade phase runs 16 / 32 / 64 steps and a stabilize
+# phase 4 / 8 / 16, so the 512x512 and 1024x1024 phases start at a
+# multiple of 16 steps: R1 on their first step, one lazy-R1 cycle or more
+USER_FADE_KIMG, USER_STABILIZE_KIMG = 0.256, 0.064
+EVAL_SAMPLES = 64
+SERVE_1K_BATCH = 16            # cli sample's --num default
+
+
+def write_user_images(folder: str, n: int = USER_IMAGES, seed: int = 0):
+    """``n`` PNGs of 1-3 filled ellipses on a flat background, at the sizes
+    of ``USER_SIZES`` in turn (three of four not square, so the centre crop
+    runs), drawn by PIL from ``seed``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(n):
+        w, h = USER_SIZES[i % len(USER_SIZES)]
+        shapes = [(rng.uniform(0.1, 0.6, 2) * (w, h),
+                   rng.uniform(0.15, 0.4, 2) * (w, h),
+                   tuple(int(c) for c in rng.integers(80, 256, 3)))
+                  for _ in range(int(rng.integers(1, 4)))]
+        specs.append((i, w, h, tuple(int(c) for c in rng.integers(0, 120, 3)),
+                      shapes))
+
+    def one(spec):
+        i, w, h, bg, shapes = spec
+        img = Image.new("RGB", (w, h), bg)
+        draw = ImageDraw.Draw(img)
+        for (x0, y0), (ax, ay), col in shapes:
+            draw.ellipse([x0, y0, x0 + ax, y0 + ay], fill=col)
+        path = os.path.join(folder, f"img{i:03d}.png")
+        img.save(path, compress_level=1)
+        return path
+
+    os.makedirs(folder, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(one, specs))
+
+
+def user_config_sets(shard_dir: str) -> dict:
+    return {"data.dataset": "npy", "data.data_dir": shard_dir,
+            "schedule.fade_kimg": USER_FADE_KIMG,
+            "schedule.stabilize_kimg": USER_STABILIZE_KIMG,
+            "schedule.total_kimg": 0.001, "run.log_every": 1}
+
+
+def counted(label: str, fn, need=("pixelnorm", "adain",
+                                  "upsample_blur_2x")) -> dict:
+    """Run ``fn`` with the launch counts set to 0 just before; read them
+    just after; fail if a kernel of ``need`` was never launched."""
+    reset_counts()
+    rc = fn()
+    counts = {n: k["kernel"].launches for n, k in KERNELS.items()}
+    log(f"user: {label}: rc {rc}, launches {counts}")
+    if rc not in (None, 0) or any(counts[n] == 0 for n in need):
+        raise AssertionError(f"{label}: rc {rc}, launches {counts}")
+    return counts
+
+
+def phase_user_data(card: str) -> dict:
+    """The user's story at the largest preset: an image folder ->
+    ``cli prepare-data`` -> ``cli train --preset stylegan-1024`` (remat
+    on, the preset's batches 16 / 8 / 4, full width, every phase 8x8 ->
+    1024x1024; cut in length only) -> resume bit for bit -> ``cli
+    sample``, ``interpolate``, ``mixgrid``, ``eval-fid --metrics
+    fid,kid,pr``. Then the host's feed (the native gather, the two folder
+    sources), peak memory of a 1024x1024 step with and without remat, and
+    the time of one synchronous checkpoint save."""
+    from ganlab_tpu_torch.data import native
+
+    root = tempfile.mkdtemp(prefix="ganlab_user_")
+    try:
+        img_dir, shard_dir = (os.path.join(root, d) for d in ("images",
+                                                              "shards"))
+        wd = os.path.join(root, "run")
+        t0 = time.perf_counter()
+        write_user_images(img_dir, USER_IMAGES)
+        log(f"user: wrote {USER_IMAGES} PNGs of {sorted(set(USER_SIZES))} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if not native.available():
+            raise AssertionError("the native gather library did not build "
+                                 f"on this host: {native._state.why_not}")
+        log(f"user: native gather library {native.library_path().name} "
+            "built and loaded")
+        t0 = time.perf_counter()
+        rc = port_cli.main(["prepare-data", "--src", img_dir, "--out",
+                            shard_dir, "--max-res", "1024"])
+        prep_s = time.perf_counter() - t0
+        shards = {int(n[7:-4]): np.load(os.path.join(shard_dir, n),
+                                        mmap_mode="r")
+                  for n in os.listdir(shard_dir)}
+        if rc != 0 or sorted(shards) != [2 ** lg for lg in range(2, 11)] \
+                or any(a.shape != (USER_IMAGES, r, r, 3)
+                       for r, a in shards.items()):
+            raise AssertionError(f"prepare-data: rc {rc}, shards "
+                                 f"{ {r: a.shape for r, a in shards.items()} }")
+        log(f"user: cli prepare-data --max-res 1024 took {prep_s:.1f} s: "
+            f"shards {sorted(shards)} of {USER_IMAGES} images")
+
+        sets = user_config_sets(shard_dir)
+        cfg = get_config("stylegan-1024", **sets)
+        mc = cfg.model
+        phases = build_phases(cfg.schedule, mc)
+        assert (mc.resolution, mc.latent_dim, mc.mapping_layers,
+                mc.fmap_base, mc.remat, cfg.run.compute_dtype,
+                cfg.loss.penalty_every) == (1024, 512, 8, 8192, True,
+                                            "bfloat16", 16)
+        assert [(p.resolution, p.kind) for p in phases] == \
+            [(8, "stabilize")] + [(2 ** lg, kind) for lg in range(4, 11)
+                                  for kind in ("fade", "stabilize")]
+        assert [p.batch_size for p in phases] == \
+            [16] * 7 + [8] * 4 + [4] * 4
+        log(f"user: stylegan-1024 preset, all widths, remat on, its "
+            f"{len(phases)} phases at batches 16 / 8 / 4; cut: "
+            f"schedule.fade_kimg 600 -> {USER_FADE_KIMG}, stabilize_kimg "
+            f"600 -> {USER_STABILIZE_KIMG} (steps a phase: "
+            f"{[phase_steps(p) for p in phases]}), schedule.total_kimg "
+            f"25000 -> the phases' own end ({phases[-1].end_img} images); "
+            f"data.dataset npy from the prepared shards, run.log_every 1")
+        run = run_cli_train("stylegan-1024", sets, wd)
+        checked = check_trainer_run(cfg, phases, run["records"], wd, card,
+                                    cfg.run.checkpoint_every,
+                                    r1_first_from=512)
+        log(f"user: cli train took {run['wall_s']:.1f} s for "
+            f"{len(run['records'])} steps; peak memory "
+            f"{run['peak_gib']:.2f} GiB [{card}]")
+        check_resume_and_serving(cfg, phases, run["live"], wd)
+        save = checkpoint_save_time(run["live"], root, card)
+        feed = host_feed(cfg, phases, shard_dir, card)
+
+        launches = dict(checked["launches"])
+        png = os.path.join(root, "sample.png")
+        steps = [
+            ("cli sample", lambda: port_cli.main(
+                ["sample", "--workdir", wd, "--num", "4", "--psi", "0.7",
+                 "--out", png])),
+            ("cli interpolate", lambda: port_cli.main(
+                ["interpolate", "--workdir", wd, "--anchors", "2",
+                 "--steps", "3"])),
+            ("cli mixgrid", lambda: port_cli.main(
+                ["mixgrid", "--workdir", wd, "--num", "2"])),
+            ("cli eval-fid", lambda: port_cli.main(
+                ["eval-fid", "--workdir", wd, "--num-samples",
+                 str(EVAL_SAMPLES), "--metrics", "fid,kid,pr"]))]
+        for label, fn in steps:
+            t0 = time.perf_counter()
+            c = counted(label, fn)
+            log(f"user: {label} took {time.perf_counter() - t0:.1f} s")
+            for n in launches:
+                launches[n] += c[n]
+        check_png(png, "cli sample")
+        for name in ("interpolation.png", "mixgrid.png"):
+            check_png(os.path.join(wd, cfg.run.sample_dir, name), name)
+        cache = os.listdir(os.path.join(wd, "fid_cache"))
+        if len(cache) != 1:
+            raise AssertionError(f"eval-fid: real-feature cache {cache}")
+        folders = folder_sources(img_dir, card)
+        memory = remat_memory(card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, phases=checked["phases"],
+                peak_gib=run["peak_gib"], save=save, feed=feed,
+                folders=folders, memory=memory, prepare_s=prep_s)
+
+
+def checkpoint_save_time(state, root: str, card: str) -> dict:
+    """Wall time of one synchronous ``CheckpointManager.save`` of the
+    1024x1024 state (the loop stalls this long at every checkpoint)."""
+    from ganlab_tpu_torch.train import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(root, "save_probe"), keep=1)
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state.step + i, state)
+        times.append((time.perf_counter() - t0) * 1e3)
+    size = os.path.getsize(mgr.path(state.step + 1)) / 2 ** 20
+    log(f"user: one synchronous checkpoint save of the 1024x1024 state "
+        f"({size:.1f} MiB): {times[0]:.1f} ms, again {times[1]:.1f} ms "
+        f"[{card}]")
+    return dict(ms=times, mib=size)
+
+
+def host_feed(cfg, phases, shard_dir: str, card: str) -> dict:
+    """Host ms to make one batch of the ``npy`` source (the native gather
+    from the exact-resolution shard) at each phase's resolution and batch,
+    median of 5."""
+    from ganlab_tpu_torch.data import NpySource
+
+    src = NpySource(shard_dir, seed=5)
+    out = {}
+    for ph in phases:
+        if ph.resolution in out:
+            continue
+        reads = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            src.batch(ph.batch_size, ph.resolution)
+            reads.append((time.perf_counter() - t0) * 1e3)
+        out[ph.resolution] = statistics.median(reads)
+    log("user: host ms per npy batch through the native gather (median of "
+        "5): " + ", ".join(f"{r}x{r} batch {cfg.schedule.batch_for(r)} "
+                           f"{t:.2f}" for r, t in out.items()) + f" [{card}]")
+    return out
+
+
+def folder_sources(img_dir: str, card: str) -> dict:
+    """``image_folder`` (decoded once at startup) and
+    ``image_folder_stream`` (decoded by 8 DataLoader workers) serve a few
+    batches from the PNG folder: ms per batch on the card's host."""
+    from ganlab_tpu_torch.config import DataConfig
+
+    out = {}
+    for name in ("image_folder", "image_folder_stream"):
+        t0 = time.perf_counter()
+        src = make_source(DataConfig(dataset=name, data_dir=img_dir), 1024,
+                          seed=3)
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            for res, b in ((1024, 4), (256, 8)):
+                reads = []
+                for i in range(6):
+                    t0 = time.perf_counter()
+                    x = src.batch(b, res)
+                    reads.append((time.perf_counter() - t0) * 1e3)
+                    if x.shape != (b, res, res, 3) or x.dtype != np.uint8:
+                        raise AssertionError(f"{name}: batch {x.shape}")
+                out[(name, res)] = dict(first_ms=reads[0],
+                                        ms=statistics.median(reads[1:]))
+                log(f"user: {name} at {res}x{res} batch {b}: first batch "
+                    f"{reads[0]:.1f} ms, then median "
+                    f"{statistics.median(reads[1:]):.1f} ms per batch "
+                    f"(set-up {setup_ms:.0f} ms) [{card}]")
+        finally:
+            close = getattr(src, "close", None)
+            if close is not None:
+                close()
+    return out
+
+
+def remat_memory(card: str) -> dict:
+    """A 1024x1024 stabilize step of the full-width preset at its batch of
+    4, with remat as the preset sets it and with ``model.remat=False``:
+    peak device memory over one R1-on and two R1-off steps, and the step
+    times; one R1-off step with remat profiled."""
+    out = {}
+    for remat in (True, False):
+        cfg = get_config("stylegan-1024", **{"model.remat": remat})
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        b = phase.batch_size
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        state = create_train_state(cfg, seed=0)
+        stepper = make_lazy_stepper(cfg, phase)
+        gdata = torch.Generator(device="cuda").manual_seed(11)
+        real = torch.randint(0, 256, (b, 1024, 1024, 3), generator=gdata,
+                             device="cuda", dtype=torch.uint8)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = stepper(state, real)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                raise AssertionError(f"remat {remat}: metrics {m}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 - base
+        out[remat] = dict(peak_gib=peak, ms=ms)
+        log(f"user: 1024x1024 stabilize steps at batch {b}, remat {remat}: "
+            f"peak {peak:.2f} GiB above the {base:.2f} GiB held before; "
+            f"R1-on {ms[0]:.1f} ms (first), R1-off {ms[1]:.1f}, {ms[2]:.1f} "
+            f"ms [{card}]")
+        if remat:
+            profile_call("one R1-off 1024x1024 step at batch 4 (remat)",
+                         lambda: stepper(state, real), card, top=8)
+        del state, stepper, real
+    return out
+
+
+# -- 9. Inception at full size -----------------------------------------------------
+def phase_inception(card: str) -> dict:
+    """One ``InceptionExtractor`` forward (random weights with non-trivial
+    batch-norm statistics, as a weights file would give) on 64 images of
+    1024x1024, resized to 299 in the module; ms per 64 images by CUDA
+    events, and finite features of the expected shape."""
+    from ganlab_tpu_torch.eval import InceptionExtractor
+    from ganlab_tpu_torch.eval.inception import inception_spec
+
+    gen = torch.Generator().manual_seed(0)
+    sd = {}
+    for name, cin, cout, kh, kw in inception_spec():
+        sd[f"{name}.conv.weight"] = torch.randn(
+            cout, cin, kh, kw, generator=gen) * math.sqrt(2 / (cin * kh * kw))
+        sd[f"{name}.bn.weight"] = 1 + 0.2 * torch.randn(cout, generator=gen)
+        sd[f"{name}.bn.bias"] = 0.1 * torch.randn(cout, generator=gen)
+        sd[f"{name}.bn.running_mean"] = 0.1 * torch.randn(cout,
+                                                          generator=gen)
+        sd[f"{name}.bn.running_var"] = 0.5 + torch.rand(cout, generator=gen)
+    net = InceptionExtractor(state_dict=sd).cuda()
+    x = torch.rand(64, 3, 1024, 1024, generator=gen).cuda() * 2 - 1
+    with torch.inference_mode():
+        feats = net(x)
+        ms = cuda_time_ms(lambda: net(x), iters=5, warmup=2)
+    if feats.shape != (64, 2048) or not bool(feats.isfinite().all()):
+        raise AssertionError(f"inception: features {tuple(feats.shape)}")
+    log(f"inception: pool3 of 64 images 1024x1024 -> 299 (float32, TF32 "
+        f"off): {ms:.2f} ms per 64 images, features std "
+        f"{feats.std().item():.4f} [{card}]")
+    return dict(ms_per_64=ms)
+
+
+# -- 3b. offsets beyond 2^31 elements ------------------------------------------------
+LARGE = {"upsample_blur_2x": (64, 32, 512, 512),      # out: 2^31 elements
+         "blur_downsample_2x": (128, 16, 1024, 1024),  # in: 2^31 elements
+         "adain": (128, 16, 1024, 1024)}               # in and out: 2^31
+
+
+def check_large_offsets() -> float:
+    """The kernels on tensors of 2^31 elements (a served batch of 64 at
+    512x512 / 128 at 1024x1024, bf16): the first and the last planes of
+    the output against the plain version on those planes alone, so that
+    an offset that wraps at 2^31 shows."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    with torch.inference_mode():
+        for name, shape in LARGE.items():
+            k = KERNELS[name]
+            inp = k["inputs"](shape, torch.bfloat16, g)
+            out = k["kernel"](*inp)
+            path = (adain_path(inp[0], out) if name == "adain"
+                    else RESAMPLE_PATHS[name](inp[0], out))
+            for sl in (slice(0, 1), slice(shape[0] - 1, shape[0])):
+                part = tuple(a[sl] for a in inp)
+                worst = max(worst, _check(
+                    f"{name} {shape} bf16 [{path}] image {sl.start}",
+                    out[sl], k["plain"](*part), torch.bfloat16,
+                    f" ({max(inp[0].numel(), out.numel())} elements)"))
+            del inp, out
+            torch.cuda.empty_cache()
+    return worst
+
+
 def main(kernels_only: bool = False) -> None:
     kind, card = phase_device()
     phase_build()
     mc = get_config("stylegan-256").model
-    results = phase_kernels({SERVED: serving_shapes(mc),
-                             STEP: step_launches(mc, r1=False)})
+    cfg1k = get_config("stylegan-1024")
+    mk, b1k = cfg1k.model, cfg1k.schedule.batch_for(1024)
+    results = phase_kernels({
+        SERVED: serving_shapes(mc), STEP: step_launches(mc, r1=False),
+        SERVED_1K: serving_shapes(mk, batch=SERVE_1K_BATCH),
+        STEP_1K: step_launches(mk, r1=False, batch=b1k)})
+    large_err = check_large_offsets()
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")
         return
@@ -1475,24 +1903,30 @@ def main(kernels_only: bool = False) -> None:
     serve_counts = phase_serving(card)
     train = phase_training(card)
     trainer = phase_trainer(card)
+    user = phase_user_data(card)
+    phase_inception(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
         per = SERVED if SERVED in r else STEP
-        u, st = r[per], r[STEP]
+        u, st, s1k = r[per], r[STEP], r[STEP_1K]
         tl = train["launches"][name]
         pl = trainer["launches"][name]
+        ul = user["launches"][name]
         kernels.append({
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": serve_counts.get(name, 0) + tl + pl,
+            "launches": serve_counts.get(name, 0) + tl + pl + ul,
             "launches_serving": serve_counts.get(name, 0),
             "launches_training": tl,
             "launches_trainer": pl,
+            "launches_user_path_1024": ul,
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
             "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],
-            "max_abs_err": r["max_abs_err"], "ms": u["ms"],
+            "max_abs_err": max(r["max_abs_err"], large_err
+                               if name in LARGE else 0.0),
+            "ms": u["ms"],
             "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
             "bound_by": u["bound_by"], "library_ms": u["library_ms"],
             "ms_per": per,
@@ -1502,12 +1936,19 @@ def main(kernels_only: bool = False) -> None:
             "ms_per_step": st["ms"], "bound_ms_per_step": st["bound_ms"],
             "device_ms_per_step": st["device_ms"],
             "plain_ms_per_step": st["plain_ms"],
-            "library_ms_per_step": st["library_ms"]})
+            "library_ms_per_step": st["library_ms"],
+            "ms_per_step_1024": s1k["ms"],
+            "bound_ms_per_step_1024": s1k["bound_ms"],
+            "device_ms_per_step_1024": s1k["device_ms"],
+            "plain_ms_per_step_1024": s1k["plain_ms"],
+            "library_ms_per_step_1024": s1k["library_ms"]})
     log(f"kernel times (ms, plain_ms, library_ms, device_ms, bound_ms) are "
         f"summed over the launches of one served batch of {BATCH} "
         f"(pixelnorm, AdaIN, up+blur) or one R1-off training step at batch "
-        f"{BATCH} (blur+down, mbstd; *_per_step for all five), bf16; "
-        f"host_us is per call [{card}]")
+        f"{BATCH} (blur+down, mbstd; *_per_step for all five) of "
+        f"stylegan-256, *_per_step_1024 over one R1-off step of "
+        f"stylegan-1024 at batch {b1k} (remat), bf16; host_us is per call "
+        f"[{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

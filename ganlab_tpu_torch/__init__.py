@@ -8,8 +8,9 @@ wrapped in ``ops/kernels``). It imports ``torch`` and numpy, never
 
 Ported so far: StyleGAN G-EMA serving (``BatchSampler``), the StyleGAN
 training step (``create_train_state`` -> ``make_lazy_stepper``) and the
-progressive trainer with its checkpoints and command line (``Trainer``,
-``python -m ganlab_tpu_torch.cli train|sample``). Entry points run
+progressive trainer with its checkpoints, data sources, evaluation and
+command line (``Trainer``, ``python -m ganlab_tpu_torch.cli
+train|prepare-data|sample|interpolate|mixgrid|eval-fid``). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel wrapper computes its plain PyTorch version, on a CUDA tensor it
 launches the kernel or raises.

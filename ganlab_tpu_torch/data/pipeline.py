@@ -1,19 +1,22 @@
 """Data sources and the device prefetcher of the training loop.
 
-Port of ``ganlab_tpu/data/pipeline.py``, numpy only, so the same seed
-gives the same bytes as the JAX package's sources. The host serves raw
-uint8 NHWC batches per resolution; normalization and the horizontal flip
-happen on the device inside the training step (``train/steps._preprocess``).
-Ported: the procedural sources (``synthetic``, ``ellipses``), in-memory
-arrays and memory-mapped ``.npy`` shards. The sources that decode a
-dataset (``cifar10``, ``image_folder``, ``image_folder_stream``), the
-native gather library and ``prepare-data`` are not ported yet (ROADMAP.md
-A.5): ``make_source`` raises ``NotImplementedError`` for them.
+Port of ``ganlab_tpu/data/pipeline.py``, numpy and PIL, so the same seed
+and files give the same bytes as the JAX package's sources. The host
+serves raw uint8 NHWC batches per resolution; normalization and the
+horizontal flip happen on the device inside the training step
+(``train/steps._preprocess``). Sources: the procedural ``synthetic`` and
+``ellipses``, in-memory arrays, memory-mapped ``.npy`` shards (written by
+``data/prepare.py``), CIFAR-10's python pickle batches, an image folder
+decoded once at startup, and an image folder streamed through
+``DataLoader`` workers (``data/stream_source.py``). Batches of the indexed
+sources are gathered by the native library (``data/native.py``) or, where
+it cannot be built, by numpy with the same bytes.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import threading
 from typing import Callable, Iterator
@@ -23,9 +26,6 @@ import torch
 
 from ganlab_tpu_torch.config import DataConfig, res_to_log2
 
-_UNPORTED = ("cifar10", "image_folder", "image_folder_stream")
-
-
 def box_downsample(x: np.ndarray, factor: int) -> np.ndarray:
     """Exact mean-pool downsample of uint8 NHWC by a power-of-two factor."""
     if factor == 1:
@@ -34,11 +34,14 @@ def box_downsample(x: np.ndarray, factor: int) -> np.ndarray:
     x = x.reshape(n, h // factor, factor, w // factor, factor, c)
     return (x.astype(np.float32).mean(axis=(2, 4)) + 0.5).astype(np.uint8)
 
-
-
 def _gather(images: np.ndarray, idx: np.ndarray, factor: int) -> np.ndarray:
-    """Batch gather + optional downsample (the JAX package's numpy path;
-    its optional native library gives the same bytes)."""
+    """Batch gather + optional downsample; the native C++ library when it
+    is built (``data/native.py``), numpy otherwise (bit-identical)."""
+    from ganlab_tpu_torch.data import native
+
+    out = native.gather(images, idx, factor)
+    if out is not None:
+        return out
     imgs = np.ascontiguousarray(images[idx])
     return box_downsample(imgs, factor)
 
@@ -49,7 +52,9 @@ class _IndexedSource:
 
     def __init__(self, images: np.ndarray, seed: int = 0):
         assert images.dtype == np.uint8 and images.ndim == 4, images.shape
-        self._images = images
+        # the native gather reads rows of a C-contiguous array (CIFAR's
+        # transposed batches are not; a contiguous memmap is not copied)
+        self._images = np.ascontiguousarray(images)
         self._rng = np.random.default_rng(seed)
         self.resolution = images.shape[1]
         self.num_images = images.shape[0]
@@ -174,7 +179,7 @@ class ArraySource(_IndexedSource):
 
 
 class NpySource(_IndexedSource):
-    """Memory-mapped ``.npy`` shards written by ``ganlab prepare-data``.
+    """Memory-mapped ``.npy`` shards written by ``cli prepare-data``.
 
     Layout: ``<data_dir>/images_<res>.npy`` per resolution; serving prefers
     the exact-resolution file and falls back to downsampling the smallest
@@ -192,7 +197,7 @@ class NpySource(_IndexedSource):
         if not self._files:
             raise FileNotFoundError(
                 f"no images_<res>.npy shards in {data_dir}; "
-                "run `ganlab prepare-data` first")
+                "run `python -m ganlab_tpu_torch.cli prepare-data` first")
         max_res = max(self._files)
         super().__init__(self._files[max_res], seed)
 
@@ -204,6 +209,81 @@ class NpySource(_IndexedSource):
         arr = self._files[src_res]
         idx = self._rng.integers(0, arr.shape[0], size=batch_size)
         return _gather(arr, idx, src_res // res)
+
+
+class Cifar10Source(_IndexedSource):
+    """CIFAR-10 from the standard python pickle batches in ``data_dir``
+    (or its ``cifar-10-batches-py/``). Nothing is downloaded. The pickles
+    are unpickled: read only files of the dataset itself."""
+
+    def __init__(self, data_dir: str, train: bool = True, seed: int = 0):
+        batch_dir = data_dir
+        if os.path.isdir(os.path.join(data_dir, "cifar-10-batches-py")):
+            batch_dir = os.path.join(data_dir, "cifar-10-batches-py")
+        names = ([f"data_batch_{i}" for i in range(1, 6)] if train
+                 else ["test_batch"])
+        chunks = []
+        for name in names:
+            with open(os.path.join(batch_dir, name), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            data = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+            chunks.append(data)
+        super().__init__(np.concatenate(chunks).astype(np.uint8), seed)
+
+
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
+
+def list_images(data_dir: str) -> list[str]:
+    """The image files of a folder, sorted by name (not recursive)."""
+    paths = [os.path.join(data_dir, n) for n in sorted(os.listdir(data_dir))
+             if n.lower().endswith(IMAGE_EXTS)]
+    if not paths:
+        raise FileNotFoundError(f"no images in {data_dir}")
+    return paths
+
+
+def _center_crop_square(img):
+    w, h = img.size
+    s = min(w, h)
+    left, top = (w - s) // 2, (h - s) // 2
+    return img.crop((left, top, left + s, top + s))
+
+
+def decode_image(path: str, resolution: int) -> np.ndarray:
+    """One file -> (resolution, resolution, 3) uint8: RGB, centre crop to
+    a square, LANCZOS resize (the JAX package's ``_decode_one`` and
+    ``grain_source._DecodeResize``)."""
+    from PIL import Image
+
+    with Image.open(path) as f:
+        img = f.convert("RGB")
+    img = _center_crop_square(img)
+    img = img.resize((resolution, resolution), Image.LANCZOS)
+    return np.asarray(img, np.uint8)
+
+
+class ImageFolderSource(_IndexedSource):
+    """Decode a directory of images to a fixed resolution at startup,
+    with a thread pool (PIL decode/resize release the GIL).
+
+    For small datasets / smoke runs. Large datasets should go through
+    ``prepare-data`` -> ``NpySource`` or stream (``image_folder_stream``).
+    """
+
+    def __init__(self, data_dir: str, resolution: int, seed: int = 0,
+                 limit: int | None = None, num_workers: int = 8):
+        from concurrent.futures import ThreadPoolExecutor
+
+        paths = list_images(data_dir)
+        if limit:
+            paths = paths[:limit]
+        out = np.empty((len(paths), resolution, resolution, 3), np.uint8)
+        with ThreadPoolExecutor(max_workers=num_workers) as pool:
+            for i, arr in enumerate(pool.map(
+                    decode_image, paths, [resolution] * len(paths))):
+                out[i] = arr
+        super().__init__(out, seed)
 
 
 def make_source(data_cfg: DataConfig, resolution: int, seed: int = 0):
@@ -228,13 +308,28 @@ def _make_source(data_cfg: DataConfig, resolution: int, seed: int):
     if name == "ellipses":
         return EllipsesSource(resolution, seed=seed,
                               num_images=data_cfg.num_images or (1 << 30))
+    if name == "cifar10":
+        if not data_cfg.data_dir:
+            raise ValueError("cifar10 needs data.data_dir with the python "
+                             "pickle batches (nothing is downloaded)")
+        return Cifar10Source(data_cfg.data_dir, seed=seed)
+    if name == "image_folder":
+        return ImageFolderSource(data_cfg.data_dir, resolution, seed=seed)
+    if name == "image_folder_stream":
+        from ganlab_tpu_torch.data.stream_source import (
+            StreamingImageFolderSource,
+        )
+
+        return StreamingImageFolderSource(data_cfg.data_dir, resolution,
+                                          seed=seed,
+                                          num_workers=data_cfg.num_workers)
     if name == "npy":
         return NpySource(data_cfg.data_dir, seed=seed)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported to PyTorch yet (ROADMAP.md "
-            "A.5: the sources that decode a dataset wait until such files "
-            "are at hand); use 'synthetic', 'ellipses' or 'npy'")
+    if name == "tfrecords":
+        raise ValueError(
+            "dataset='tfrecords' was a misnomer for the npy shard format "
+            "and has been removed; use dataset='npy' with the shards "
+            "written by `prepare-data`")
     raise ValueError(f"unknown dataset {name!r}")
 
 

@@ -4,7 +4,7 @@ Port of ``ganlab_tpu/learners.py``: each learner is a thin veneer over the
 ``Trainer`` with train / checkpoint / sample methods, for users who come
 from the reference's ``StyleGANLearner`` objects. ``StyleGANLearner`` runs;
 ``ProGANLearner`` and ``ResNetGANLearner`` raise until their generators are
-ported (ROADMAP.md A.9).
+ported (ROADMAP.md A.4).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ class Learner:
         if not self.PORTED:
             raise NotImplementedError(
                 f"{type(self).__name__}: the {self.MODEL} generator is not "
-                "ported to PyTorch yet (ROADMAP.md A.9)")
+                "ported to PyTorch yet (ROADMAP.md A.4)")
         if config is None:
             config = get_config(self.DEFAULT_PRESET, **overrides)
         elif overrides:

@@ -19,7 +19,7 @@ def _require_stylegan(model_cfg) -> None:
     if model_cfg.model != "stylegan":
         raise NotImplementedError(
             f"model {model_cfg.model!r} is not ported to PyTorch yet "
-            "(only 'stylegan'; ROADMAP.md A.9)")
+            "(only 'stylegan'; ROADMAP.md A.4)")
 
 
 def build_generator(model_cfg) -> StyleGenerator:

@@ -14,14 +14,18 @@ branch; ``fade=`` says whether it runs, else it is skipped exactly when
 [1,2,1] blur + 2x downsample (``ops.blur_downsample_2x``) instead of the
 2x2 average pool. The output block's flatten runs over NHWC order (h, w,
 c), as the JAX package's reshape does, so the dense weight converts as it
-is. The JAX package's TPU knobs ``fold_width`` and ``remat`` and the
-ResNet variant ``d_resnet`` are rejected.
+is. ``model.remat`` recomputes each block's activations in the backward
+pass (``torch.utils.checkpoint``; R1's double backward passes through
+it), as the JAX package wraps ``DBlock`` in ``nn.remat``. The JAX
+package's TPU knob ``fold_width`` and the ResNet variant ``d_resnet`` are
+rejected.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ganlab_tpu_torch.config import ModelConfig
 from ganlab_tpu_torch.models.layers import EqualConv, EqualDense
@@ -88,12 +92,13 @@ class ProDiscriminator(nn.Module):
 
     def __init__(self, cfg: ModelConfig, blur_resample: bool = False):
         super().__init__()
-        for knob in ("fold_width", "remat", "d_resnet"):
+        for knob in ("fold_width", "d_resnet"):
             if getattr(cfg, knob):
                 raise NotImplementedError(
-                    f"model.{knob} is not ported to PyTorch (fold_width and "
-                    "remat are TPU knobs of the JAX package; the ResNet D "
-                    "is a later slice, ROADMAP.md A.9)")
+                    f"model.{knob} is not ported to PyTorch (fold_width is "
+                    "a TPU knob of the JAX package; the ResNet D comes "
+                    "with StyleGAN2, ROADMAP.md A.5)")
+        self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         for lg in range(2, self.max_log2 + 1):
             self.add_module(f"fromrgb{2 ** lg}", EqualConv(
@@ -113,12 +118,19 @@ class ProDiscriminator(nn.Module):
             raise ValueError(f"res_log2 {lg} outside [2, {self.max_log2}]")
         x = leaky_relu(getattr(self, f"fromrgb{2 ** lg}")(img))
         if lg > 2:
-            x = getattr(self, f"block{2 ** lg}")(x)
+            x = self._block(lg, x)
             if takes_fade_branch(alpha, fade):
                 img_lo = downsample_avg_2x(img)
                 x_old = leaky_relu(
                     getattr(self, f"fromrgb{2 ** (lg - 1)}")(img_lo))
                 x = fade_in(alpha, x, x_old)
             for lg2 in range(lg - 1, 2, -1):
-                x = getattr(self, f"block{2 ** lg2}")(x)
+                x = self._block(lg2, x)
         return self.block4_out(x)
+
+    def _block(self, lg: int, x: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, f"block{2 ** lg}")
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block(x)

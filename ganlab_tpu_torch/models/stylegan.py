@@ -10,9 +10,12 @@ same module and parameter names:
   each block from 8x8 up starts with the fused nearest-2x + blur upsample.
 * ``truncate_ws`` / ``mix_styles`` act on the per-layer ws (N, L, w_dim).
 
-The JAX package's TPU-only knobs (``fold_width``, ``fused_up_conv``,
-``remat``) are rejected. Explicit noise maps are (N, 1, H, W), one per
-style layer in the order of :func:`noise_shapes`.
+``model.remat`` recomputes each resolution block's activations in the
+backward pass (``torch.utils.checkpoint``, as the JAX package wraps the
+blocks in ``nn.remat``): same values and gradients, less memory. The JAX
+package's TPU-only knobs ``fold_width`` and ``fused_up_conv`` are
+rejected. Explicit noise maps are (N, 1, H, W), one per style layer in the
+order of :func:`noise_shapes`.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ganlab_tpu_torch.config import ModelConfig
 from ganlab_tpu_torch.models.layers import (
@@ -108,16 +112,38 @@ class SynthesisBlock(nn.Module):
         return self.style1(x, w_b, noise_b, generator)
 
 
+def _remat_block(block: SynthesisBlock, x, w_a, w_b, noise_a, noise_b,
+                 generator):
+    """``block(x, ...)`` with its activations recomputed in the backward.
+
+    The recompute must see the noise of the forward: checkpoint restores
+    torch's global generators, not an explicit one, so the block's two
+    noise maps are drawn here, before the checkpointed call, with the
+    calls and in the order ``NoiseInjection`` would make them. Gradients
+    are then bit-equal to those without remat, and the generator advances
+    as it would without it. Nothing inside draws from a global generator,
+    so its state is not saved."""
+    n, _, h, w = x.shape
+    noises = []
+    for given in (noise_a, noise_b):
+        noises.append(given if given is not None else torch.randn(
+            (n, 1, 2 * h, 2 * w), generator=generator, device=x.device,
+            dtype=x.dtype))
+    return checkpoint(block, x, w_a, w_b, *noises, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class SynthesisNetwork(nn.Module):
     """The style-based synthesis network g(ws)."""
 
     def __init__(self, cfg: ModelConfig, blur: bool = True):
         super().__init__()
-        for knob in ("fold_width", "fused_up_conv", "remat"):
+        for knob in ("fold_width", "fused_up_conv"):
             if getattr(cfg, knob):
                 raise NotImplementedError(
                     f"model.{knob} is a TPU-only knob of the JAX package; "
                     "the PyTorch port does not implement it")
+        self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         w_dim = cfg.latent_dim
         self.const = ConstInput(cfg.nf(1))
@@ -158,9 +184,13 @@ class SynthesisNetwork(nn.Module):
         prev = x
         for i in range(lg - 2):
             prev = x
-            x = getattr(self, f"block{2 ** (i + 3)}")(
-                x, ws[:, 2 * i + 2], ws[:, 2 * i + 3],
-                nz(2 * i + 2), nz(2 * i + 3), generator)
+            block = getattr(self, f"block{2 ** (i + 3)}")
+            args = (x, ws[:, 2 * i + 2], ws[:, 2 * i + 3],
+                    nz(2 * i + 2), nz(2 * i + 3))
+            if self.remat and torch.is_grad_enabled():
+                x = _remat_block(block, *args, generator)
+            else:
+                x = block(*args, generator)
         new_rgb = getattr(self, f"torgb{2 ** lg}")(x)
         if not takes_fade_branch(alpha, fade):
             return new_rgb  # stabilize phase: the fade branch is dead

@@ -15,27 +15,34 @@ workdir that holds a checkpoint continues where that left off (the data
 source is not part of the state: it starts over in a new process, as in
 the JAX package).
 
-Single device. Not ported (ROADMAP.md A): a device mesh (A.7),
-``run.profile``, ``run.eval_kimg`` / ``run_eval`` (A.8) and
-``run.tensorboard`` raise ``NotImplementedError``; ``optim.grad_accum > 1``
-raises when the step is built. ``run.chunk_steps`` is a dispatch knob of
-the JAX package (scan-chunked stepping) with nothing to switch here: it is
-ignored.
+In-training evaluation (``run.eval_kimg``): every ``eval_kimg`` thousand
+shown images the G-EMA is scored (FID and KID of ``run.eval_samples``
+untruncated samples at the phase's resolution and fade-in alpha, against
+real features computed once per resolution) and the row is logged to
+``train.jsonl`` with the JAX trainer's keys.
+
+Single device. Not ported (ROADMAP.md A): a device mesh (A.6) and
+``run.profile`` (A.8) raise ``NotImplementedError``; ``optim.grad_accum >
+1`` raises when the step is built. ``run.chunk_steps`` is a dispatch knob
+of the JAX package (scan-chunked stepping) with nothing to switch here: it
+is ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ganlab_tpu_torch.config import Config, save_config
 from ganlab_tpu_torch.data import Prefetcher, device_placer, make_source
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train.checkpoint import CheckpointManager
-from ganlab_tpu_torch.train.schedule import build_phases, phase_at
+from ganlab_tpu_torch.train.schedule import alpha_at, build_phases, phase_at
 from ganlab_tpu_torch.train.state import create_train_state, reset_moments
 from ganlab_tpu_torch.train.steps import make_lazy_stepper
 from ganlab_tpu_torch.utils.image import save_image_grid
@@ -48,11 +55,9 @@ class Trainer:
 
     def __init__(self, cfg: Config, workdir: str = ".", source=None,
                  device: str | torch.device = "cuda"):
-        for what, on in (("run.profile", cfg.run.profile),
-                         ("run.eval_kimg", cfg.run.eval_kimg)):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP.md A)")
+        if cfg.run.profile:
+            raise NotImplementedError(
+                "run.profile is not ported to PyTorch yet (ROADMAP.md A.8)")
         self.cfg = cfg
         self.workdir = workdir
         self.phases = build_phases(cfg.schedule, cfg.model)
@@ -73,6 +78,10 @@ class Trainer:
         self._source = source
         self._steps: dict[tuple, Callable] = {}
         self._samplers: dict[int, Callable] = {}
+        # run.eval_kimg: the extractor, built at the first evaluation, and
+        # the real features per resolution (the data side never changes)
+        self._eval_extractor = None
+        self._eval_real: dict[int, np.ndarray] = {}
 
     @property
     def device(self) -> torch.device:
@@ -151,6 +160,12 @@ class Trainer:
                         m.update(res=phase.resolution, kind=phase.kind,
                                  shown_imgs=state.shown_imgs)
                         self.logger.log(step_i, m)
+                    # shown-image cadence: it survives batch-size changes
+                    if run.eval_kimg:
+                        per = run.eval_kimg * 1000.0
+                        if int(state.shown_imgs // per) != \
+                                int((state.shown_imgs - batch) // per):
+                            self.run_eval(phase, state.shown_imgs, step_i)
                     if crossed(run.sample_every):
                         self.save_samples(phase.res_log2,
                                           tag=f"step{step_i:08d}")
@@ -168,6 +183,88 @@ class Trainer:
                       f"imgs", flush=True)
         self._finish()
         return metrics
+
+    # ------------------------------------------------------------------
+    def _get_eval_extractor(self):
+        if self._eval_extractor is None:
+            from ganlab_tpu_torch.eval.fid import (
+                RandomConvExtractor,
+                get_extractor,
+            )
+
+            kind = self.cfg.run.eval_extractor
+            if kind == "randconv":
+                ext = RandomConvExtractor()
+            elif kind == "inception":
+                from ganlab_tpu_torch.eval.inception import (
+                    InceptionExtractor,
+                )
+
+                ext = InceptionExtractor(
+                    weights_path=os.environ.get("GANLAB_INCEPTION_WEIGHTS"))
+            else:                       # 'auto'
+                ext = get_extractor()
+            self._eval_extractor = ext.to(self.device).eval()
+        return self._eval_extractor
+
+    def _eval_real_features(self, resolution: int) -> np.ndarray:
+        """Real features at this resolution, computed once per run, from
+        the full distribution (a ``data.num_images`` training pool is judged
+        on generalization: memorizing it must not score well)."""
+        if resolution not in self._eval_real:
+            from ganlab_tpu_torch.eval.fid import extract, real_batch
+
+            extractor = self._get_eval_extractor()
+            data = dataclasses.replace(self.cfg.data, num_images=None)
+            src = make_source(data, resolution, seed=self.cfg.run.seed + 99)
+            n = self.cfg.run.eval_samples
+            feats = []
+            for i in range(0, n, 64):
+                real = src.batch(min(64, n - i), resolution)
+                feats.append(extract(extractor,
+                                     real_batch(real, self.device)))
+            close = getattr(src, "close", None)
+            if close is not None:
+                close()
+            self._eval_real[resolution] = np.concatenate(feats)
+        return self._eval_real[resolution]
+
+    def run_eval(self, phase, shown: int, step_i: int) -> dict:
+        """Score the G-EMA (FID and KID, untruncated, at the phase's
+        resolution and fade-in alpha) against the cached real features
+        and log the row to ``train.jsonl`` (and TensorBoard)."""
+        from ganlab_tpu_torch.eval.fid import (
+            compute_fid,
+            compute_kid,
+            extract,
+        )
+
+        cfg, state = self.cfg, self.state
+        extractor = self._get_eval_extractor()
+        real = self._eval_real_features(phase.resolution)
+        sampler = self._sampler(phase.res_log2)
+        alpha = float(alpha_at(phase, shown))
+        gen = torch.Generator(device=self.device).manual_seed(
+            cfg.run.seed + 1013)
+        n = cfg.run.eval_samples
+        feats = []
+        for _ in range(0, n, 64):
+            z = gen_latents(gen, 64, cfg.model.latent_dim)
+            with torch.inference_mode():
+                fake = sampler(state.g_ema, state.w_avg, z, gen, 1.0, alpha)
+            feats.append(extract(extractor, fake))
+        fake_feats = np.concatenate(feats)[:n]
+        row = {
+            "eval_fid": compute_fid(real, fake_feats),
+            "eval_kid": compute_kid(real, fake_feats,
+                                    subset_size=min(1000, n // 2)),
+            "eval_extractor": getattr(extractor, "name", "extractor"),
+            "eval_samples": n,
+            "res": phase.resolution, "kind": phase.kind,
+            "shown_imgs": shown,
+        }
+        self.logger.log(step_i, row)
+        return row
 
     def _finish(self) -> None:
         self.save_checkpoint()
@@ -199,3 +296,7 @@ class Trainer:
     def close(self) -> None:
         self.ckpt.close()
         self.logger.close()
+        # a streaming source's decode workers
+        close = getattr(self._source, "close", None)
+        if close is not None:
+            close()

@@ -1,5 +1,6 @@
 """Latent sampling and interpolation (port of
-``ganlab_tpu/utils/latents.py``: ``gen_latents``, ``slerp``)."""
+``ganlab_tpu/utils/latents.py``: ``gen_latents``, ``lerp``, ``slerp``,
+``interpolation_path``)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,12 @@ def gen_latents(generator: torch.Generator, batch: int, dim: int,
     other latents than the JAX package's ``gen_latents``."""
     return torch.randn(batch, dim, generator=generator,
                        device=generator.device, dtype=dtype)
+
+
+def lerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """Linear interpolation: appropriate in W space (StyleGAN)."""
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    return a + t * (b - a)
 
 
 def slerp(a: torch.Tensor, b: torch.Tensor, t: float,
@@ -31,3 +38,25 @@ def slerp(a: torch.Tensor, b: torch.Tensor, t: float,
     w_b = torch.where(safe, torch.sin(t * omega) / (so + eps),
                       torch.full_like(so, t))
     return w_a * a + w_b * b
+
+
+def interpolation_frames(anchors: torch.Tensor, steps_per: int, *,
+                         spherical: bool = True) -> torch.Tensor:
+    """A closed walk through ``anchors`` (K, dim): from each anchor to the
+    next (the last back to the first) in ``steps_per`` frames at
+    t = 0, 1/steps_per, ... -> (K * steps_per, dim), anchor by anchor."""
+    nxt = torch.roll(anchors, -1, dims=0)
+    interp = slerp if spherical else lerp
+    ts = torch.arange(steps_per, dtype=torch.float32) / steps_per
+    frames = torch.stack([interp(anchors, nxt, float(t)) for t in ts])
+    return frames.transpose(0, 1).reshape(-1, anchors.shape[-1])
+
+
+def interpolation_path(generator: torch.Generator, num_anchors: int,
+                       steps_per: int, dim: int, *,
+                       spherical: bool = True) -> torch.Tensor:
+    """``num_anchors`` random z's from ``generator`` joined by
+    ``steps_per`` interpolated frames each -> (num_anchors * steps_per,
+    dim) (:func:`interpolation_frames`)."""
+    return interpolation_frames(gen_latents(generator, num_anchors, dim),
+                                steps_per, spherical=spherical)

@@ -9,19 +9,26 @@ import time
 
 class MetricLogger:
     """Appends one JSON object per ``log`` call to ``<log_dir>/<name>.jsonl``
-    and echoes it to stdout. TensorBoard scalars are not ported
-    (ROADMAP.md A.5): ``tensorboard=True`` raises."""
+    and echoes it to stdout. With ``tensorboard=True`` every float of a row
+    but its time also goes to TensorBoard event files under
+    ``<log_dir>/tb`` (``torch.utils.tensorboard.SummaryWriter``, imported
+    only then); without the ``tensorboard`` package that is skipped, as the
+    JAX package's logger skips it without ``tensorflow``."""
 
     def __init__(self, log_dir: str | None = None, name: str = "train",
                  tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError(
-                "run.tensorboard is not ported to PyTorch yet (ROADMAP.md "
-                "A.5); the JSONL record holds the same scalars")
         self._fh = None
+        self._tb = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
+            if tensorboard:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError:
+                    pass
+                else:
+                    self._tb = SummaryWriter(os.path.join(log_dir, "tb"))
         self._t0 = time.time()
 
     def log(self, step: int, metrics: dict, echo: bool = True) -> None:
@@ -31,6 +38,11 @@ class MetricLogger:
         if self._fh:
             self._fh.write(json.dumps(row) + "\n")
             self._fh.flush()
+        if self._tb is not None:
+            for k, v in row.items():
+                if isinstance(v, float) and k != "time":
+                    self._tb.add_scalar(k, v, global_step=step)
+            self._tb.flush()
         if echo:
             parts = " ".join(f"{k}={v:.4g}" if isinstance(v, float)
                              else f"{k}={v}" for k, v in row.items()
@@ -41,3 +53,6 @@ class MetricLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None

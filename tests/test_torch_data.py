@@ -87,9 +87,14 @@ def test_npy_source_without_shards_raises(tmp_path):
 
 @pytest.mark.parametrize("name", ["cifar10", "image_folder",
                                   "image_folder_stream"])
-def test_unported_sources_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_source(DataConfig(dataset=name, data_dir="."), 32)
+def test_unported_sources_raise(name, tmp_path):
+    """These sources are ported (tests/test_torch_sources.py): they now
+    raise only where the data is missing, as the JAX package's do."""
+    with pytest.raises(FileNotFoundError):
+        make_source(DataConfig(dataset=name, data_dir=str(tmp_path)), 32)
+    with pytest.raises(FileNotFoundError):
+        jax_data.make_source(JaxDataConfig(dataset=name,
+                                           data_dir=str(tmp_path)), 32)
 
 
 def test_make_source_rejects_unknown_and_too_small():

@@ -78,7 +78,10 @@ def test_d_forward_and_input_grad(pair, lg, alpha):
 
 
 def test_unported_d_knobs_are_rejected():
-    for knob in ("model.fold_width", "model.remat", "model.d_resnet"):
+    """model.remat is ported (tests/test_torch_remat.py)."""
+    assert ProDiscriminator(get_config(
+        "stylegan-256", **dict(SMALL, **{"model.remat": True})).model).remat
+    for knob in ("model.fold_width", "model.d_resnet"):
         with pytest.raises(NotImplementedError):
             ProDiscriminator(get_config(
                 "stylegan-256", **dict(SMALL, **{knob: True})).model)

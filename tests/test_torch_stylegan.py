@@ -192,7 +192,11 @@ def test_truncate_and_mix_styles():
 
 
 def test_tpu_only_knobs_are_rejected():
-    for knob in ("model.fold_width", "model.fused_up_conv", "model.remat"):
+    """fold_width and fused_up_conv are TPU layouts; remat is ported
+    (tests/test_torch_remat.py)."""
+    build_generator(get_config("stylegan-256",
+                               **dict(SMALL, **{"model.remat": True})).model)
+    for knob in ("model.fold_width", "model.fused_up_conv"):
         with pytest.raises(NotImplementedError):
             build_generator(get_config("stylegan-256",
                                        **dict(SMALL, **{knob: True})).model)
