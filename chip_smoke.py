@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training-step, progressive-trainer and
-user-data paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training-step, progressive-trainer,
+user-data and ProGAN / ResNet-GAN paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -15,9 +15,13 @@ Phases (any failure raises and the script exits non-zero):
    and training step (all five) give it at batch 32 (the progressive
    phases' steps use the same shapes), at every shape of a stylegan-1024
    R1-off step at its batch of 4 (512x512 and 1024x1024 planes; AdaIN's
-   loop path) and of a served batch of 16 at 1024x1024, and at a few odd
-   shapes, in float32 (TF32 off) and bfloat16, with the path each call
-   took; mbstd on both its paths, with the batch held
+   loop path) and of a served batch of 16 at 1024x1024, at every shape of
+   a progan-128 step (pixelnorm over the channels of NCHW at batch 16 from
+   4x4 to 64x64 and at batch 8 to 128x128; mbstd at batch 16 and 8), and
+   at a few odd shapes, in float32 (TF32 off) and bfloat16, with the path
+   each call took; the NCHW pixelnorm also bit for bit against the rows
+   kernel on the same values transposed, from an unaligned copy and from
+   a strided view; mbstd on both its paths, with the batch held
    in registers and read twice, bit-equal across two calls and with fewer
    blocks than its cluster of 8; the resample kernels also
    with a gain, and each one's vector path against its element path bit
@@ -30,14 +34,17 @@ Phases (any failure raises and the script exits non-zero):
    library call also on the device alone (``device_ms``, a CUDA-graph
    replay of the same calls) and on the host alone (``host_us``, wall
    time per un-synchronised call). Sums per served batch and per R1-off
-   training step of each preset. Then up+blur, blur+down and AdaIN on
-   tensors of 2^31 elements: first and last planes against the plain
-   version, so that an offset that wraps at 32 bits shows.
+   training step of each preset. Then up+blur, blur+down, AdaIN and the
+   NCHW pixelnorm on tensors of 2^31 elements: first and last planes
+   against the plain version, so that an offset that wraps at 32 bits
+   shows.
 4. Gradients: each autograd Function's gradient against autograd through
    its plain version on the card (float32); the resample Functions'
    backwards must each be one device kernel (the gain rides in the
    kernel's store); then a second-order R1-shaped derivative through the
-   resample and mbstd Functions, against the same chain of plain versions.
+   resample and mbstd Functions, against the same chain of plain versions;
+   WGAN-GP's gradient through a ProGAN D (mbstd, average pools, a fade)
+   on the card against the CPU.
 5. Serving: ``BatchSampler`` at the full stylegan-256 widths (bf16, batch
    32, seeded random weights with every term made live) serves a few
    requests; the launch counters must show 1 pixelnorm, 14 AdaIN and
@@ -73,15 +80,27 @@ Phases (any failure raises and the script exits non-zero):
    256 images, stabilize 64: the 512x512 and 1024x1024 phases start with
    an R1 step and run one lazy-R1 cycle or more); the checks of phase 7 per
    phase (launch counts with remat's recomputes), resume bit for bit;
-   ``cli sample``, ``interpolate``, ``mixgrid`` and ``eval-fid --metrics
-   fid,kid,pr`` (random-conv features), each with the launch counts read
-   around it. Then the time of one synchronous checkpoint save, the host's
-   ms per ``npy`` batch through the native gather, ``image_folder`` and
+   ``cli sample``, ``interpolate``, ``mixgrid``, ``eval-fid --metrics
+   fid,kid,pr`` (random-conv features) and ``eval-fid --metrics ppl`` (w
+   space, random VGG16), each with the launch counts read around it.
+   Then the time of one synchronous checkpoint save, the host's ms per ``npy`` batch through the native gather, ``image_folder`` and
    ``image_folder_stream`` batches from the PNG folder, and peak memory
    of 1024x1024 steps with and without remat.
-9. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
-   weights), ms per 64 images.
-10. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+9. ProGAN and ResNet-GAN at full width: ``cli train --preset
+   progan-128`` through its 11 phases 4x4 -> 128x128 at the preset's
+   batches 16 / 8 on ``ellipses``, cut in length only (8 steps a phase, 16
+   at 128x128), WGAN-GP and drift every step: launch counts per step as
+   derived (pixelnorm 1 + 2 + 2 (lg - 2) a G forward, mbstd once a D
+   forward), alpha, finite losses, resume bit for bit, serving from the
+   workdir; one 128x128 step profiled (idle share); ``cli sample``; ``cli
+   eval-ppl --space z`` (256 samples, random VGG16); ``BatchSampler`` on
+   the G-EMA at batch 32; one float32 WGAN-GP step card vs CPU;
+   ``progan-64`` (R1 every step) and ``resnetgan-cifar10`` (WGAN-GP,
+   batch 64, ``synthetic``) for 24 steps each; ``resnetgan-cifar10`` with
+   ``loss.d_steps_per_g=5``, G changing only on every fifth step.
+10. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
+    weights), ms per 64 images.
+11. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -108,6 +127,7 @@ import torch.nn.functional as F
 
 from ganlab_tpu_torch import BatchSampler, build_generator, get_config
 from ganlab_tpu_torch import cli as port_cli
+from ganlab_tpu_torch import models as port_models
 from ganlab_tpu_torch import ops as port_ops
 from ganlab_tpu_torch.data import make_source
 from ganlab_tpu_torch.models.stylegan import noise_shapes
@@ -123,8 +143,11 @@ from ganlab_tpu_torch.ops.kernels.mbstd import (
     minibatch_stddev_ref,
 )
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
-    pixel_norm_ref,
     pixel_norm_cuda,
+    pixel_norm_nchw_cuda,
+    pixel_norm_nchw_path,
+    pixel_norm_nchw_ref,
+    pixel_norm_ref,
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
     blur_downsample_2x_cuda,
@@ -333,6 +356,63 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
     return total
 
 
+def progan_g_launches(mc, res_log2=None, batch=BATCH) -> dict:
+    """kernel -> {shape: launches} of one ProGAN G forward at 2^res_log2:
+    pixelnorm of z (rows kernel), then over the channels twice in the 4x4
+    block and twice in each block from 8x8 up (channel kernel)."""
+    lg = mc.res_log2 if res_log2 is None else res_log2
+    nchw = {}
+    for l in range(2, lg + 1):
+        s = (batch, mc.nf(l - 1), 2 ** l, 2 ** l)
+        nchw[s] = nchw.get(s, 0) + 2
+    return {"pixelnorm": {(batch, mc.latent_dim): 1, **nchw},
+            "pixelnorm_nchw": dict(nchw)}
+
+
+def progan_step_launches(mc, res_log2=None, batch=16, g_step=True) -> dict:
+    """kernel -> {shape: launches} of one ProGAN training step at
+    2^res_log2 and ``batch`` with its penalty (WGAN-GP or R1) on, as both
+    ProGAN presets run it every step. ``g_step`` False: a critic-only step
+    of n-critic.
+
+    * G forward: pixelnorm of z over its last axis (rows kernel, one
+      launch), then pixelnorm over the channels of NCHW twice in the 4x4
+      input block and twice in each block from 8x8 up (channel kernel):
+      1 + 2 + 2 (lg - 2), all counted as pixelnorm, 2 + 2 (lg - 2) of them
+      as pixelnorm_nchw. A fade phase adds none (the previous toRGB, the
+      nearest upsample and the blend are plain PyTorch).
+    * D forward: one mbstd; the D's blocks average-pool (plain PyTorch).
+    * Every backward (pixelnorm's, mbstd's, and the penalty's double
+      backward through them) is plain PyTorch: no launch.
+
+    D phase: G forward (no grad), D on real, on fake and on the penalty's
+    input (WGAN-GP's interpolates, R1's real batch). G phase: G forward, D
+    on the fakes."""
+    g_fwd = progan_g_launches(mc, res_log2, batch)
+    d_fwd = {"minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
+    parts = [g_fwd, d_fwd, d_fwd, d_fwd] + ([g_fwd, d_fwd] if g_step else [])
+    total: dict = {}
+    for part in parts:
+        _add(total, part)
+    return total
+
+
+def kernel_units(launches: dict) -> dict:
+    """A step's launches by the shapes each kernel entry checks and times:
+    the pixelnorm entry times the rows kernel on its (rows, C) shapes, the
+    NCHW shapes under pixelnorm_nchw (the same launches, counted twice)."""
+    out = dict(launches)
+    if "pixelnorm" in out:
+        out["pixelnorm"] = {s: n for s, n in out["pixelnorm"].items()
+                            if len(s) == 2}
+    return out
+
+
+def launch_totals(launches: dict) -> dict:
+    """kernel -> launches, for every kernel of KERNELS."""
+    return {n: sum(launches.get(n, {}).values()) for n in KERNELS}
+
+
 @functools.cache
 def _blur_filter(c, dtype, norm=16.0):
     """The library calls' depthwise 4x4 filter, made once per (c, dtype):
@@ -362,6 +442,19 @@ KERNELS = {
             torch.randn(s, generator=g, device="cuda").to(dt),),
         library=(lambda x: F.rms_norm(x, (x.shape[-1],), eps=1e-8))
         if hasattr(F, "rms_norm") else None,
+        nbytes=lambda s, dt: 2 * math.prod(s) * _bsz(dt),
+        flops=lambda s: 4 * math.prod(s)),
+    # the channel path of the same kernel source; its wrapper also adds to
+    # the pixelnorm count above (the kernel's count)
+    "pixelnorm_nchw": dict(
+        route="cuda",
+        source="ganlab_tpu_torch/csrc/pixelnorm.cu",
+        replaces="ganlab_tpu/ops/pallas/pixelnorm.py:64",
+        kernel=pixel_norm_nchw_cuda,
+        plain=pixel_norm_nchw_ref,
+        inputs=lambda s, dt, g: (
+            torch.randn(s, generator=g, device="cuda").to(dt),),
+        library=None,   # no one call: F.rms_norm needs a permuted copy
         nbytes=lambda s, dt: 2 * math.prod(s) * _bsz(dt),
         flops=lambda s: 4 * math.prod(s)),
     "adain": dict(
@@ -422,6 +515,7 @@ KERNELS = {
 # backward of each kernel's autograd Function
 BWD_ROUTE = {
     "pixelnorm": "plain PyTorch (analytic VJP)",
+    "pixelnorm_nchw": "plain PyTorch (analytic VJP)",
     "adain": "plain PyTorch (analytic VJP)",
     "upsample_blur_2x": "cuda: BlurDownsample2x with gain 4",
     "blur_downsample_2x": "cuda: UpsampleBlur2x with gain 1/4",
@@ -433,6 +527,11 @@ CHECK_GAIN = 0.3               # kernel(x, gain) against plain(x, gain)
 # a 16-byte vector, more than a warp's worth of vectors in a row
 EXTRA_SHAPES = {
     "pixelnorm": [(3, 96), (5, 500), (4, 4096), (2, 2056)],
+    # H*W of 1, 15 and 49 (element pixels), C of 3 and 1000 (single
+    # channels; planes read twice), a plane of 2 pixels
+    "pixelnorm_nchw": [(3, 512, 1, 1), (2, 512, 3, 5), (2, 256, 7, 7),
+                       (4, 3, 8, 8), (2, 1000, 4, 4), (2, 1000, 4, 1),
+                       (5, 128, 1, 2)],
     "upsample_blur_2x": [(3, 5, 7, 24), (2, 3, 33, 31), (1, 2, 5, 264),
                          (2, 2, 9, 8)],
     "blur_downsample_2x": [(2, 3, 34, 30), (3, 5, 14, 48), (1, 2, 10, 528),
@@ -460,6 +559,8 @@ SUMMED = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms",
           "bytes_ms", "ops_ms")
 SERVED, STEP = "served batch", "R1-off step"
 SERVED_1K, STEP_1K = "1024 served batch", "1024 R1-off step"
+PG_STEP_64 = "progan-128 step at 64x64"
+PG_STEP_128 = "progan-128 step at 128x128"
 SMALL_MS = 0.05                # below this a timing is read five more times
 
 
@@ -529,7 +630,36 @@ def check_shape(name: str, shape, g) -> float:
                                       k["plain"](*inp), dt))
         if name == "minibatch_stddev":
             worst = max(worst, check_mbstd_paths(label, inp[0], out, dt))
+        if name == "pixelnorm_nchw":
+            check_nchw_paths(label, inp[0], out)
     return worst
+
+
+def check_nchw_paths(label: str, x, out) -> None:
+    """The channel kernel beyond the plain comparison: bit for bit equal to
+    the rows kernel on the same values transposed to (N*H*W, C) (it sums
+    in the rows kernel's order), and the same bits from an unaligned copy
+    (element pixels) and from a strided view of a larger tensor."""
+    n, c, h, w = x.shape
+    rows = pixel_norm_cuda(x.permute(0, 2, 3, 1).reshape(-1, c)
+                           .contiguous())
+    if not torch.equal(out, rows.view(n, h, w, c).permute(0, 3, 1, 2)):
+        raise AssertionError(f"{label}: channel kernel and rows kernel "
+                             "disagree")
+    xu = _unaligned_copy(x)
+    out_u = pixel_norm_nchw_cuda(xu)
+    # a view: every other image of a batch twice the size, made
+    # contiguous by the op (as PixelNorm's forward does)
+    big = torch.empty((2 * n, c, h, w), dtype=x.dtype, device=x.device)
+    big[::2] = x
+    out_v = port_ops.pixel_norm(big[::2], dim=1)
+    log(f"path {label}: {pixel_norm_nchw_path(x, out)}; from an unaligned "
+        f"copy: {pixel_norm_nchw_path(xu, out_u)}; bit-equal to the rows "
+        "kernel, the unaligned copy and a strided view")
+    if not pixel_norm_nchw_path(xu, out_u).startswith("element") or \
+            not torch.equal(out_u, out) or not torch.equal(out_v, out):
+        raise AssertionError(f"{label}: the channel kernel's paths "
+                             "disagree")
 
 
 def check_mbstd_paths(label: str, x, out, dt) -> float:
@@ -553,6 +683,34 @@ def check_mbstd_paths(label: str, x, out, dt) -> float:
             f"{label} cluster {cluster}",
             minibatch_stddev_cuda(x, cluster=cluster), want, dt))
     return worst
+
+
+def nchw_variants(g) -> None:
+    """The channel pixelnorm with 4, 8 and 16 warps a block (a block reads
+    that many adjacent 16-byte pieces of each plane) at progan-128's large
+    shapes, bf16, each read three times in turns (ms by CUDA events,
+    device_ms by graph replay)."""
+    for shape in ((16, 512, 32, 32), (16, 256, 64, 64), (8, 128, 128, 128)):
+        (x,) = KERNELS["pixelnorm_nchw"]["inputs"](shape, torch.bfloat16, g)
+        want = pixel_norm_nchw_cuda(x)
+        calls = {w: functools.partial(pixel_norm_nchw_cuda, x, warps=w)
+                 for w in (4, 8, 16)}
+        for w, fn in calls.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"pixelnorm_nchw {shape}: {w} warps a "
+                                     "block gave other bits")
+        reads = {w: [] for w in calls}
+        for _ in range(3):
+            for w, fn in calls.items():
+                reads[w].append((cuda_time_ms(fn, iters=50, warmup=5),
+                                 device_time_ms(fn)))
+        bound = KERNELS["pixelnorm_nchw"]["nbytes"](
+            shape, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
+        log(f"variants pixelnorm_nchw {shape} bf16 (bound {bound:.4f} ms), "
+            "ms / device_ms, median of 3 in turns: " + ", ".join(
+                f"{w} warps {statistics.median(v[0] for v in r):.4f} / "
+                f"{statistics.median(v[1] for v in r):.4f}"
+                for w, r in reads.items()))
 
 
 def mbstd_variants(g) -> None:
@@ -755,6 +913,8 @@ def phase_kernels(units: dict) -> dict:
                 pixelnorm_host_parts(g)
             if name == "minibatch_stddev":
                 mbstd_variants(g)
+            if name == "pixelnorm_nchw":
+                nchw_variants(g)
             for unit, by_kernel in units.items():
                 if by_kernel.get(name):
                     u = r[unit] = unit_sums(times, by_kernel[name])
@@ -961,11 +1121,14 @@ def phase_gradients() -> None:
         return (torch.randn(s, generator=g, device="cuda") * scale) \
             .requires_grad_(True)
 
-    kern = {"pixelnorm": port_ops.pixel_norm, "adain": port_ops.adain,
+    kern = {"pixelnorm": port_ops.pixel_norm,
+            "pixelnorm_nchw": functools.partial(port_ops.pixel_norm, dim=1),
+            "adain": port_ops.adain,
             "upsample_blur_2x": port_ops.upsample_blur_2x,
             "blur_downsample_2x": port_ops.blur_downsample_2x,
             "minibatch_stddev": port_ops.minibatch_stddev}
     cases = {"pixelnorm": (r(2 * BATCH, 512),),
+             "pixelnorm_nchw": (r(16, 512, 8, 8, scale=2.0),),
              "adain": (r(BATCH, 256, 32, 32), r(BATCH, 256), r(BATCH, 256)),
              "upsample_blur_2x": (r(BATCH, 256, 32, 32),),
              "blur_downsample_2x": (r(BATCH, 256, 64, 64),),
@@ -1016,6 +1179,47 @@ def phase_gradients() -> None:
     want = r1(upsample_blur_2x_ref, blur_downsample_2x_ref,
               minibatch_stddev_ref)
     _assert_grads_close("second order (R1 shape)", got, want)
+    wgan_gp_card_vs_cpu()
+
+
+def wgan_gp_card_vs_cpu() -> None:
+    """WGAN-GP's gradient with respect to the ProGAN D's parameters (the
+    double backward through its convs, average pools and mbstd) on the card
+    against the CPU, from the same weights, images and interpolation
+    weights: a narrow progan-128 D at 32x32 in a fade (alpha 0.3) with
+    batch 16, float32, TF32 off; 5e-3 of each leaf's scale."""
+    from ganlab_tpu_torch.ops import losses
+
+    cfg = get_config("progan-128", **{
+        "model.resolution": 32, "model.fmap_base": 512,
+        "model.fmap_max": 64})
+    gen = torch.Generator().manual_seed(8)
+    real = torch.rand(16, 3, 32, 32, generator=gen) * 2 - 1
+    fake = torch.rand(16, 3, 32, 32, generator=gen) * 2 - 1
+    eps = torch.rand(16, 1, 1, 1, generator=gen)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(9)
+        _, d_cpu = port_models.build_models(cfg.model)
+    with torch.no_grad():
+        for p in d_cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    d_card = copy.deepcopy(d_cpu).cuda()
+    grads = {}
+    before = minibatch_stddev_cuda.launches
+    for dev, d in (("cuda", d_card), ("cpu", d_cpu)):
+        pen = losses.wgan_gp(lambda x: d(x, 5, 0.3, True), real.to(dev),
+                             fake.to(dev), None, 10.0, eps=eps.to(dev))
+        params = list(d.parameters())
+        # the 4x4 and 8x8 heads take no part at 32x32
+        grads[dev] = [torch.zeros(p.shape) if g is None else g.cpu()
+                      for p, g in zip(params, torch.autograd.grad(
+                          pen, params, allow_unused=True))]
+    if minibatch_stddev_cuda.launches == before:
+        raise AssertionError("WGAN-GP on the card launched no mbstd kernel")
+    # the biases' gradients are sums that cancel to ~1e-3 of their terms
+    # (the fade's old head), as in the f32 step check
+    _assert_grads_close("WGAN-GP through the ProGAN D, card vs CPU",
+                        grads["cuda"], grads["cpu"], rtol=STEP_GRAD_RTOL)
 
 
 # -- 6. training path ----------------------------------------------------------
@@ -1043,8 +1247,7 @@ def phase_training(card: str) -> dict:
     phase = build_phases(cfg.schedule, mc)[-1]
     assert phase.batch_size == BATCH and phase.res_log2 == 8
     combo_at, _ = train_steps._lazy_combos(cfg)
-    expect = {r1: {n: sum(v.values()) for n, v in
-                   step_launches(mc, r1).items()} for r1 in (False, True)}
+    expect = {r1: launch_totals(step_launches(mc, r1)) for r1 in (False, True)}
     log(f"train: launches per step derived from the config: R1-off "
         f"{expect[False]}, R1-on {expect[True]}")
 
@@ -1166,16 +1369,18 @@ def probe_cudnn_benchmark(cfg, phase, state, real, card) -> dict:
     return out
 
 
-def phase_train_card_vs_cpu() -> None:
-    """One R1-on step of a narrow 32² model in float32 (TF32 off), on the
-    card and on the CPU from the same initial state and draws. D's lr is 0
+def phase_train_card_vs_cpu(preset: str = "stylegan-256") -> None:
+    """One penalty step (R1 for stylegan-256, WGAN-GP and drift for
+    progan-128) of a narrow 32² model in float32 (TF32 off), on the card
+    and on the CPU from the same initial state and draws. D's lr is 0
     here: Adam's first update is about lr * sign(g), so where D's gradient
     is ~0 the two devices' updated D's would differ by up to 2 lr, and G's
     gradients, taken against the updated D, with them."""
-    cfg = get_config("stylegan-256", **{
+    cfg = get_config(preset, **{
         "model.resolution": 32, "model.fmap_base": 512,
         "model.fmap_max": 64, "model.latent_dim": 128,
         "run.compute_dtype": "float32", "schedule.progressive": False,
+        "schedule.start_res": 32,
         "schedule.batch_schedule": {32: 8}, "optim.lr_d": 0.0})
     phase = build_phases(cfg.schedule, cfg.model)[-1]
     draws = train_steps.draw_step(cfg, phase.res_log2, 8,
@@ -1219,7 +1424,8 @@ def phase_train_card_vs_cpu() -> None:
     if not worst <= STEP_GRAD_RTOL:
         raise AssertionError(f"f32 step grad {rels[-1][1]}: {worst:.3e} "
                              "of scale")
-    log(f"train: f32 R1-on step at 32² card vs CPU: losses {m_cpu} agree "
+    log(f"train: {preset} f32 {cfg.loss.penalty} step at 32² card vs CPU: "
+        f"losses {m_cpu} agree "
         f"within {STEP_LOSS_RTOL:g} rel; {len(g_cpu)} gradient leaves agree, "
         f"worst {worst:.3e} of the leaf scale (tol {STEP_GRAD_RTOL:g})")
 
@@ -1241,8 +1447,10 @@ def _assert_states_equal(what: str, a, b) -> int:
     return len(ta)
 
 
-def run_cli_train(preset: str, sets: dict, workdir: str) -> dict:
-    """``cli train --preset <preset> --set k=v ...`` into ``workdir``. The
+def run_cli_train(preset: str, sets: dict, workdir: str,
+                  max_steps: int | None = None) -> dict:
+    """``cli train --preset <preset> --set k=v ...`` into ``workdir``
+    (``--max-steps`` when given). The
     step functions the Trainer builds are wrapped to set the launch counts
     to 0 before each step and to read them and the clock (after a
     synchronize) after it."""
@@ -1273,6 +1481,8 @@ def run_cli_train(preset: str, sets: dict, workdir: str) -> dict:
         return step
 
     args = ["--preset", preset, "--workdir", workdir]
+    if max_steps is not None:
+        args += ["--max-steps", str(max_steps)]
     for k, v in sets.items():
         args += ["--set", f"{k}={v}"]
     torch.cuda.reset_peak_memory_stats()
@@ -1353,15 +1563,22 @@ def check_png(path: str, what: str) -> None:
 
 
 def check_trainer_run(cfg, phases, records, workdir, card,
-                      ckpt_every, r1_first_from: int) -> dict:
+                      ckpt_every, r1_first_from: int | None = None,
+                      launches_of=None) -> dict:
     """Every phase ran its steps at its resolution and batch with the
-    derived launch counts; R1 on every 16th step of the run, and every
-    phase from ``r1_first_from`` pixels up runs 16 steps or more and
-    starts with an R1 step; the logged alpha rises
-    from 0 in a fade phase and is 1.0 in a stabilize phase; losses finite;
+    derived launch counts (``launches_of(record, phase)``; the StyleGAN
+    step's by default); the penalty on every ``loss.penalty_every``-th step
+    of the run, and every phase from ``r1_first_from`` pixels up runs 16
+    steps or more and starts with an R1 step; the logged alpha rises from
+    0 in a fade phase and is 1.0 in a stabilize phase; losses finite;
     checkpoints written, the newest kept. Prints each phase's step times
     and img/s by step time and by the loop's clock."""
     mc = cfg.model
+    every = cfg.loss.penalty_every
+    if launches_of is None:
+        def launches_of(r, ph):
+            return launch_totals(step_launches(mc, r["r1"], ph.res_log2,
+                                               ph.batch_size))
     with open(os.path.join(workdir, "train.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     counts = [phase_steps(ph) for ph in phases]
@@ -1370,7 +1587,7 @@ def check_trainer_run(cfg, phases, records, workdir, card,
             list(range(1, n_steps + 1)):
         raise AssertionError(f"trainer: {len(records)} steps, {len(rows)} "
                              f"log rows, expected {n_steps}")
-    totals = {n: 0 for n in KERNELS}
+    launches = {n: 0 for n in KERNELS}
     per_phase = {}
     first = 0
     for ph, n in zip(phases, counts):
@@ -1384,16 +1601,15 @@ def check_trainer_run(cfg, phases, records, workdir, card,
             raise AssertionError(f"trainer: phase {ph.index} ran "
                                  f"{[(r['shape']) for r in recs][:3]}")
         for r in recs:
-            want = {k: sum(v.values()) for k, v in
-                    step_launches(mc, r["r1"], ph.res_log2, b).items()}
-            want = {k: want.get(k, 0) for k in KERNELS}
+            want = launches_of(r, ph)
             if r["counts"] != want:
                 raise AssertionError(
                     f"trainer: phase {ph.index} step {r['step']}: launches "
                     f"{r['counts']}, derived {want}")
-            for k in totals:
-                totals[k] += r["counts"][k]
-        if res >= r1_first_from and (n < 16 or not recs[0]["r1"]):
+            for k in launches:
+                launches[k] += r["counts"][k]
+        if r1_first_from is not None and res >= r1_first_from and (
+                n < 16 or not recs[0]["r1"]):
             raise AssertionError(f"trainer: phase {ph.index} ({n} steps) "
                                  "is no lazy-R1 cycle from an R1 step")
         alphas = [row["alpha"] for row in logged]
@@ -1408,10 +1624,12 @@ def check_trainer_run(cfg, phases, records, workdir, card,
                                      "real_score", "fake_score")]
             if not all(math.isfinite(v) for v in vals):
                 raise AssertionError(f"trainer: non-finite metrics {row}")
-            if (row["penalty"] > 0) != (row["step"] % 16 == 1):
+            if (row["penalty"] > 0) != ((row["step"] - 1) % every == 0):
                 raise AssertionError(f"trainer: penalty in {row}")
-        off = [r["ms"] for r in recs[2:] if not r["r1"]]
-        on = [r["ms"] for r in recs if r["r1"]]
+        # with lazy R1 the R1-off steps; with a penalty every step, all
+        off = [r["ms"] for r in recs[2:] if not r["r1"]] or \
+            [r["ms"] for r in recs[2:]]
+        on = [r["ms"] for r in recs if r["r1"]] if every > 1 else []
         steady = sum(r["ms"] for r in recs[2:]) / 1e3
         # between two steps the loop logs and waits for the next batch
         gaps = [(y["t0"] - x["t0"]) * 1e3 - x["ms"]
@@ -1422,16 +1640,20 @@ def check_trainer_run(cfg, phases, records, workdir, card,
             ms_r1_on=on, img_s_step=(n - 2) * b / steady,
             img_s_loop=(n - 3) * b / (recs[-1]["t0"] - recs[2]["t0"]),
             gap_ms=statistics.median(gaps))
+        kind = "R1-off step" if every > 1 else "step"
+        shown = next((r["counts"] for r in recs if not r["r1"]),
+                     recs[-1]["counts"])
         log(f"trainer: phase {ph.index} {res}x{res} {ph.kind} batch {b}: "
             f"{n} steps, alpha {alphas[0]:.4f}..{alphas[-1]:.4f}, "
-            f"{pp['ms_r1_off']:.2f} ms per R1-off step (median of "
+            f"{pp['ms_r1_off']:.2f} ms per {kind} (median of "
             f"{len(off)}), R1-on steps "
             f"{', '.join(f'{v:.2f}' for v in on) or 'none'} ms, first step "
             f"{recs[0]['ms']:.2f} ms, {pp['img_s_step']:.1f} img/s over "
             f"steps 3..{n} by step time, {pp['img_s_loop']:.1f} img/s by "
             f"the loop's clock (between steps: median {pp['gap_ms']:.2f} "
-            f"ms, checkpoints included), launches R1-off "
-            f"{next(r['counts'] for r in recs if not r['r1'])} [{card}]")
+            f"ms, checkpoints included), launches "
+            f"{shown} "
+            f"[{card}]")
     ckpts = sorted(os.listdir(os.path.join(workdir, cfg.run.checkpoint_dir)))
     want = [f"ckpt_{s:08d}.pt" for s in
             sorted({*range(ckpt_every, n_steps + 1, ckpt_every), n_steps})
@@ -1442,7 +1664,7 @@ def check_trainer_run(cfg, phases, records, workdir, card,
         "their resolution and batch with the derived launch counts; alpha "
         "0 -> (n-1)/n in fade phases, 1.0 in stabilize phases; metrics "
         f"finite; checkpoints {ckpts}")
-    return dict(launches=totals, phases=per_phase)
+    return dict(launches=launches, phases=per_phase)
 
 
 def profile_phase_steps(cfg, phases, state, card) -> None:
@@ -1480,10 +1702,10 @@ def profile_phase_steps(cfg, phases, state, card) -> None:
 def check_resume_and_serving(cfg, phases, live, workdir) -> None:
     """A second Trainer on the workdir holds the first one's state bit for
     bit; the sampler built from the workdir serves the live G-EMA's batch;
-    and the next two steps (one with R1) of the restored and of the live
-    state, on the same batches, end in the same bits. cuDNN is held to
-    its deterministic algorithms for those steps, or two runs of one step
-    from one state need not agree at all."""
+    and the next two steps (one with R1 in a lazy-R1 run) of the restored
+    and of the live state, on the same batches, end in the same bits.
+    cuDNN is held to its deterministic algorithms for those steps, or two
+    runs of one step from one state need not agree at all."""
     phase = phases[-1]
     batch, res = phase.batch_size, phase.resolution
     n_steps = sum(phase_steps(ph) for ph in phases)
@@ -1526,9 +1748,9 @@ def check_resume_and_serving(cfg, phases, live, workdir) -> None:
         finally:
             torch.backends.cudnn.deterministic = False
         n = _assert_states_equal("resume + 2 steps", second.state, live)
-        log(f"trainer: two more steps ({live.step - 2} with R1, "
-            f"{live.step - 1} without) from the restored and from the live "
-            f"state: all {n} leaves bit-equal")
+        log(f"trainer: two more steps ({live.step - 2} and {live.step - 1}, "
+            f"penalty every {cfg.loss.penalty_every}) from the restored and "
+            f"from the live state: all {n} leaves bit-equal")
     finally:
         second.close()
 
@@ -1683,7 +1905,12 @@ def phase_user_data(card: str) -> dict:
                 ["mixgrid", "--workdir", wd, "--num", "2"])),
             ("cli eval-fid", lambda: port_cli.main(
                 ["eval-fid", "--workdir", wd, "--num-samples",
-                 str(EVAL_SAMPLES), "--metrics", "fid,kid,pr"]))]
+                 str(EVAL_SAMPLES), "--metrics", "fid,kid,pr"])),
+            # PPL in w space, 64 pairs of 1024x1024 images in float32,
+            # LPIPS on the random VGG16
+            ("cli eval-fid --metrics ppl", lambda: port_cli.main(
+                ["eval-fid", "--workdir", wd, "--num-samples",
+                 str(EVAL_SAMPLES), "--metrics", "ppl"]))]
         for label, fn in steps:
             t0 = time.perf_counter()
             c = counted(label, fn)
@@ -1822,7 +2049,211 @@ def remat_memory(card: str) -> dict:
     return out
 
 
-# -- 9. Inception at full size -----------------------------------------------------
+# -- 9. ProGAN and ResNet-GAN -------------------------------------------------
+PG_KIMG = 0.128                # a fade / stabilize phase: 8 steps at batch
+                               # 16, 16 steps at batch 8 (128x128)
+PG_FIXED_STEPS = 24            # progan-64 and resnetgan-cifar10
+N_CRITIC = 5
+PPL_SAMPLES = 256
+
+
+def check_fixed_run(label: str, run: dict, workdir: str, want: dict,
+                    card: str) -> dict:
+    """A fixed-resolution ``cli train`` run: every step's launch counts as
+    derived, the penalty on every step, finite metrics; ms per step (after
+    the first two) and img/s by step time."""
+    records = run["records"]
+    with open(os.path.join(workdir, "train.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != len(records) or len(records) != PG_FIXED_STEPS:
+        raise AssertionError(f"{label}: {len(records)} steps, {len(rows)} "
+                             "log rows")
+    for r, row in zip(records, rows):
+        if r["counts"] != want or r["device"] != "cuda":
+            raise AssertionError(f"{label}: step {r['step']} launches "
+                                 f"{r['counts']}, derived {want}")
+        vals = [row[k] for k in ("d_loss", "g_loss", "penalty",
+                                 "real_score", "fake_score")]
+        if not all(math.isfinite(v) for v in vals) or row["penalty"] <= 0:
+            raise AssertionError(f"{label}: metrics {row}")
+    ms = [r["ms"] for r in records[2:]]
+    b = records[0]["shape"][0]
+    out = dict(ms=statistics.median(ms), img_s=len(ms) * b / sum(ms) * 1e3,
+               first_ms=records[0]["ms"], launches=records[0]["counts"])
+    log(f"progan: {label} at full width, batch {b}: {len(records)} steps, "
+        f"{out['ms']:.2f} ms per step (median of {len(ms)}), "
+        f"{out['img_s']:.1f} img/s by step time, first step "
+        f"{out['first_ms']:.1f} ms, launches a step {out['launches']}, "
+        f"cli train {run['wall_s']:.1f} s, peak {run['peak_gib']:.2f} GiB "
+        f"[{card}]")
+    return out
+
+
+def progan_serving(cfg, state, card) -> dict:
+    """``BatchSampler`` on the progan-128 G-EMA at batch 32: launches per
+    batch, img/s and batch latency (host clock, uint8 on the host)."""
+    sampler = BatchSampler(cfg, state=state, batch_size=BATCH)
+    sampler.warmup()
+    reset_counts()
+    a = sampler.generate(2 * BATCH, seed=0)
+    counts = {n: k["kernel"].launches for n, k in KERNELS.items()}
+    per_batch = launch_totals(progan_g_launches(cfg.model))
+    if counts != {n: 2 * v for n, v in per_batch.items()} or \
+            a.shape != (2 * BATCH, 128, 128, 3):
+        raise AssertionError(f"progan serving: launches {counts} in two "
+                             f"batches, derived {per_batch} a batch, "
+                             f"images {a.shape}")
+    if not np.array_equal(a[:3], sampler.generate(3, seed=0)):
+        raise AssertionError("progan serving: not index-stable")
+    lat = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        sampler.generate(BATCH, seed=100 + i)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    sampler.generate(8 * BATCH, seed=200)
+    img_s = 8 * BATCH / (time.perf_counter() - t0)
+    out = dict(img_per_s=img_s, batch_ms_median=statistics.median(lat),
+               batch_ms_max=max(lat), launches=counts)
+    log(f"progan: BatchSampler on the progan-128 G-EMA, batch {BATCH}: "
+        f"{img_s:.1f} img/s over {8 * BATCH} images; batch latency median "
+        f"{out['batch_ms_median']:.2f} ms max {out['batch_ms_max']:.2f} ms; "
+        f"launches per batch {per_batch} [{card}]")
+    profile_call(f"one served progan-128 batch of {BATCH}",
+                 lambda: sampler.generate(BATCH, seed=500), card, top=6)
+    return out
+
+
+def n_critic_run(card: str) -> None:
+    """resnetgan-cifar10 at full width with ``loss.d_steps_per_g`` 5: ten
+    steps; D changes every step, G (and its G-EMA) only on steps 4 and 9,
+    ``g_loss`` 0 on the others."""
+    cfg = get_config("resnetgan-cifar10", **{
+        "loss.d_steps_per_g": N_CRITIC, "data.dataset": "synthetic"})
+    phase = build_phases(cfg.schedule, cfg.model)[0]
+    state = create_train_state(cfg, seed=0)
+    stepper = make_lazy_stepper(cfg, phase)
+    source = make_source(cfg.data, 32, seed=1)
+    changed = []
+    for i in range(2 * N_CRITIC):
+        real = torch.from_numpy(source.batch(phase.batch_size, 32)).cuda()
+        g0, d0, e0 = (_leaves(m) for m in (state.g, state.d, state.g_ema))
+        state, m = stepper(state, real)
+        moved = tuple(_changed(b, mod) for b, mod in
+                      ((g0, state.g), (d0, state.d), (e0, state.g_ema)))
+        g_step = i % N_CRITIC == N_CRITIC - 1
+        if (moved[0] > 0) != g_step or (moved[2] > 0) != g_step or \
+                moved[1] == 0 or (float(m["g_loss"]) != 0.0) != g_step:
+            raise AssertionError(f"n-critic step {i}: leaves changed "
+                                 f"(G, D, G-EMA) {moved}, metrics {m}")
+        changed.append(moved)
+    log(f"progan: resnetgan-cifar10 with loss.d_steps_per_g={N_CRITIC}, "
+        f"batch {phase.batch_size}: leaves changed per step (G, D, G-EMA) "
+        f"{changed}: G only on steps {N_CRITIC - 1} and "
+        f"{2 * N_CRITIC - 1} [{card}]")
+
+
+def phase_progan(card: str) -> dict:
+    """ProGAN and ResNet-GAN at full width through their entry points:
+    ``cli train --preset progan-128`` through all 11 phases 4x4 ->
+    128x128 at the preset's batches (16, then 8 at 128x128) on
+    ``ellipses``, WGAN-GP and drift every step, cut in length only, with
+    launch counts per step, alpha, finite losses, resume bit for bit and
+    serving from the workdir; one 128x128 step profiled; ``cli sample``;
+    ``cli eval-ppl --space z`` (random VGG16); ``BatchSampler`` on the
+    G-EMA; one float32 WGAN-GP step card vs CPU; ``progan-64`` (R1 every
+    step) and ``resnetgan-cifar10`` (WGAN-GP, batch 64, ``synthetic``)
+    for a few dozen steps; n-critic."""
+    sets = {"data.dataset": "ellipses", "schedule.fade_kimg": PG_KIMG,
+            "schedule.stabilize_kimg": PG_KIMG,
+            "schedule.total_kimg": 0.001, "run.log_every": 1}
+    cfg = get_config("progan-128", **sets)
+    mc = cfg.model
+    phases = build_phases(cfg.schedule, mc)
+    assert (mc.resolution, mc.latent_dim, mc.fmap_base, mc.fmap_max,
+            cfg.run.compute_dtype, cfg.loss.loss, cfg.loss.penalty,
+            cfg.loss.penalty_every, cfg.loss.drift_weight) == \
+        (128, 512, 8192, 512, "bfloat16", "wgan-gp", "wgan-gp", 1, 1e-3)
+    assert [(p.resolution, p.kind, p.batch_size) for p in phases] == \
+        [(4, "stabilize", 16)] + [
+            (2 ** lg, kind, 16 if lg < 7 else 8) for lg in range(3, 8)
+            for kind in ("fade", "stabilize")]
+    log(f"progan: progan-128 preset, all widths, its {len(phases)} phases at "
+        f"batches 16 / 8; cut: schedule.fade_kimg and stabilize_kimg 600 "
+        f"-> {PG_KIMG} (steps a phase: {[phase_steps(p) for p in phases]}),"
+        f" schedule.total_kimg 12000 -> the phases' own end "
+        f"({phases[-1].end_img} images); data.dataset ellipses; "
+        "run.log_every 1")
+    launches = {n: 0 for n in KERNELS}
+
+    def count(c):
+        for n in launches:
+            launches[n] += c[n]
+
+    root = tempfile.mkdtemp(prefix="ganlab_progan_")
+    try:
+        wd = os.path.join(root, "progan128")
+        run = run_cli_train("progan-128", sets, wd)
+        checked = check_trainer_run(
+            cfg, phases, run["records"], wd, card, cfg.run.checkpoint_every,
+            launches_of=lambda r, ph: launch_totals(progan_step_launches(
+                mc, ph.res_log2, ph.batch_size)))
+        count(checked["launches"])
+        log(f"progan: cli train took {run['wall_s']:.1f} s for "
+            f"{len(run['records'])} steps; peak memory "
+            f"{run['peak_gib']:.2f} GiB [{card}]")
+        live = run["live"]
+        check_resume_and_serving(cfg, phases, live, wd)
+        last = phases[-1]
+        source = make_source(cfg.data, mc.resolution, seed=5)
+        real = torch.from_numpy(source.batch(last.batch_size, 128)).cuda()
+        stepper = make_lazy_stepper(cfg, last, initial_step=live.step)
+        for _ in range(2):
+            live, _ = stepper(live, real)
+        prof = profile_call("one progan-128 step at 128x128 (batch 8, "
+                            "WGAN-GP and drift)",
+                            lambda: stepper(live, real), card, top=10)
+
+        png = os.path.join(root, "progan_sample.png")
+        for label, fn in (
+                ("cli sample", lambda: port_cli.main(
+                    ["sample", "--workdir", wd, "--num", "4", "--out", png])),
+                ("cli eval-ppl --space z", lambda: port_cli.main(
+                    ["eval-ppl", "--workdir", wd, "--num-samples",
+                     str(PPL_SAMPLES), "--space", "z"]))):
+            t0 = time.perf_counter()
+            count(counted(label, fn, need=("pixelnorm", "pixelnorm_nchw")))
+            log(f"progan: {label} took {time.perf_counter() - t0:.1f} s "
+                f"[{card}]")
+        check_png(png, "cli sample (progan-128)")
+        serving = progan_serving(cfg, live, card)
+        count(serving["launches"])
+        phase_train_card_vs_cpu("progan-128")
+
+        fixed = {}
+        for preset, over in (
+                ("progan-64", {"data.dataset": "ellipses"}),
+                ("resnetgan-cifar10", {"data.dataset": "synthetic"})):
+            pcfg = get_config(preset, **over)
+            ph = build_phases(pcfg.schedule, pcfg.model)[0]
+            want = launch_totals(progan_step_launches(
+                pcfg.model, ph.res_log2, ph.batch_size)
+                if preset.startswith("progan") else {})
+            wdp = os.path.join(root, preset)
+            prun = run_cli_train(preset, dict(over, **{"run.log_every": 1}),
+                                 wdp, max_steps=PG_FIXED_STEPS)
+            fixed[preset] = check_fixed_run(preset, prun, wdp, want, card)
+            count({n: sum(r["counts"][n] for r in prun["records"])
+                   for n in KERNELS})
+        n_critic_run(card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, phases=checked["phases"],
+                peak_gib=run["peak_gib"], prof=prof, serving=serving,
+                fixed=fixed)
+
+
+# -- 10. Inception at full size -----------------------------------------------
 def phase_inception(card: str) -> dict:
     """One ``InceptionExtractor`` forward (random weights with non-trivial
     batch-norm statistics, as a weights file would give) on 64 images of
@@ -1857,12 +2288,22 @@ def phase_inception(card: str) -> dict:
 # -- 3b. offsets beyond 2^31 elements ------------------------------------------------
 LARGE = {"upsample_blur_2x": (64, 32, 512, 512),      # out: 2^31 elements
          "blur_downsample_2x": (128, 16, 1024, 1024),  # in: 2^31 elements
-         "adain": (128, 16, 1024, 1024)}               # in and out: 2^31
+         "adain": (128, 16, 1024, 1024),               # in and out: 2^31
+         "pixelnorm_nchw": (1024, 512, 64, 64)}        # in and out: 2^31
+
+
+def kernel_path(name: str, x, out) -> str:
+    if name == "adain":
+        return adain_path(x, out)
+    if name == "pixelnorm_nchw":
+        return pixel_norm_nchw_path(x, out)
+    return RESAMPLE_PATHS[name](x, out)
 
 
 def check_large_offsets() -> float:
     """The kernels on tensors of 2^31 elements (a served batch of 64 at
-    512x512 / 128 at 1024x1024, bf16): the first and the last planes of
+    512x512 / 128 at 1024x1024, 1024 ProGAN maps of 512 x 64x64, bf16):
+    the first and the last planes of
     the output against the plain version on those planes alone, so that
     an offset that wraps at 2^31 shows."""
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1872,8 +2313,7 @@ def check_large_offsets() -> float:
             k = KERNELS[name]
             inp = k["inputs"](shape, torch.bfloat16, g)
             out = k["kernel"](*inp)
-            path = (adain_path(inp[0], out) if name == "adain"
-                    else RESAMPLE_PATHS[name](inp[0], out))
+            path = kernel_path(name, inp[0], out)
             for sl in (slice(0, 1), slice(shape[0] - 1, shape[0])):
                 part = tuple(a[sl] for a in inp)
                 worst = max(worst, _check(
@@ -1891,10 +2331,13 @@ def main(kernels_only: bool = False) -> None:
     mc = get_config("stylegan-256").model
     cfg1k = get_config("stylegan-1024")
     mk, b1k = cfg1k.model, cfg1k.schedule.batch_for(1024)
+    mp = get_config("progan-128").model
     results = phase_kernels({
         SERVED: serving_shapes(mc), STEP: step_launches(mc, r1=False),
         SERVED_1K: serving_shapes(mk, batch=SERVE_1K_BATCH),
-        STEP_1K: step_launches(mk, r1=False, batch=b1k)})
+        STEP_1K: step_launches(mk, r1=False, batch=b1k),
+        PG_STEP_64: kernel_units(progan_step_launches(mp, 6, 16)),
+        PG_STEP_128: kernel_units(progan_step_launches(mp, 7, 8))})
     large_err = check_large_offsets()
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")
@@ -1904,25 +2347,32 @@ def main(kernels_only: bool = False) -> None:
     train = phase_training(card)
     trainer = phase_trainer(card)
     user = phase_user_data(card)
+    progan = phase_progan(card)
     phase_inception(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
-        per = SERVED if SERVED in r else STEP
-        u, st, s1k = r[per], r[STEP], r[STEP_1K]
-        tl = train["launches"][name]
-        pl = trainer["launches"][name]
-        ul = user["launches"][name]
-        kernels.append({
+        # the unit a kernel's headline numbers are summed over
+        per = next(u for u in (SERVED, STEP, PG_STEP_128) if u in r)
+        u = r[per]
+
+        def of(unit, key):
+            return r[unit][key] if unit in r else None
+
+        launches = {"serving": serve_counts.get(name, 0),
+                    "training": train["launches"][name],
+                    "trainer": trainer["launches"][name],
+                    "user_path_1024": user["launches"][name],
+                    "progan": progan["launches"][name]}
+        row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": serve_counts.get(name, 0) + tl + pl + ul,
-            "launches_serving": serve_counts.get(name, 0),
-            "launches_training": tl,
-            "launches_trainer": pl,
-            "launches_user_path_1024": ul,
+            "launches": sum(launches.values()),
+            **{f"launches_{n}": v for n, v in launches.items()},
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
+            "launches_per_progan128_step_128": launch_totals(
+                progan_step_launches(mp, 7, 8))[name],
             "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],
             "max_abs_err": max(r["max_abs_err"], large_err
                                if name in LARGE else 0.0),
@@ -1932,23 +2382,24 @@ def main(kernels_only: bool = False) -> None:
             "ms_per": per,
             "device_ms": u["device_ms"], "host_us": u["host_us"],
             "library_device_ms": u["library_device_ms"],
-            "library_host_us": u["library_host_us"],
-            "ms_per_step": st["ms"], "bound_ms_per_step": st["bound_ms"],
-            "device_ms_per_step": st["device_ms"],
-            "plain_ms_per_step": st["plain_ms"],
-            "library_ms_per_step": st["library_ms"],
-            "ms_per_step_1024": s1k["ms"],
-            "bound_ms_per_step_1024": s1k["bound_ms"],
-            "device_ms_per_step_1024": s1k["device_ms"],
-            "plain_ms_per_step_1024": s1k["plain_ms"],
-            "library_ms_per_step_1024": s1k["library_ms"]})
+            "library_host_us": u["library_host_us"]}
+        for unit, suffix in ((STEP, "per_step"), (STEP_1K, "per_step_1024"),
+                             (PG_STEP_64, "per_progan128_step_64"),
+                             (PG_STEP_128, "per_progan128_step_128")):
+            for key in ("ms", "bound_ms", "device_ms", "plain_ms",
+                        "library_ms"):
+                row[f"{key}_{suffix}"] = of(unit, key)
+        kernels.append(row)
     log(f"kernel times (ms, plain_ms, library_ms, device_ms, bound_ms) are "
         f"summed over the launches of one served batch of {BATCH} "
         f"(pixelnorm, AdaIN, up+blur) or one R1-off training step at batch "
-        f"{BATCH} (blur+down, mbstd; *_per_step for all five) of "
+        f"{BATCH} (blur+down, mbstd; *_per_step for all of them) of "
         f"stylegan-256, *_per_step_1024 over one R1-off step of "
-        f"stylegan-1024 at batch {b1k} (remat), bf16; host_us is per call "
-        f"[{card}]")
+        f"stylegan-1024 at batch {b1k} (remat), *_per_progan128_step_64 / "
+        f"_128 over one progan-128 step at 64x64 (batch 16) / 128x128 "
+        f"(batch 8; the headline of pixelnorm_nchw, whose library_ms is "
+        f"null: no one PyTorch call normalizes dim 1 of NCHW), bf16; "
+        f"host_us is per call [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,11 +6,13 @@ on a ported path rewritten by hand for the H100 (CUDA C++ under ``csrc``,
 wrapped in ``ops/kernels``). It imports ``torch`` and numpy, never
 ``jax``/``flax`` and nothing of ``ganlab_tpu``.
 
-Ported so far: StyleGAN G-EMA serving (``BatchSampler``), the StyleGAN
-training step (``create_train_state`` -> ``make_lazy_stepper``) and the
-progressive trainer with its checkpoints, data sources, evaluation and
-command line (``Trainer``, ``python -m ganlab_tpu_torch.cli
-train|prepare-data|sample|interpolate|mixgrid|eval-fid``). Entry points run
+Ported so far: G-EMA serving (``BatchSampler``), the training step
+(``create_train_state`` -> ``make_lazy_stepper``) and the progressive
+trainer with its checkpoints, data sources, evaluation (FID / KID / PR,
+PPL) and command line (``Trainer``, the three learners, ``python -m
+ganlab_tpu_torch.cli
+train|prepare-data|sample|interpolate|mixgrid|eval-fid|eval-ppl``) for
+StyleGAN, ProGAN and ResNet-GAN (five of the six presets). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel wrapper computes its plain PyTorch version, on a CUDA tensor it
 launches the kernel or raises.
@@ -29,6 +31,8 @@ _API = {
     "Trainer": "ganlab_tpu_torch.train",
     "CheckpointManager": "ganlab_tpu_torch.train",
     "StyleGANLearner": "ganlab_tpu_torch.learners",
+    "ProGANLearner": "ganlab_tpu_torch.learners",
+    "ResNetGANLearner": "ganlab_tpu_torch.learners",
     "BatchSampler": "ganlab_tpu_torch.serve",
     "from_flax": "ganlab_tpu_torch.convert",
 }

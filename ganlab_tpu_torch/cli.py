@@ -6,12 +6,13 @@
                     truncation psi)
 * ``interpolate``   a latent-walk frame grid from a checkpoint
 * ``mixgrid``       a style-mixing grid (StyleGAN figure 3)
-* ``eval-fid``      FID / KID / precision-recall of a checkpoint vs the
-                    dataset
+* ``eval-fid``      FID / KID / precision-recall (and ``--metrics ppl``) of
+                    a checkpoint vs the dataset
+* ``eval-ppl``      perceptual path length of a checkpoint
 
-The JAX package's ``eval-ppl`` (and ``--metrics ppl``), ``export`` and
-``project`` are not ported yet (ROADMAP.md A.2, A.7, A.8). Commands run on
-the GPU unless ``--device cpu`` is given (the JAX CLI's ``--platform``).
+The JAX package's ``export`` and ``project`` are not ported yet (ROADMAP.md
+A.7, A.8). Commands run on the GPU unless ``--device cpu`` is given (the
+JAX CLI's ``--platform``).
 
 Example:
     python -m ganlab_tpu_torch.cli prepare-data --src /data/ffhq \\
@@ -107,7 +108,18 @@ def main(argv=None) -> int:
     _add_common(p_fid)
     p_fid.add_argument("--num-samples", type=int, default=10000)
     p_fid.add_argument("--metrics", default="fid",
-                       help="comma list of fid,kid,pr (default fid)")
+                       help="comma list of fid,kid,pr,ppl (default fid)")
+
+    p_ppl = sub.add_parser("eval-ppl",
+                           help="perceptual path length of a checkpoint")
+    _add_common(p_ppl)
+    p_ppl.add_argument("--num-samples", type=int, default=5000)
+    p_ppl.add_argument("--space", default=None, choices=["w", "z"],
+                       help="latent space (default: w for style "
+                            "families, z otherwise)")
+    p_ppl.add_argument("--sampling", default="full",
+                       choices=["full", "end"])
+    p_ppl.add_argument("--epsilon", type=float, default=1e-4)
 
     p_interp = sub.add_parser("interpolate",
                               help="latent-walk frame grid from a checkpoint")
@@ -138,7 +150,8 @@ def main(argv=None) -> int:
         return 0
 
     cfg = _load_config(args)
-    handler = {"eval-fid": _eval_fid, "interpolate": _interpolate,
+    handler = {"eval-fid": _eval_fid, "eval-ppl": _eval_ppl,
+               "interpolate": _interpolate,
                "mixgrid": _mixgrid}.get(args.cmd)
     if handler is not None:
         return handler(cfg, args)
@@ -172,18 +185,40 @@ def _eval_fid(cfg, args) -> int:
     from ganlab_tpu_torch.eval.fid import evaluate_checkpoint_metrics
 
     wanted = tuple(m.strip() for m in args.metrics.split(","))
-    if "ppl" in wanted:
-        raise NotImplementedError(
-            "--metrics ppl (perceptual path length, with LPIPS) is not "
-            "ported to PyTorch yet (ROADMAP.md A.2)")
-    unknown = set(wanted) - {"fid", "kid", "pr"}
+    unknown = set(wanted) - {"fid", "kid", "pr", "ppl"}
     if unknown:
         raise SystemExit(f"--metrics: unknown {sorted(unknown)}")
-    scores = evaluate_checkpoint_metrics(
-        cfg, workdir=args.workdir, num_samples=args.num_samples,
-        metrics=wanted, device=args.device)
+    scores = {}
+    if set(wanted) - {"ppl"}:
+        scores = evaluate_checkpoint_metrics(
+            cfg, workdir=args.workdir, num_samples=args.num_samples,
+            metrics=wanted, device=args.device)
+    if "ppl" in wanted:
+        from ganlab_tpu_torch.eval.ppl import evaluate_checkpoint_ppl
+
+        # PPL needs no dataset; the one-stop call is capped (the official
+        # protocol uses 1e5 samples), with the eval-ppl path's seed
+        ppl_n = min(args.num_samples, 5000)
+        if ppl_n < args.num_samples:
+            print(f"note: PPL capped at {ppl_n} samples here; use "
+                  "`eval-ppl --num-samples` for more", flush=True)
+        scores["ppl"] = evaluate_checkpoint_ppl(
+            cfg, workdir=args.workdir, num_samples=ppl_n,
+            seed=cfg.run.seed, device=args.device)["ppl"]
     for name, value in scores.items():
         print(f"{name.upper()}: {value:.4f}")
+    return 0
+
+
+def _eval_ppl(cfg, args) -> int:
+    from ganlab_tpu_torch.eval.ppl import evaluate_checkpoint_ppl
+
+    out = evaluate_checkpoint_ppl(
+        cfg, workdir=args.workdir, num_samples=args.num_samples,
+        space=args.space, sampling=args.sampling, epsilon=args.epsilon,
+        seed=cfg.run.seed, device=args.device)
+    print(f"PPL ({out['space']}-{out['sampling']}, n={out['num']}): "
+          f"{out['ppl']:.4f}")
     return 0
 
 
@@ -260,6 +295,11 @@ def _mixgrid(cfg, args) -> int:
 
     from ganlab_tpu_torch.utils.image import save_image_grid
 
+    from ganlab_tpu_torch.models import is_style
+
+    if not is_style(cfg.model):
+        print("mixgrid requires a style-based model family")
+        return 1
     trainer = _sampling_trainer(cfg, args)
     try:
         dev = trainer.device

@@ -4,13 +4,16 @@
 ``jax.tree_util.tree_map(np.asarray, params)`` gives (with or without the
 top-level ``"params"`` key) and returns the ``state_dict`` of the port's
 module with the same names: ``"a/b/c"`` becomes ``"a.b.c"``. It covers the
-StyleGAN generator and the ProGAN discriminator. Layouts:
+StyleGAN and ProGAN generators, the ProGAN discriminator and both ResNet-GAN
+nets. Layouts:
 
 * conv weights HWIO (kh, kw, in, out) -> OIHW (out, in, kh, kw);
 * the constant input (1, H, W, C) -> (1, C, H, W);
-* dense weights (in, out) and every 1-d leaf stay as they are (the D's
-  output block flattens its 4x4 map in the JAX package's (h, w, c) order,
-  so ``block4_out.dense.w`` needs no reordering).
+* dense weights (in, out) and every 1-d leaf stay as they are: the ProGAN
+  D's output block flattens its 4x4 map in the JAX package's (h, w, c)
+  order, and the ProGAN G's ``block4.dense`` and the ResNet G's ``dense``
+  reshape their output in that order before the permute to NCHW, so no
+  dense weight needs reordering.
 
 Values are float32 (parameters stay float32 in both packages).
 
@@ -84,8 +87,9 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
             np.asarray(arrays["w_avg"], dtype=np.float32)))
     state.step = int(arrays["step"])
     state.shown_imgs = int(arrays["shown_imgs"])
-    # the moments' count and the step counter start together in a JAX run
-    state.opt_step0 = state.step - int(arrays["opt_g"]["count"])
+    # the moments' count and the step counter start together in a JAX
+    # run; D's Adam steps every step (G's only every n-th with n-critic)
+    state.opt_step0 = state.step - int(arrays["opt_d"]["count"])
     return state
 
 

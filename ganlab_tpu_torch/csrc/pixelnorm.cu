@@ -1,10 +1,13 @@
-// PixelNorm over the last axis of (rows, C) for Hopper (sm_90a):
+// PixelNorm for Hopper (sm_90a), over the last axis of (rows, C) and (the
+// second kernel, below) over the channel axis of NCHW:
 //
-//     out = x * rsqrt(mean(x^2, last axis) + eps)
+//     out = x * rsqrt(mean(x^2, C) + eps)
 //
 // float32 arithmetic, output in x's storage type (float32, bfloat16,
 // float16). Replaces the TPU kernel ganlab_tpu/ops/pallas/pixelnorm.py
-// (pixel_norm_pallas -> _rows_call -> _fwd_kernel).
+// (pixel_norm_pallas -> _rows_call -> _fwd_kernel) at both its call
+// sites: z (rows) and the ProGAN generator's feature maps (which the TPU
+// kernel saw as the (N*H*W, C) rows of NHWC).
 //
 // Bound: memory, one read and one write of (rows, C) at about 3 flops per
 // element. At the shapes StyleGAN gives it (the mapping network's z, a few
@@ -229,6 +232,217 @@ int launch(const void* x, void* o, long long rows, int c, float eps,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// PixelNorm over the channel axis of NCHW: for each image n and pixel p,
+//
+//     out[n, :, p] = x[n, :, p] * rsqrt(mean_c x[n, c, p]^2 + eps)
+//
+// The ProGAN generator's feature maps (N, C, H, W), where the channel
+// axis is strided by H*W. The TPU kernel flattened NHWC to (N*H*W, C) rows
+// (_rows_call); here the planes stay where they are and nothing is
+// permuted.
+//
+// Bound: memory, one read and one write of N*C*H*W elements at about 3
+// flops each. At progan-128's 128x128 block, (8, 128, 128, 128) bf16 is
+// 33.6 MB each way: about 0.020 ms at 3.35 TB/s. The 4x4 and 8x8 blocks
+// move tens of kilobytes: there the host's time to make the launch is
+// what a caller waits for.
+//
+// Design: a "run" is W adjacent pixels of one image: 16 bytes of each
+// plane (8 bf16 / f16 or 4 float32 pixels; one pixel on the element
+// path). R lanes of a warp own one run and split its C channel planes
+// between them; each lane keeps its planes' 16-byte vectors in registers
+// (up to kNchwCached of them), so x is read once: every load of a lane is
+// started before the first use, the per-pixel sums of squares are
+// reduced across the R lanes by __shfl_xor_sync, then each lane scales
+// its vectors and stores them. Above kNchwCached vectors a lane reads its
+// planes a second time (from L1/L2). A lane's vector is half of a 32-byte
+// sector; the next warp of the same block owns the next run, so the other
+// half is read by the same SM at the same time and comes from L1. A block
+// of kNchwWarps warps (or the count the caller asks for) owns adjacent
+// runs, so it reads that many 16-byte pieces of each plane in a row.
+//
+// The order of the sums is the rows kernel's: lane l of a run sums the
+// channel groups i = l, l + 32, ... of NC channels each, in order (NC =
+// the rows kernel's vector: 16 bytes when C * itemsize is a multiple of
+// 16, else one channel), then the butterfly over the lanes. R is the
+// smallest power of two >= min(groups, 32); the rows kernel's butterfly
+// steps above R add zeros, which change no bit. So on the same values
+// the two kernels give the same bits (chip_smoke.py checks it).
+constexpr int kNchwWarps = 4;      // warps per block, unless asked
+constexpr int kNchwMaxWarps = 16;
+constexpr int kNchwCached = 16;    // plane vectors a lane keeps in registers
+
+template <typename T, int W, int NC, bool CACHED>
+__global__ void __launch_bounds__(32 * kNchwMaxWarps)
+pixel_norm_nchw_kernel(const T* __restrict__ x, T* __restrict__ o,
+                       long long runs, long long runs_per_image,
+                       long long hw, int c, int groups, int r_log2,
+                       float eps) {
+  using Ch = Chunk<T, W>;
+  using Raw = typename Ch::Raw;
+  constexpr int K = CACHED ? kNchwCached / NC : 1;   // groups a lane caches
+  const int lane = threadIdx.x & 31;
+  const int lr = lane & ((1 << r_log2) - 1);         // lane within the run
+  const long long run =
+      ((static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+        (threadIdx.x >> 5))
+       << (5 - r_log2)) + (lane >> r_log2);
+  long long img = 0, p0 = 0;
+  if (run < runs) {
+    img = run / runs_per_image;
+    p0 = (run - img * runs_per_image) * W;
+  }
+  // the whole run lies in its image (W divides H*W on the vector path)
+  const bool in = run < runs && p0 < hw;
+  const long long base = img * c * hw + p0;
+
+  float ss[W];
+  float f[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) ss[w] = 0.0f;
+  Raw v[K][NC];
+  if constexpr (CACHED) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lr + 32 * k;
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        if (in && i < groups) {
+          v[k][e] = *reinterpret_cast<const Raw*>(
+              x + base + static_cast<long long>(NC * i + e) * hw);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (in && lr + 32 * k < groups) {
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          Ch::unpack(v[k][e], f);
+#pragma unroll
+          for (int w = 0; w < W; ++w) ss[w] += f[w] * f[w];
+        }
+      }
+    }
+  } else {
+    for (int i = lr; in && i < groups; i += 32) {
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        Ch::unpack(*reinterpret_cast<const Raw*>(
+                       x + base + static_cast<long long>(NC * i + e) * hw),
+                   f);
+#pragma unroll
+        for (int w = 0; w < W; ++w) ss[w] += f[w] * f[w];
+      }
+    }
+  }
+  // every lane takes part in the shuffles, also one without a run
+  float scale[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    float s = ss[w];
+    for (int d = (1 << r_log2) >> 1; d > 0; d >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, d);
+    scale[w] = rsqrtf(s / static_cast<float>(c) + eps);
+  }
+  if (!in) return;
+  if constexpr (CACHED) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lr + 32 * k;
+      if (i < groups) {
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          Ch::unpack(v[k][e], f);
+#pragma unroll
+          for (int w = 0; w < W; ++w) f[w] *= scale[w];
+          *reinterpret_cast<Raw*>(
+              o + base + static_cast<long long>(NC * i + e) * hw) =
+              Ch::pack(f);
+        }
+      }
+    }
+  } else {
+    for (int i = lr; i < groups; i += 32) {
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        const long long off = base + static_cast<long long>(NC * i + e) * hw;
+        Ch::unpack(*reinterpret_cast<const Raw*>(x + off), f);
+#pragma unroll
+        for (int w = 0; w < W; ++w) f[w] *= scale[w];
+        *reinterpret_cast<Raw*>(o + off) = Ch::pack(f);
+      }
+    }
+  }
+}
+
+// How a call is cut, as chosen by nchw_plan: the pixel vector (W > 1),
+// the channel grouping of the rows kernel (NC > 1), the planes kept in
+// registers, and R = 1 << r_log2 lanes a run.
+struct NchwPlan {
+  bool pix_vec, chan_vec, cached;
+  int r_log2;
+};
+
+template <typename T>
+NchwPlan nchw_plan(const void* x, const void* o, int c, long long hw) {
+  constexpr int V = 16 / sizeof(T);
+  const uintptr_t both =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o);
+  NchwPlan p;
+  p.pix_vec = (hw * static_cast<long long>(sizeof(T))) % 16 == 0 &&
+              both % 16 == 0;
+  p.chan_vec = (static_cast<size_t>(c) * sizeof(T)) % 16 == 0;
+  const int nc = p.chan_vec ? V : 1;
+  const int groups = c / nc;
+  p.cached = groups <= 32 * (kNchwCached / nc);
+  p.r_log2 = 0;
+  while ((1 << p.r_log2) < groups && p.r_log2 < 5) ++p.r_log2;
+  return p;
+}
+
+template <typename T, int W, int NC, bool CACHED>
+void run_nchw(const void* x, void* o, long long n, int c, long long hw,
+              int r_log2, int warps, float eps, cudaStream_t stream) {
+  const long long per_image = (hw + W - 1) / W;
+  const long long runs = n * per_image;
+  const long long per_block = static_cast<long long>(warps) << (5 - r_log2);
+  const unsigned blocks =
+      static_cast<unsigned>((runs + per_block - 1) / per_block);
+  pixel_norm_nchw_kernel<T, W, NC, CACHED><<<blocks, 32 * warps, 0,
+                                              stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(o), runs, per_image, hw, c,
+      c / NC, r_log2, eps);
+}
+
+template <typename T, int W, int NC>
+void run_nchw(const NchwPlan& p, const void* x, void* o, long long n, int c,
+              long long hw, int warps, float eps, cudaStream_t stream) {
+  if (p.cached) {
+    run_nchw<T, W, NC, true>(x, o, n, c, hw, p.r_log2, warps, eps, stream);
+  } else {
+    run_nchw<T, W, NC, false>(x, o, n, c, hw, p.r_log2, warps, eps, stream);
+  }
+}
+
+template <typename T>
+int launch_nchw(const void* x, void* o, long long n, int c, long long hw,
+                int warps, float eps, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const NchwPlan p = nchw_plan<T>(x, o, c, hw);
+  if (p.pix_vec && p.chan_vec) {
+    run_nchw<T, V, V>(p, x, o, n, c, hw, warps, eps, stream);
+  } else if (p.pix_vec) {
+    run_nchw<T, V, 1>(p, x, o, n, c, hw, warps, eps, stream);
+  } else if (p.chan_vec) {
+    run_nchw<T, 1, V>(p, x, o, n, c, hw, warps, eps, stream);
+  } else {
+    run_nchw<T, 1, 1>(p, x, o, n, c, hw, warps, eps, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, o: (rows, c) contiguous, the same dtype.
@@ -245,4 +459,41 @@ extern "C" int ganlab_pixel_norm(const void* x, void* o, long long rows,
     case 2: return launch<__half>(x, o, rows, c, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// x, o: (n, c, hw) contiguous (NCHW with hw = H * W), the same dtype;
+// normalizes over c for each (image, pixel). warps: the warps of a block,
+// a power of two up to kNchwMaxWarps; 0 takes kNchwWarps.
+extern "C" int ganlab_pixel_norm_nchw(const void* x, void* o, long long n,
+                                      int c, long long hw, float eps,
+                                      int dtype, int warps, int device,
+                                      void* stream) {
+  if (warps == 0) warps = kNchwWarps;
+  if (n <= 0 || c <= 0 || hw <= 0 || n * hw > 0x7fffffffLL ||
+      warps < 1 || warps > kNchwMaxWarps || (warps & (warps - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_nchw<float>(x, o, n, c, hw, warps, eps, s);
+    case 1: return launch_nchw<__nv_bfloat16>(x, o, n, c, hw, warps, eps, s);
+    case 2: return launch_nchw<__half>(x, o, n, c, hw, warps, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The plan ganlab_pixel_norm_nchw takes for these pointers and sizes:
+// bit 0 pixel vector, bit 1 channel vector, bit 2 cached, bits 3-5 the
+// log2 of the lanes a run; -1 for an unknown dtype.
+extern "C" int ganlab_pixel_norm_nchw_plan(const void* x, const void* o,
+                                           int c, long long hw, int dtype) {
+  NchwPlan p;
+  switch (dtype) {
+    case 0: p = nchw_plan<float>(x, o, c, hw); break;
+    case 1: p = nchw_plan<__nv_bfloat16>(x, o, c, hw); break;
+    case 2: p = nchw_plan<__half>(x, o, c, hw); break;
+    default: return -1;
+  }
+  return (p.pix_vec ? 1 : 0) | (p.chan_vec ? 2 : 0) | (p.cached ? 4 : 0) |
+         (p.r_log2 << 3);
 }

@@ -2,9 +2,9 @@
 
 Port of ``ganlab_tpu/learners.py``: each learner is a thin veneer over the
 ``Trainer`` with train / checkpoint / sample methods, for users who come
-from the reference's ``StyleGANLearner`` objects. ``StyleGANLearner`` runs;
-``ProGANLearner`` and ``ResNetGANLearner`` raise until their generators are
-ported (ROADMAP.md A.4).
+from the reference's ``ResNetGANLearner`` / ``ProGANLearner`` /
+``StyleGANLearner`` objects (defaults: ``resnetgan-cifar10``,
+``progan-128``, ``stylegan-256``).
 """
 
 from __future__ import annotations
@@ -20,14 +20,9 @@ class Learner:
 
     DEFAULT_PRESET: str = "stylegan-256"
     MODEL: str | None = None
-    PORTED: bool = True
 
     def __init__(self, config: Config | None = None, workdir: str = ".",
                  device: str | torch.device = "cuda", **overrides):
-        if not self.PORTED:
-            raise NotImplementedError(
-                f"{type(self).__name__}: the {self.MODEL} generator is not "
-                "ported to PyTorch yet (ROADMAP.md A.4)")
         if config is None:
             config = get_config(self.DEFAULT_PRESET, **overrides)
         elif overrides:
@@ -78,13 +73,11 @@ class Learner:
 class ResNetGANLearner(Learner):
     DEFAULT_PRESET = "resnetgan-cifar10"
     MODEL = "resnetgan"
-    PORTED = False
 
 
 class ProGANLearner(Learner):
     DEFAULT_PRESET = "progan-128"
     MODEL = "progan"
-    PORTED = False
 
 
 class StyleGANLearner(Learner):

@@ -1,4 +1,4 @@
-"""Model zoo of the PyTorch port (the StyleGAN family's G and D so far)."""
+"""Model zoo of the PyTorch port: ResNet-GAN, ProGAN and StyleGAN pairs."""
 
 from ganlab_tpu_torch.models.layers import (
     ConstInput,
@@ -7,30 +7,49 @@ from ganlab_tpu_torch.models.layers import (
     NoiseInjection,
     StyleAffine,
 )
-from ganlab_tpu_torch.models.progan import ProDiscriminator
+from ganlab_tpu_torch.models.progan import ProDiscriminator, ProGenerator
+from ganlab_tpu_torch.models.resnetgan import (
+    ResNetDiscriminator,
+    ResNetGenerator,
+)
 from ganlab_tpu_torch.models.stylegan import (
     MappingNetwork,
     StyleGenerator,
     SynthesisNetwork,
 )
 
+_GENERATORS = {"resnetgan": ResNetGenerator, "progan": ProGenerator,
+               "stylegan": StyleGenerator}
 
-def _require_stylegan(model_cfg) -> None:
-    if model_cfg.model != "stylegan":
+
+def _family(model_cfg) -> str:
+    name = model_cfg.model
+    if name == "stylegan2":
         raise NotImplementedError(
-            f"model {model_cfg.model!r} is not ported to PyTorch yet "
-            "(only 'stylegan'; ROADMAP.md A.4)")
+            "model 'stylegan2' is not ported to PyTorch yet (ROADMAP.md A.5)")
+    if name not in _GENERATORS:
+        raise ValueError(f"unknown model {name!r}")
+    return name
 
 
-def build_generator(model_cfg) -> StyleGenerator:
-    """The generator of a ModelConfig (the StyleGAN family only, so far)."""
-    _require_stylegan(model_cfg)
-    return StyleGenerator(model_cfg)
+def is_style(model_cfg) -> bool:
+    """Whether the family's generator maps z to w (mapping + synthesis):
+    its callers mix styles, draw noise, truncate and keep a w-average."""
+    return model_cfg.model in ("stylegan", "stylegan2")
 
 
-def build_models(model_cfg) -> tuple[StyleGenerator, ProDiscriminator]:
+def build_generator(model_cfg):
+    """The generator of a ModelConfig."""
+    return _GENERATORS[_family(model_cfg)](model_cfg)
+
+
+def build_models(model_cfg):
     """The (generator, discriminator) pair of a ModelConfig, as
-    ``ganlab_tpu.models.build_models`` builds it for 'stylegan'."""
-    _require_stylegan(model_cfg)
-    return (StyleGenerator(model_cfg),
-            ProDiscriminator(model_cfg, blur_resample=True))
+    ``ganlab_tpu.models.build_models`` pairs them: the ResNet D with the
+    ResNet G, the ProGAN D (average-pool blocks) with the ProGAN G, and the
+    ProGAN D with blur + downsample blocks with the StyleGAN G."""
+    name = _family(model_cfg)
+    g = _GENERATORS[name](model_cfg)
+    if name == "resnetgan":
+        return g, ResNetDiscriminator(model_cfg)
+    return g, ProDiscriminator(model_cfg, blur_resample=name == "stylegan")

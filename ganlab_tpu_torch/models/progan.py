@@ -1,8 +1,10 @@
-"""ProGAN discriminator (Karras et al. 2017), NCHW.
+"""ProGAN generator and discriminator (Karras et al. 2017), NCHW.
 
-Port of the discriminator half of ``ganlab_tpu/models/progan.py`` with the
-flax parameter names, so ``convert.from_flax`` maps one tree onto the
-other: ``fromrgb{R}`` (1x1 conv per resolution R), ``block{R}.conv0`` /
+Port of ``ganlab_tpu/models/progan.py`` with the flax parameter names, so
+``convert.from_flax`` maps one tree onto the other. Generator:
+``block4.dense`` / ``block4.conv`` (the 4x4 input block), ``block{R}.conv0``
+/ ``.conv1`` (R = 8 .. resolution) and ``torgb{R}``. Discriminator:
+``fromrgb{R}`` (1x1 conv per resolution R), ``block{R}.conv0`` /
 ``block{R}.conv1`` (R = 8 .. resolution) and ``block4_out.conv`` /
 ``.dense`` / ``.score``. Every resolution's head and block exists up front;
 the current resolution is a call argument, and a fade phase blends in the
@@ -14,14 +16,23 @@ branch; ``fade=`` says whether it runs, else it is skipped exactly when
 [1,2,1] blur + 2x downsample (``ops.blur_downsample_2x``) instead of the
 2x2 average pool. The output block's flatten runs over NHWC order (h, w,
 c), as the JAX package's reshape does, so the dense weight converts as it
-is. ``model.remat`` recomputes each block's activations in the backward
-pass (``torch.utils.checkpoint``; R1's double backward passes through
-it), as the JAX package wraps ``DBlock`` in ``nn.remat``. The JAX
-package's TPU knob ``fold_width`` and the ResNet variant ``d_resnet`` are
+is. The generator normalizes z over its last axis and every feature map
+over its channels (``pixel_norm(x, dim=1)``, where the JAX package takes
+the last axis of NHWC); its input block's dense output is reshaped in the
+JAX package's (h, w, c) order and then permuted to NCHW, the mirror of the
+D's flatten, so the dense weight converts as it is too.
+
+``model.remat`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``; R1's and WGAN-GP's double backward passes
+through it), as the JAX package wraps ``GBlock`` and ``DBlock`` in
+``nn.remat``. The JAX package's TPU knobs ``fold_width`` and
+``fused_up_conv`` and the ResNet variant of the D ``d_resnet`` are
 rejected.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -35,6 +46,8 @@ from ganlab_tpu_torch.ops import (
     fade_in,
     leaky_relu,
     minibatch_stddev,
+    pixel_norm,
+    upsample_nearest_2x,
 )
 
 
@@ -51,6 +64,101 @@ def takes_fade_branch(alpha, fade: bool | None) -> bool:
     bit); with ``fade=None`` the branch is skipped exactly when alpha is
     the Python constant 1.0."""
     return not static_stable(alpha) if fade is None else bool(fade)
+
+
+def reject_tpu_knobs(cfg: ModelConfig, knobs=("fold_width",
+                                               "fused_up_conv")) -> None:
+    """Raise on the JAX package's TPU layout knobs."""
+    for knob in knobs:
+        if getattr(cfg, knob):
+            raise NotImplementedError(
+                f"model.{knob} is a TPU-only knob of the JAX package; the "
+                "PyTorch port does not implement it")
+
+
+def _checkpointed(block: nn.Module, x: torch.Tensor, remat: bool):
+    """``block(x)``, its activations recomputed in the backward when
+    ``remat`` (and autograd records)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(x)
+
+
+class GBlock(nn.Module):
+    """One generator block: nearest 2x up -> 2x (conv3x3 + lrelu + PN)."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.conv0 = EqualConv(in_ch, features, 3)
+        self.conv1 = EqualConv(features, features, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv0(upsample_nearest_2x(x))
+        x = pixel_norm(leaky_relu(x), dim=1)
+        return pixel_norm(leaky_relu(self.conv1(x)), dim=1)
+
+
+class GInputBlock(nn.Module):
+    """4x4 input block: PN(z) -> dense(4*4*nf) -> PN -> conv3x3 -> PN."""
+
+    def __init__(self, latent_dim: int, features: int):
+        super().__init__()
+        self.features = features
+        self.dense = EqualDense(latent_dim, features * 16,
+                                gain=math.sqrt(2.0) / 4.0)
+        self.conv = EqualConv(features, features, 3)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.dense(pixel_norm(z))
+        # (h, w, c) order as the JAX reshape, then NCHW
+        x = x.reshape(x.shape[0], 4, 4, self.features) \
+            .permute(0, 3, 1, 2).contiguous()
+        x = pixel_norm(leaky_relu(x), dim=1)
+        return pixel_norm(leaky_relu(self.conv(x)), dim=1)
+
+
+class ProGenerator(nn.Module):
+    """Progressive generator: ``g(z, res_log2, alpha)`` -> (N, C, 2^lg,
+    2^lg) images in z's dtype (no output activation, as in the JAX
+    package). A fade phase blends in the previous resolution's toRGB,
+    upsampled nearest 2x, with weight ``alpha`` (``fade``: as in
+    ``ProDiscriminator.forward``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        reject_tpu_knobs(cfg)
+        self.cfg = cfg
+        self.remat = cfg.remat
+        self.max_log2 = cfg.res_log2
+        self.block4 = GInputBlock(cfg.latent_dim, cfg.nf(1))
+        for lg in range(3, self.max_log2 + 1):
+            self.add_module(f"block{2 ** lg}",
+                            GBlock(cfg.nf(lg - 2), cfg.nf(lg - 1)))
+        for lg in range(2, self.max_log2 + 1):
+            self.add_module(f"torgb{2 ** lg}", EqualConv(
+                cfg.nf(lg - 1), cfg.img_channels, 1, gain=1.0))
+
+    def forward(self, z: torch.Tensor, res_log2: int | None = None,
+                alpha: float = 1.0, fade: bool | None = None
+                ) -> torch.Tensor:
+        lg = self.max_log2 if res_log2 is None else res_log2
+        if not 2 <= lg <= self.max_log2:
+            raise ValueError(f"res_log2 {lg} outside [2, {self.max_log2}]")
+        x = self.block4(z)
+        if lg == 2:
+            return self.torgb4(x)
+        prev = x
+        for stage in range(3, lg + 1):
+            prev = x
+            x = _checkpointed(getattr(self, f"block{2 ** stage}"), x,
+                              self.remat)
+        new_rgb = getattr(self, f"torgb{2 ** lg}")(x)
+        if not takes_fade_branch(alpha, fade):
+            return new_rgb
+        old_rgb = upsample_nearest_2x(
+            getattr(self, f"torgb{2 ** (lg - 1)}")(prev))
+        return fade_in(alpha, new_rgb, old_rgb)
 
 
 class DBlock(nn.Module):
@@ -92,12 +200,11 @@ class ProDiscriminator(nn.Module):
 
     def __init__(self, cfg: ModelConfig, blur_resample: bool = False):
         super().__init__()
-        for knob in ("fold_width", "d_resnet"):
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"model.{knob} is not ported to PyTorch (fold_width is "
-                    "a TPU knob of the JAX package; the ResNet D comes "
-                    "with StyleGAN2, ROADMAP.md A.5)")
+        reject_tpu_knobs(cfg, ("fold_width",))
+        if cfg.d_resnet:
+            raise NotImplementedError(
+                "model.d_resnet is not ported to PyTorch yet: the ResNet D "
+                "comes with StyleGAN2 (ROADMAP.md A.5)")
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         for lg in range(2, self.max_log2 + 1):
@@ -129,8 +236,4 @@ class ProDiscriminator(nn.Module):
         return self.block4_out(x)
 
     def _block(self, lg: int, x: torch.Tensor) -> torch.Tensor:
-        block = getattr(self, f"block{2 ** lg}")
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, use_reentrant=False,
-                              preserve_rng_state=False)
-        return block(x)
+        return _checkpointed(getattr(self, f"block{2 ** lg}"), x, self.remat)

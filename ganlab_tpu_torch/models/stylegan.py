@@ -34,7 +34,10 @@ from ganlab_tpu_torch.models.layers import (
     NoiseInjection,
     StyleAffine,
 )
-from ganlab_tpu_torch.models.progan import takes_fade_branch
+from ganlab_tpu_torch.models.progan import (
+    reject_tpu_knobs,
+    takes_fade_branch,
+)
 from ganlab_tpu_torch.ops import (
     adain,
     fade_in,
@@ -138,11 +141,7 @@ class SynthesisNetwork(nn.Module):
 
     def __init__(self, cfg: ModelConfig, blur: bool = True):
         super().__init__()
-        for knob in ("fold_width", "fused_up_conv"):
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"model.{knob} is a TPU-only knob of the JAX package; "
-                    "the PyTorch port does not implement it")
+        reject_tpu_knobs(cfg)
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         w_dim = cfg.latent_dim

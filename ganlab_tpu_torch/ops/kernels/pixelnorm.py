@@ -1,33 +1,45 @@
-"""PixelNorm ``x * rsqrt(mean(x^2, last axis) + eps)``: CUDA C++ + plain.
+"""PixelNorm ``x * rsqrt(mean(x^2, C) + eps)``: CUDA C++ + plain.
 
 Replaces ``ganlab_tpu/ops/pallas/pixelnorm.py::pixel_norm_pallas``
-(``_rows_call`` / ``_fwd_kernel``). On the serving path it normalizes the
-mapping network's input z, (batch, latent); a training step normalizes the
-two latents of its mixing pass as one (2 batch, latent) tensor.
+(``_rows_call`` / ``_fwd_kernel``) at both of its call sites:
 
-Bound: memory. One read and one write of (rows, C), about 3 flops per
-element, so the least time is the bytes over 3.35 TB/s. At (32, 512) that
-is 64 KB, a microsecond or two on the card: what a caller waits for is the
-host's time to make the launch.
+* the last axis of (rows, C): the mapping network's input z, (batch,
+  latent) on the serving path; a StyleGAN training step normalizes the two
+  latents of its mixing pass as one (2 batch, latent) tensor; the ProGAN
+  generator's z;
+* the channel axis of NCHW feature maps (``dim=1``): every activation of
+  the ProGAN generator, (N, nf, H, W) from 4x4 to the model's resolution,
+  which the JAX package flattens from NHWC to (N*H*W, C) rows.
+
+Bound: memory. One read and one write, about 3 flops per element, so the
+least time is the bytes over 3.35 TB/s. At (32, 512) that is 64 KB, a
+microsecond or two on the card: what a caller waits for is the host's time
+to make the launch. progan-128's 128x128 block, (8, 128, 128, 128) bf16, is
+33.6 MB each way: about 0.020 ms.
 
 What limited the first design: it was a Triton kernel, and Triton's Python
 launcher specialises the arguments and looks the compiled kernel up on
 every call, which together with the wrapper's own work took the host
 longer than PyTorch's dispatcher needs for ``F.rms_norm``.
 
-Design: the kernel is ``csrc/pixelnorm.cu`` (one warp per row, 16-byte
-loads, the row kept in registers, the sum of squares by warp shuffles, no
-shared memory), built by ``_build`` with nvcc and called through its plain
-C interface. The wrapper does as little as it can per call: the ``ctypes``
-function with its argument types is looked up once, the C function itself
-switches device (only when the tensor is not on the current one), and the
-stream handle is read without building a Stream object. Output in the input's
-dtype.
+Design: both kernels are in ``csrc/pixelnorm.cu``, built by ``_build`` with
+nvcc and called through their plain C interface. Rows: one warp per row,
+16-byte loads, the row kept in registers, the sum of squares by warp
+shuffles, no shared memory. NCHW: a run of 16 bytes of pixels of one image,
+its C planes split between the lanes of a warp and kept in registers, the
+per-pixel sums reduced by shuffles in the rows kernel's order (so the two
+give the same bits on the same values); nothing is permuted. The wrapper
+does as little as it can per call: each ``ctypes`` function with its
+argument types is looked up once, the C function itself switches device
+(only when the tensor is not on the current one), and the stream handle is
+read without building a Stream object. Output in the input's dtype.
 
-``PixelNorm`` is the autograd Function: forward is the kernel (CUDA) or
-the plain version (CPU); backward is the analytic VJP of the JAX package's
-``pixelnorm.py::_pn_bwd`` in plain PyTorch (that package's backward kernel
-is never called).
+``PixelNorm`` is the autograd Function for both (``dim`` -1 or 1): forward
+is the kernel (CUDA) or the plain version (CPU); backward is the analytic
+VJP of the JAX package's ``pixelnorm.py::_pn_bwd`` in plain PyTorch (that
+package's backward kernel is never called). Both wrappers add to
+``pixel_norm_cuda.launches`` (the kernel's count);
+``pixel_norm_nchw_cuda.launches`` counts the channel path alone.
 """
 
 from __future__ import annotations
@@ -43,66 +55,123 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
-def _fn():
-    """The C function, looked up and given its argument types once."""
-    fn = _build.library("pixelnorm").lib.ganlab_pixel_norm
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+def _fn(symbol: str = "ganlab_pixel_norm"):
+    """A C function of the library, given its argument types once."""
+    fn = getattr(_build.library("pixelnorm").lib, symbol)
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    fn.argtypes = {
+        "ganlab_pixel_norm": [p, p, ll, i, f, i, i, p],
+        "ganlab_pixel_norm_nchw": [p, p, ll, i, ll, f, i, i, i, p],
+        "ganlab_pixel_norm_nchw_plan": [p, p, i, ll, i]}[symbol]
     fn.restype = ctypes.c_int
     return fn
 
 
-def pixel_norm_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Plain version: float32 math (float64 for float64 input) over the
-    last axis, output in x's dtype."""
+def _axis(dim: int) -> int:
+    if dim not in (-1, 1):
+        raise ValueError(f"pixel_norm: dim must be -1 (rows) or 1 (the "
+                         f"channels of NCHW), got {dim}")
+    return dim
+
+
+def pixel_norm_ref(x: torch.Tensor, eps: float = 1e-8,
+                   dim: int = -1) -> torch.Tensor:
+    """Plain version: float32 math (float64 for float64 input) over axis
+    ``dim``, output in x's dtype."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    ms = xf.square().mean(dim=-1, keepdim=True)
+    ms = xf.square().mean(dim=_axis(dim), keepdim=True)
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
 
 
-def pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor,
-                   eps: float = 1e-8) -> torch.Tensor:
-    """VJP of pixel_norm at x for cotangent g (last axis)."""
+def pixel_norm_nchw_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Plain version over the channels of NCHW x."""
+    return pixel_norm_ref(x, eps, dim=1)
+
+
+def pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-8,
+                   dim: int = -1) -> torch.Tensor:
+    """VJP of pixel_norm over axis ``dim`` at x for cotangent g."""
     dt = torch.promote_types(x.dtype, torch.float32)
     xf, gf = x.to(dt), g.to(dt)
-    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    prod = (gf * xf).mean(dim=-1, keepdim=True)
+    dim = _axis(dim)
+    r = torch.rsqrt(xf.square().mean(dim=dim, keepdim=True) + eps)
+    prod = (gf * xf).mean(dim=dim, keepdim=True)
     return (r * (gf - xf * prod * (r * r))).to(x.dtype)
 
 
+def _raise_on(err: int, what: str, x: torch.Tensor) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"at shape {tuple(x.shape)}")
+
+
 def pixel_norm_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Launch the kernel on a contiguous CUDA (rows, C) tensor."""
+    """Launch the rows kernel on a contiguous CUDA (rows, C) tensor."""
     check_input("pixel_norm", x, ndim=2, dtypes=_DTYPE_CODE)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     rows, c = x.shape
     index = x.device.index
-    err = _fn()(x.data_ptr(), out.data_ptr(), rows, c, eps,
-                _DTYPE_CODE[x.dtype], index, stream_handle(index))
-    if err != 0:
-        raise RuntimeError(f"pixel_norm kernel launch failed: CUDA error "
-                           f"{err} at shape {tuple(x.shape)}")
+    _raise_on(_fn()(x.data_ptr(), out.data_ptr(), rows, c, eps,
+                    _DTYPE_CODE[x.dtype], index, stream_handle(index)),
+              "pixel_norm", x)
     pixel_norm_cuda.launches += 1
     return out
 
 
+def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8,
+                         warps: int = 0) -> torch.Tensor:
+    """Launch the channel kernel on a contiguous CUDA (N, C, H, W) tensor.
+    ``warps``: the warps of a thread block (1, 2, 4, 8 or 16; 0 takes the
+    kernel's own choice), for measuring the alternatives."""
+    check_input("pixel_norm_nchw", x, ndim=4, dtypes=_DTYPE_CODE)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    n, c, h, w = x.shape
+    index = x.device.index
+    _raise_on(_fn("ganlab_pixel_norm_nchw")(
+        x.data_ptr(), out.data_ptr(), n, c, h * w, eps,
+        _DTYPE_CODE[x.dtype], warps, index, stream_handle(index)),
+        "pixel_norm_nchw", x)
+    pixel_norm_cuda.launches += 1
+    pixel_norm_nchw_cuda.launches += 1
+    return out
+
+
 pixel_norm_cuda.launches = 0
+pixel_norm_nchw_cuda.launches = 0
+
+
+def pixel_norm_nchw_path(x: torch.Tensor, out: torch.Tensor) -> str:
+    """The plan the channel kernel takes for these tensors (as the C
+    library chooses it): pixel and channel vectors, whether the planes
+    stay in registers, and the lanes that share a run."""
+    plan = _fn("ganlab_pixel_norm_nchw_plan")(
+        x.data_ptr(), out.data_ptr(), x.shape[1],
+        x.shape[2] * x.shape[3], _DTYPE_CODE[x.dtype])
+    return (f"{'vector' if plan & 1 else 'element'} pixels, "
+            f"{'vector' if plan & 2 else 'single'} channel groups, "
+            f"{'cached' if plan & 4 else 'two reads'}, "
+            f"{1 << (plan >> 3)} lanes a run")
 
 
 class PixelNorm(torch.autograd.Function):
-    """Differentiable pixelnorm over the last axis of (rows, C)."""
+    """Differentiable pixelnorm over the last axis of (rows, C)
+    (``dim=-1``) or over the channels of (N, C, H, W) (``dim=1``)."""
 
     @staticmethod
-    def forward(ctx, x, eps=1e-8):
+    def forward(ctx, x, eps=1e-8, dim=-1):
         ctx.save_for_backward(x)
-        ctx.eps = eps
+        ctx.eps, ctx.dim = eps, _axis(dim)
         if x.device.type == "cpu":
-            return pixel_norm_ref(x, eps)
-        return pixel_norm_cuda(x.contiguous(), eps)
+            return pixel_norm_ref(x, eps, dim)
+        launch = pixel_norm_cuda if dim == -1 else pixel_norm_nchw_cuda
+        return launch(x.contiguous(), eps)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return pixel_norm_bwd(x, g, ctx.eps), None
+        return pixel_norm_bwd(x, g, ctx.eps, ctx.dim), None, None

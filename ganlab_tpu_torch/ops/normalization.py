@@ -14,10 +14,20 @@ from ganlab_tpu_torch.ops.kernels.adain import AdaIN
 from ganlab_tpu_torch.ops.kernels.pixelnorm import PixelNorm
 
 
-def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """x * rsqrt(mean(x^2, last axis) + eps), e.g. on (N, latent) z."""
+def pixel_norm(x: torch.Tensor, eps: float = 1e-8,
+               dim: int = -1) -> torch.Tensor:
+    """x * rsqrt(mean(x^2, axis dim) + eps).
+
+    ``dim=-1``: the last axis, e.g. of (N, latent) z (the JAX package's
+    only layout). ``dim=1``: the channels of NCHW feature maps (N, C, H,
+    W), where the JAX package normalizes the last axis of NHWC."""
+    if dim == 1 and x.dim() == 4:
+        return PixelNorm.apply(x, eps, 1)
+    if dim not in (-1, x.dim() - 1):
+        raise ValueError(f"pixel_norm: dim {dim} of a {x.dim()}-d tensor; "
+                         "takes the last axis or dim=1 of NCHW")
     c = x.shape[-1]
-    return PixelNorm.apply(x.reshape(-1, c), eps).reshape(x.shape)
+    return PixelNorm.apply(x.reshape(-1, c), eps, -1).reshape(x.shape)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

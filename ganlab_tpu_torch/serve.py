@@ -21,7 +21,10 @@ and zero noise scales, both packages give the same images.
 The sampler takes a training ``workdir`` (the G-EMA and w-average of its
 latest checkpoint), a live ``TrainState`` (``state=``), or the G-EMA
 parameters directly (``params=``, a port ``state_dict`` or a flax numpy
-tree, converted on entry, with ``w_avg=``): exactly one of the three.
+tree, converted on entry, with ``w_avg=`` for the style families): exactly
+one of the three. ProGAN and ResNet-GAN have no w-average and no
+truncation: their sampler maps z straight to images, under the same
+contract.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 
 from ganlab_tpu_torch.config import Config
 from ganlab_tpu_torch.convert import from_flax, is_flax_tree
-from ganlab_tpu_torch.models import build_generator
+from ganlab_tpu_torch.models import build_generator, is_style
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.utils.image import save_image_grid, to_uint8
 from ganlab_tpu_torch.utils.latents import slerp
@@ -80,7 +83,9 @@ class BatchSampler:
                       for k, v in state.g_ema.state_dict().items()}
             w_avg = state.w_avg.detach().clone()
         elif w_avg is None:
-            raise ValueError("params= needs w_avg=")
+            if is_style(cfg.model):
+                raise ValueError("params= of a style family needs w_avg=")
+            w_avg = torch.zeros(cfg.model.latent_dim)
         self.cfg = cfg
         self.device = torch.device(device)
         self.batch_size = int(batch_size)

@@ -1,6 +1,7 @@
 """The training state: G, D, G-EMA, two Adams, w-average, counters, RNG.
 
-Port of ``ganlab_tpu/train/state.py``. The JAX package keeps an immutable
+Port of ``ganlab_tpu/train/state.py``, for every ported family (ResNet-GAN,
+ProGAN, StyleGAN). The JAX package keeps an immutable
 pytree that a jitted step maps to a new one; here ``TrainState`` holds the
 modules and optimizers, and a step updates them in place and returns the
 same object. Parameters stay float32; every random draw of a step comes
@@ -16,18 +17,18 @@ import torch
 
 from ganlab_tpu_torch.config import Config
 from ganlab_tpu_torch.models import build_models
-from ganlab_tpu_torch.models.progan import ProDiscriminator
-from ganlab_tpu_torch.models.stylegan import StyleGenerator
 
 
 @dataclasses.dataclass
 class TrainState:
-    g: StyleGenerator
-    d: ProDiscriminator
-    g_ema: StyleGenerator           # no grad; updated by the step
+    g: torch.nn.Module              # the generator of any family
+    d: torch.nn.Module
+    g_ema: torch.nn.Module          # no grad; updated by the step
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     w_avg: torch.Tensor             # (latent_dim,) float32 running W mean
+                                    # (kept, and left at 0, for the
+                                    # families without a mapping network)
     generator: torch.Generator      # the step's random draws
     step: int = 0                   # optimizer-step counter
     shown_imgs: int = 0             # images shown so far

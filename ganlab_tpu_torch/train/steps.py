@@ -1,32 +1,42 @@
-"""The sequential G/D training step with lazy R1, on PyTorch.
+"""The sequential G/D training step with lazy regularization, on PyTorch.
 
 Port of the sequential branch of ``ganlab_tpu/train/steps.py``
-(``build_train_step`` with ``make_lazy_stepper``). One step:
+(``build_train_step`` with ``make_lazy_stepper``), for every ported family.
+One step:
 
 1. real uint8 NHWC batch -> NCHW [-1, 1] in the compute dtype, with a
    per-sample horizontal flip (``_preprocess``);
 2. D update: a fake batch from G (no grad), D on real and on fake, the
-   loss, and on a penalty step R1 through a double backward of D (a third
-   D forward, on the real batch); loss + penalty minimized with one
-   backward and one Adam step;
+   loss, and on a penalty step R1 or WGAN-GP through a double backward of
+   D (a third D forward, on the real batch or on the interpolates), plus
+   the drift term where ``loss.drift_weight`` is set; loss + penalty
+   minimized with one backward and one Adam step;
 3. G update against the updated D, differentiating only G's parameters;
-4. G-EMA with ``optim.ema_beta_for(batch)`` and the running w-average;
+4. G-EMA with ``optim.ema_beta_for(batch)`` and, for the style families,
+   the running w-average;
 5. counters.
+
+The generator forward of the style families maps concat([z1, z2]) once,
+mixes styles and draws noise; ProGAN and ResNet-GAN map z straight to
+images. n-critic (``loss.d_steps_per_g`` = n > 1): D is updated every step,
+G, G-EMA and the w-average only on steps with ``state.step % n == n - 1``,
+and ``g_loss`` reads 0 on the others (the JAX package's ``lax.cond``).
 
 In a fade phase alpha = clip((shown - phase start) / fade images, 0, 1) from
 the state's shown-image count before the step, one value for the D step,
-R1's critic and the G step, and every forward of G and D takes the fade
-branch, whatever alpha's value.
+the penalty's critic and the G step, and every forward of G and D takes
+the fade branch, whatever alpha's value.
 
 The host picks one of two step functions per step (lazy regularization,
 ``loss.penalty_every`` = k): the penalty step, weight x k, every k-th step,
 and the step without it otherwise. Every random draw (latents, mixing,
-crossover, noise maps, flip mask) comes from the state's generator, or is
-injected through ``draws=`` (``StepDraws``), which the parity tests use.
+crossover, noise maps, flip mask, WGAN-GP interpolation) comes from the
+state's generator, or is injected through ``draws=`` (``StepDraws``),
+which the parity tests use.
 
 Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
 A): the fused steps, two-phase regularization, path-length
-regularization, augmentation, gradient accumulation and n-critic. Entry:
+regularization, augmentation and gradient accumulation. Entry:
 ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
 ``stepper(state, real_u8)``.
 """
@@ -40,6 +50,7 @@ import numpy as np
 import torch
 
 from ganlab_tpu_torch.config import Config
+from ganlab_tpu_torch.models import is_style
 from ganlab_tpu_torch.models.stylegan import (
     mix_styles,
     noise_shapes,
@@ -75,13 +86,15 @@ def _moved(obj, device):
 
 @dataclasses.dataclass
 class GenDraws:
-    """The random inputs of one generator forward."""
+    """The random inputs of one generator forward. The families without a
+    mapping network draw z1 only; the other fields stay None / empty."""
 
     z1: torch.Tensor                # (N, latent) compute dtype
-    z2: torch.Tensor                # (N, latent), the mixing latent
-    use_mix: torch.Tensor           # () bool, Bernoulli(style_mixing_prob)
-    cross: torch.Tensor             # () int64 crossover layer in [1, L)
-    noises: list                    # per style layer (N, 1, H, W)
+    z2: torch.Tensor | None = None  # (N, latent), the mixing latent
+    use_mix: torch.Tensor | None = None  # () bool, Bernoulli(mixing prob)
+    cross: torch.Tensor | None = None    # () int64 crossover in [1, L)
+    noises: list = dataclasses.field(default_factory=list)  # per style
+                                    # layer (N, 1, H, W)
 
 
 @dataclasses.dataclass
@@ -105,6 +118,8 @@ def draw_generator(cfg: Config, res_log2: int, batch: int,
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
+    if not is_style(cfg.model):
+        return GenDraws(normal(batch, zdim))
     z1, z2 = normal(batch, zdim), normal(batch, zdim)
     use_mix = torch.rand((), generator=gen, device=device) \
         < cfg.model.style_mixing_prob
@@ -151,9 +166,15 @@ def _ema_update(ema: torch.nn.Module, model: torch.nn.Module,
 def build_generator_forward(cfg: Config, res_log2: int) -> Callable:
     """(g, GenDraws, alpha, fade) -> (fake images NCHW, w_mean float32).
 
-    One mapping pass over concat([z1, z2]); with probability
-    ``style_mixing_prob`` (one draw per batch) the styles cross over from
-    w1 to w2 at the drawn layer; w_mean is the batch mean of w1."""
+    Style families: one mapping pass over concat([z1, z2]); with
+    probability ``style_mixing_prob`` (one draw per batch) the styles cross
+    over from w1 to w2 at the drawn layer; w_mean is the batch mean of w1.
+    The other families: z1 straight to images, w_mean None."""
+    if not is_style(cfg.model):
+        def plain_forward(g, dr: GenDraws, alpha, fade=None):
+            return g(dr.z1, res_log2, alpha, fade), None
+
+        return plain_forward
     nl = num_style_layers(res_log2)
 
     def forward(g, dr: GenDraws, alpha, fade=None):
@@ -176,11 +197,13 @@ def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
                      ("loss.reg_separate", lc.reg_separate),
                      ("loss.pl_weight > 0", lc.pl_weight > 0),
                      ("aug.mode (ADA)", cfg.aug_active),
-                     ("optim.grad_accum > 1", cfg.optim.grad_accum > 1),
-                     ("loss.d_steps_per_g > 1", lc.d_steps_per_g > 1)):
+                     ("optim.grad_accum > 1", cfg.optim.grad_accum > 1)):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP.md A)")
+    if cfg.pl_active and lc.d_steps_per_g > 1:
+        # the PL cadence would be independent of the G cadence
+        raise ValueError("loss.pl_weight > 0 requires d_steps_per_g == 1")
 
 
 def phase_alpha(phase: PhaseSpec, shown_imgs: int,
@@ -219,6 +242,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
     pen_weight = lc.penalty_weight * (
         lc.penalty_every if penalty_override is True else 1)
     fade = phase.kind == "fade"
+    style = is_style(cfg.model)
+    n_critic = max(1, lc.d_steps_per_g)
     w_beta = torch.tensor(cfg.model.w_avg_beta, dtype=torch.float32)
 
     def ema_beta(batch: int, shown: int) -> float:
@@ -273,23 +298,31 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         seed_new_moments(state.opt_d, state.step - state.opt_step0)
         state.opt_d.step()
 
-        # -- G step, against the updated D ---------------------------------
-        d.requires_grad_(False)
-        try:
-            fake, w_mean = gen_forward(g, draws.g, alpha, fade)
-            g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
-            state.opt_g.zero_grad(set_to_none=True)
-            g_loss.backward()
-        finally:
-            d.requires_grad_(True)
-        set_hparams(state.opt_g, hp_g)
-        seed_new_moments(state.opt_g, state.step - state.opt_step0)
-        state.opt_g.step()
+        # -- G step, against the updated D (every n-th step with n-critic)
+        if state.step % n_critic == n_critic - 1:
+            d.requires_grad_(False)
+            try:
+                fake, w_mean = gen_forward(g, draws.g, alpha, fade)
+                g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
+                state.opt_g.zero_grad(set_to_none=True)
+                g_loss.backward()
+            finally:
+                d.requires_grad_(True)
+            set_hparams(state.opt_g, hp_g)
+            # G's Adam count: the G updates since the moments began
+            seed_new_moments(state.opt_g, state.step // n_critic
+                             - state.opt_step0 // n_critic)
+            state.opt_g.step()
 
-        with torch.no_grad():
-            _ema_update(state.g_ema, g, ema_beta(batch, state.shown_imgs))
-            wb = w_beta.to(dev)
-            state.w_avg.copy_(state.w_avg * wb + w_mean * (1.0 - wb))
+            with torch.no_grad():
+                _ema_update(state.g_ema, g,
+                            ema_beta(batch, state.shown_imgs))
+                if style:
+                    wb = w_beta.to(dev)
+                    state.w_avg.copy_(state.w_avg * wb
+                                      + w_mean * (1.0 - wb))
+        else:
+            g_loss = torch.zeros((), device=dev)
         state.step += 1
         state.shown_imgs += batch
         metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),

@@ -22,11 +22,13 @@ def lerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     return a + t * (b - a)
 
 
-def slerp(a: torch.Tensor, b: torch.Tensor, t: float,
+def slerp(a: torch.Tensor, b: torch.Tensor, t,
           eps: float = 1e-7) -> torch.Tensor:
     """Spherical interpolation — appropriate in Z space, where latents live
-    near the radius-sqrt(dim) sphere of the Gaussian prior. Falls back to
-    lerp when a and b are nearly parallel."""
+    near the radius-sqrt(dim) sphere of the Gaussian prior. ``t`` is a
+    number or a tensor that broadcasts against (..., 1). Falls back to lerp
+    when a and b are nearly parallel."""
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
     an = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + eps)
     bn = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + eps)
     dot = torch.clamp((an * bn).sum(dim=-1, keepdim=True), -1.0, 1.0)
@@ -34,9 +36,8 @@ def slerp(a: torch.Tensor, b: torch.Tensor, t: float,
     so = torch.sin(omega)
     safe = so > eps
     w_a = torch.where(safe, torch.sin((1.0 - t) * omega) / (so + eps),
-                      torch.full_like(so, 1.0 - t))
-    w_b = torch.where(safe, torch.sin(t * omega) / (so + eps),
-                      torch.full_like(so, t))
+                      1.0 - t)
+    w_b = torch.where(safe, torch.sin(t * omega) / (so + eps), t)
     return w_a * a + w_b * b
 
 

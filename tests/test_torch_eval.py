@@ -169,6 +169,8 @@ def test_cli_eval_fid(workdir, capsys):
         assert key in out
     assert cli.main(args) == 0
     assert "real-feature cache hit" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.2"):
-        cli.main(["eval-fid", "--workdir", workdir, "--device", "cpu",
-                  "--metrics", "fid,ppl"])
+    # PPL (w space, random VGG16) beside FID; tests/test_torch_ppl.py
+    assert cli.main(["eval-fid", "--workdir", workdir, "--device", "cpu",
+                     "--num-samples", "4", "--metrics", "fid,ppl"]) == 0
+    out = capsys.readouterr().out
+    assert "FID:" in out and "PPL:" in out

@@ -46,7 +46,10 @@ def test_package_imports_no_jax():
             "ganlab_tpu_torch.data.prepare",
             "ganlab_tpu_torch.data.stream_source",
             "ganlab_tpu_torch.eval.fid",
-            "ganlab_tpu_torch.eval.inception"} <= set(res["imported"])
+            "ganlab_tpu_torch.eval.inception",
+            "ganlab_tpu_torch.models.resnetgan",
+            "ganlab_tpu_torch.eval.lpips",
+            "ganlab_tpu_torch.eval.ppl"} <= set(res["imported"])
     bad = [m for m in res["modules"] if FORBIDDEN.match(m)]
     assert bad == [], bad
 

@@ -25,8 +25,11 @@ from ganlab_tpu_torch.ops.kernels.adain import (
     adain_ref,
 )
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
-    pixel_norm_ref,
     pixel_norm_cuda,
+    pixel_norm_nchw_cuda,
+    pixel_norm_nchw_path,
+    pixel_norm_nchw_ref,
+    pixel_norm_ref,
 )
 from ganlab_tpu_torch.ops.kernels.mbstd import (
     minibatch_stddev_cuda,
@@ -45,13 +48,14 @@ from ganlab_tpu_torch.ops.kernels.resample import (
 
 @pytest.mark.parametrize("launch,args", [
     (pixel_norm_cuda, lambda: (torch.ones(2, 8),)),
+    (pixel_norm_nchw_cuda, lambda: (torch.ones(2, 8, 4, 4),)),
     (adain_cuda, lambda: (torch.ones(2, 3, 4, 4), torch.ones(2, 3),
                             torch.ones(2, 3))),
     (upsample_blur_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
     (blur_downsample_2x_cuda, lambda: (torch.ones(1, 2, 4, 4),)),
     (minibatch_stddev_cuda, lambda: (torch.ones(4, 2, 4, 4),)),
-], ids=["pixelnorm", "adain", "upsample_blur_2x", "blur_downsample_2x",
-        "minibatch_stddev"])
+], ids=["pixelnorm", "pixelnorm_nchw", "adain", "upsample_blur_2x",
+        "blur_downsample_2x", "minibatch_stddev"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch, args):
     """A launching wrapper never computes a plain version itself."""
     before = launch.launches
@@ -273,6 +277,72 @@ def test_minibatch_stddev_paths_on_card(cuda, shape, path, dtype):
             torch.testing.assert_close(
                 minibatch_stddev_cuda(x, cluster=cluster), want, rtol=0,
                 atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,plan", [
+    ((16, 512, 4, 4), "vector pixels, vector channel groups, cached"),
+    ((4, 256, 16, 16), "vector pixels, vector channel groups, cached"),
+    ((2, 128, 32, 32), "vector pixels, vector channel groups, cached"),
+    ((3, 1000, 4, 8), "vector pixels, vector channel groups, two reads"),
+    ((2, 3, 8, 8), "vector pixels, single channel groups, cached"),
+    ((2, 512, 7, 7), "element pixels, vector channel groups, cached"),
+    ((3, 5, 1, 1), "element pixels, single channel groups, cached"),
+    ((2, 600, 3, 5), "element pixels, vector channel groups, two reads"),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple)
+    else v.split(",")[0].replace(" ", "-"))
+def test_pixel_norm_nchw_on_card(cuda, shape, plan, dtype):
+    """The channel kernel on each of its plans against the plain version
+    (float32 1e-5, bf16 2**-6, f16 2**-9 of the scale), also from an
+    unaligned pointer (element pixels) and with other block sizes, and bit
+    for bit against the rows kernel on the same values transposed to
+    (N*H*W, C)."""
+    tol = 1e-5 if dtype == torch.float32 else \
+        2 ** -6 if dtype == torch.bfloat16 else 2 ** -9
+    n, c, h, w = shape
+    with torch.inference_mode():
+        x = _randn(shape, dtype, 6, cuda) * 1.5
+        want = pixel_norm_nchw_ref(x)
+        out = pixel_norm_nchw_cuda(x)
+        if dtype == torch.float32:    # the plans of float32 listed above
+            assert pixel_norm_nchw_path(x, out).startswith(plan), \
+                pixel_norm_nchw_path(x, out)
+        atol = tol * want.abs().max().item()
+        torch.testing.assert_close(out, want, rtol=0, atol=atol)
+        rows = pixel_norm_cuda(
+            x.permute(0, 2, 3, 1).reshape(-1, c).contiguous())
+        assert torch.equal(out, rows.view(n, h, w, c).permute(0, 3, 1, 2))
+        xu = _unaligned_copy(x)
+        out_u = pixel_norm_nchw_cuda(xu)
+        assert pixel_norm_nchw_path(xu, out_u).startswith("element")
+        assert torch.equal(out_u, out)
+        for warps in (1, 2, 8, 16):     # other blocks, the same sums
+            assert torch.equal(pixel_norm_nchw_cuda(x, warps=warps), out)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pixel_norm_nchw_cuda(x, warps=3)
+
+
+@pytest.mark.gpu
+def test_pixel_norm_nchw_function_on_card(cuda):
+    """``pixel_norm(x, dim=1)`` launches the channel kernel (never the
+    rows kernel), and its gradient matches autograd through the plain
+    version (float32, 1e-5 of the scale)."""
+    from ganlab_tpu_torch import ops
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 64, 8, 8, generator=g, device=cuda,
+                    requires_grad=True)
+    rows0, nchw0 = pixel_norm_cuda.launches, pixel_norm_nchw_cuda.launches
+    out = ops.pixel_norm(x, dim=1)
+    assert pixel_norm_nchw_cuda.launches == nchw0 + 1
+    assert pixel_norm_cuda.launches == rows0 + 1      # the shared count
+    ct = torch.randn(out.shape, generator=g, device=cuda)
+    (got,) = torch.autograd.grad(out, x, ct)
+    (want,) = torch.autograd.grad(pixel_norm_nchw_ref(x), x, ct)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
 
 
 def _plain_ops():

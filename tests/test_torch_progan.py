@@ -88,7 +88,11 @@ def test_unported_d_knobs_are_rejected():
 
 
 def test_build_models_stylegan_only():
+    """The StyleGAN pair takes the blur + downsample D; ProGAN and
+    ResNet-GAN build too (tests/test_torch_resnetgan.py); only StyleGAN2
+    is still to port."""
     g, d = build_models(get_config("stylegan-256", **SMALL).model)
     assert isinstance(d, ProDiscriminator) and hasattr(g, "map_latents")
+    assert d.block8.blur
     with pytest.raises(NotImplementedError):
-        build_models(get_config("progan-64").model)
+        build_models(get_config("stylegan2-256").model)

@@ -354,7 +354,7 @@ def test_lazy_stepper_cadence_and_generator(world):
     {"loss.fused_seq": True}, {"loss.fused_g_step": True},
     {"loss.reg_separate": True}, {"loss.pl_weight": 2.0},
     {"aug.mode": "ada"}, {"optim.grad_accum": 2},
-    {"loss.d_steps_per_g": 2}])
+    {"loss.pl_weight": 2.0, "loss.d_steps_per_g": 2}])
 def test_unported_options_raise(world, knob):
     cfg = get_config("stylegan-256", **dict(SMALL, **knob))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -322,9 +322,24 @@ def test_learners(tmp_path):
     with pytest.raises(ValueError, match="expects model"):
         StyleGANLearner(get_config("progan-128"), str(tmp_path),
                         device="cpu")
-    for cls in (ProGANLearner, ResNetGANLearner):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(workdir=str(tmp_path), device="cpu")
+    # the other two learners train their default presets, cut narrow
+    common = {"model.latent_dim": 8, "run.compute_dtype": "float32",
+              "data.dataset": "synthetic", "run.log_every": 1}
+    for cls, preset, over in (
+            (ProGANLearner, "progan-128", {
+                "model.resolution": 16, "model.fmap_base": 32,
+                "schedule.batch_schedule": {4: B}}),
+            (ResNetGANLearner, "resnetgan-cifar10", {
+                "model.base_channels": 8,
+                "schedule.batch_schedule": {32: B}})):
+        other = cls(workdir=str(tmp_path / preset), device="cpu",
+                    **common, **over)
+        assert other.config.model.model == cls.MODEL
+        assert other.config.loss.penalty == get_config(preset).loss.penalty
+        other.train(max_steps=2)
+        assert other.state.step == 2
+        assert os.path.exists(other.gen_samples(tag="t"))
+        other.close()
 
 
 def test_jax_train_state_carries_over():
