@@ -302,7 +302,9 @@ def _add(total: dict, part: dict) -> None:
 def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
     """kernel -> {shape: launches} of one training step at 2^res_log2 (the
     model's full resolution when None) and ``batch``, derived from the
-    model's structure (``mc``, ``mc.remat``) and the step's code. A fade
+    model's structure (``mc``, ``mc.remat``) and the step's code. ProGAN's
+    step is ``progan_step_launches`` (its penalty runs every step, ``r1``
+    is not read); ResNet-GAN launches none of these kernels. A fade
     phase adds no launch: its extra toRGB / fromRGB, nearest upsample,
     average pool and blend are plain PyTorch. At one batch throughout,
     every shape of a lower resolution's step is one of the full
@@ -331,6 +333,10 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
     so its recompute launches no kernel of ours (the CPU tests count this
     on a small model: tests/test_torch_remat_launches.py).
     """
+    if mc.model == "progan":
+        return progan_step_launches(mc, res_log2, batch)
+    if mc.model == "resnetgan":
+        return {}
     lg = mc.res_log2 if res_log2 is None else res_log2
     down = {(batch, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
     up = {(batch, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
@@ -369,11 +375,10 @@ def progan_g_launches(mc, res_log2=None, batch=BATCH) -> dict:
             "pixelnorm_nchw": dict(nchw)}
 
 
-def progan_step_launches(mc, res_log2=None, batch=16, g_step=True) -> dict:
+def progan_step_launches(mc, res_log2=None, batch=16) -> dict:
     """kernel -> {shape: launches} of one ProGAN training step at
     2^res_log2 and ``batch`` with its penalty (WGAN-GP or R1) on, as both
-    ProGAN presets run it every step. ``g_step`` False: a critic-only step
-    of n-critic.
+    ProGAN presets run it every step.
 
     * G forward: pixelnorm of z over its last axis (rows kernel, one
       launch), then pixelnorm over the channels of NCHW twice in the 4x4
@@ -390,7 +395,7 @@ def progan_step_launches(mc, res_log2=None, batch=16, g_step=True) -> dict:
     on the fakes."""
     g_fwd = progan_g_launches(mc, res_log2, batch)
     d_fwd = {"minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
-    parts = [g_fwd, d_fwd, d_fwd, d_fwd] + ([g_fwd, d_fwd] if g_step else [])
+    parts = [g_fwd, d_fwd, d_fwd, d_fwd, g_fwd, d_fwd]
     total: dict = {}
     for part in parts:
         _add(total, part)
@@ -1563,22 +1568,17 @@ def check_png(path: str, what: str) -> None:
 
 
 def check_trainer_run(cfg, phases, records, workdir, card,
-                      ckpt_every, r1_first_from: int | None = None,
-                      launches_of=None) -> dict:
+                      ckpt_every, r1_first_from: int | None = None) -> dict:
     """Every phase ran its steps at its resolution and batch with the
-    derived launch counts (``launches_of(record, phase)``; the StyleGAN
-    step's by default); the penalty on every ``loss.penalty_every``-th step
-    of the run, and every phase from ``r1_first_from`` pixels up runs 16
-    steps or more and starts with an R1 step; the logged alpha rises from
-    0 in a fade phase and is 1.0 in a stabilize phase; losses finite;
-    checkpoints written, the newest kept. Prints each phase's step times
-    and img/s by step time and by the loop's clock."""
+    launch counts ``step_launches`` derives; the penalty on every
+    ``loss.penalty_every``-th step of the run, and every phase from
+    ``r1_first_from`` pixels up runs 16 steps or more and starts with an
+    R1 step; the logged alpha rises from 0 in a fade phase and is 1.0 in a
+    stabilize phase; losses finite; checkpoints written, the newest kept.
+    Prints each phase's step times and img/s by step time and by the
+    loop's clock."""
     mc = cfg.model
     every = cfg.loss.penalty_every
-    if launches_of is None:
-        def launches_of(r, ph):
-            return launch_totals(step_launches(mc, r["r1"], ph.res_log2,
-                                               ph.batch_size))
     with open(os.path.join(workdir, "train.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     counts = [phase_steps(ph) for ph in phases]
@@ -1601,7 +1601,7 @@ def check_trainer_run(cfg, phases, records, workdir, card,
             raise AssertionError(f"trainer: phase {ph.index} ran "
                                  f"{[(r['shape']) for r in recs][:3]}")
         for r in recs:
-            want = launches_of(r, ph)
+            want = launch_totals(step_launches(mc, r["r1"], ph.res_log2, b))
             if r["counts"] != want:
                 raise AssertionError(
                     f"trainer: phase {ph.index} step {r['step']}: launches "
@@ -2194,10 +2194,8 @@ def phase_progan(card: str) -> dict:
     try:
         wd = os.path.join(root, "progan128")
         run = run_cli_train("progan-128", sets, wd)
-        checked = check_trainer_run(
-            cfg, phases, run["records"], wd, card, cfg.run.checkpoint_every,
-            launches_of=lambda r, ph: launch_totals(progan_step_launches(
-                mc, ph.res_log2, ph.batch_size)))
+        checked = check_trainer_run(cfg, phases, run["records"], wd, card,
+                                    cfg.run.checkpoint_every)
         count(checked["launches"])
         log(f"progan: cli train took {run['wall_s']:.1f} s for "
             f"{len(run['records'])} steps; peak memory "
@@ -2236,9 +2234,8 @@ def phase_progan(card: str) -> dict:
                 ("resnetgan-cifar10", {"data.dataset": "synthetic"})):
             pcfg = get_config(preset, **over)
             ph = build_phases(pcfg.schedule, pcfg.model)[0]
-            want = launch_totals(progan_step_launches(
-                pcfg.model, ph.res_log2, ph.batch_size)
-                if preset.startswith("progan") else {})
+            want = launch_totals(step_launches(pcfg.model, True, ph.res_log2,
+                                               ph.batch_size))
             wdp = os.path.join(root, preset)
             prun = run_cli_train(preset, dict(over, **{"run.log_every": 1}),
                                  wdp, max_steps=PG_FIXED_STEPS)
@@ -2336,8 +2333,8 @@ def main(kernels_only: bool = False) -> None:
         SERVED: serving_shapes(mc), STEP: step_launches(mc, r1=False),
         SERVED_1K: serving_shapes(mk, batch=SERVE_1K_BATCH),
         STEP_1K: step_launches(mk, r1=False, batch=b1k),
-        PG_STEP_64: kernel_units(progan_step_launches(mp, 6, 16)),
-        PG_STEP_128: kernel_units(progan_step_launches(mp, 7, 8))})
+        PG_STEP_64: kernel_units(step_launches(mp, True, 6, 16)),
+        PG_STEP_128: kernel_units(step_launches(mp, True, 7, 8))})
     large_err = check_large_offsets()
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")
@@ -2372,7 +2369,7 @@ def main(kernels_only: bool = False) -> None:
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
             "launches_per_progan128_step_128": launch_totals(
-                progan_step_launches(mp, 7, 8))[name],
+                step_launches(mp, True, 7, 8))[name],
             "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],
             "max_abs_err": max(r["max_abs_err"], large_err
                                if name in LARGE else 0.0),

@@ -175,6 +175,25 @@ def test_generator_matches_jax(gen_pair, lg, alpha, remat):
             atol=REL * max(float(np.abs(ref).max()), 1e-12), err_msg=name)
 
 
+def test_batch_sampler_serves_a_progan_generator(gen_pair):
+    """``BatchSampler(params=)`` takes a flax tree of a ProGAN G-EMA with no
+    w-average (the family has none; a style family still needs one) and
+    keeps the serving contract: index-stable latents, a fixed batch."""
+    from ganlab_tpu_torch.serve import BatchSampler
+
+    _, params = gen_pair
+    cfg = get_config("progan-128", **SMALL)
+    s = BatchSampler(cfg, params=params, batch_size=4, device="cpu")
+    a = s.generate(6, seed=1)
+    assert a.shape == (6, RES, RES, 3) and a.dtype == np.uint8
+    np.testing.assert_array_equal(a[:3], s.generate(3, seed=1))
+    assert float(a.astype(np.float32).std()) > 1.0
+    with pytest.raises(ValueError, match="w_avg"):
+        BatchSampler(get_config("stylegan-256", **{
+            "model.resolution": 16, "model.fmap_base": 64}),
+            params={"x": np.zeros(1)}, device="cpu")
+
+
 def test_generator_rejects_tpu_knobs():
     for knob in ("model.fold_width", "model.fused_up_conv"):
         with pytest.raises(NotImplementedError, match="TPU"):

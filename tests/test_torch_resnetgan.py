@@ -11,7 +11,8 @@ float32, JAX matmuls at ``highest``).
 * ``loss.d_steps_per_g=2`` over two steps, leaf by leaf against a harness
   of JAX pieces (``test_torch_progan_g._jax_step``): step 0 updates D only
   (``g_loss`` 0, G, G-EMA and G's Adam untouched), step 1 updates D and G
-  against the updated D, G's Adam count then 1, as optax's;
+  against the updated D, G's Adam count then 1, as optax's; the state
+  in the JAX layout loads back with D's count as the step's origin;
 * ``build_models`` for the three presets of this family and ProGAN.
 """
 
@@ -26,7 +27,7 @@ from ganlab_tpu.models import build_models as jax_build_models
 from ganlab_tpu.models import resnetgan as jax_resnet
 from ganlab_tpu.train import steps as jax_steps
 from ganlab_tpu_torch.config import get_config
-from ganlab_tpu_torch.convert import from_flax
+from ganlab_tpu_torch.convert import from_flax, load_jax_train_state
 from ganlab_tpu_torch.models import build_models
 from ganlab_tpu_torch.models import resnetgan
 from ganlab_tpu_torch.models.progan import ProDiscriminator, ProGenerator
@@ -188,6 +189,43 @@ def test_n_critic_two_steps_match_jax():
                     atol=1e-6 * float(np.abs(ref).max()), err_msg=name)
     assert {float(s["step"]) for s in st.opt_d.state.values()} == {2.0}
     assert (st.step, st.shown_imgs) == (2, 2 * B) and not st.w_avg.any()
+
+    # the same state in the JAX package's layout (optax: one count a tree,
+    # G's counting its updates only) loads back with D's count as the
+    # origin of the step counter
+    def moments(opt, module, key):
+        named = dict(module.named_parameters())
+        tree = {n: opt.state[p][key] for n, p in named.items()}
+        return {"params": _nest(tree)}
+
+    arrays = {"params_g": to_flax(st.g), "params_d": to_flax(st.d),
+              "params_ema": to_flax(st.g_ema), "w_avg": st.w_avg.numpy(),
+              "step": 2, "shown_imgs": 2 * B}
+    for net, count in (("g", 1), ("d", 2)):
+        opt, module = getattr(st, f"opt_{net}"), getattr(st, net)
+        arrays[f"opt_{net}"] = {"count": count,
+                                "mu": moments(opt, module, "exp_avg"),
+                                "nu": moments(opt, module, "exp_avg_sq")}
+    st2 = load_jax_train_state(create_train_state(cfg, seed=5, device="cpu"),
+                               arrays)
+    assert (st2.step, st2.opt_step0) == (2, 0)
+    assert {float(s["step"]) for s in st2.opt_g.state.values()} == {1.0}
+    assert {float(s["step"]) for s in st2.opt_d.state.values()} == {2.0}
+
+
+def _nest(flat: dict) -> dict:
+    """{"a.b.w": t} -> {"a": {"b": {"w": array}}}, 4-d weights to HWIO."""
+    tree: dict = {}
+    for name, t in flat.items():
+        a = t.detach().numpy()
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return tree
 
 
 def test_build_models_families():
