@@ -179,6 +179,7 @@ STEP_LOSS_RTOL = 1e-4          # f32 train step, card vs CPU: losses
 STEP_GRAD_RTOL = 5e-3          # ... every gradient leaf, of its scale:
                                # the biases ahead of each AdaIN get sums
                                # that cancel to ~1e-3 of their terms
+WGAN_GP_GRAD_RTOL = 1e-3       # WGAN-GP's gradient leaves, card vs CPU
 TRAIN_STEPS = 34               # steps 0, 16, 32 are R1-on (penalty_every 16)
 
 
@@ -430,6 +431,16 @@ def _blur_down_filter(c, dtype):
     return _blur_filter(c, dtype, 64.0)
 
 
+def _pixelnorm_nchw_library(x):
+    """Pixelnorm over dim 1 of NCHW as one PyTorch call: a local response
+    norm whose window (2C - 1 channels, zero-padded) covers all C channels
+    at every c, so it divides x by (eps + mean_c x^2)^(1/2). Its window
+    makes the work C times the kernel's."""
+    c = x.shape[1]
+    return F.local_response_norm(x, 2 * c - 1, alpha=(2 * c - 1) / c,
+                                 beta=0.5, k=1e-8)
+
+
 def _mbstd_library(x):
     stat = x.float().var(0, unbiased=False).add(1e-8).sqrt().mean()
     return torch.cat([x, stat.to(x.dtype).expand(x.shape[0], 1,
@@ -459,7 +470,7 @@ KERNELS = {
         plain=pixel_norm_nchw_ref,
         inputs=lambda s, dt, g: (
             torch.randn(s, generator=g, device="cuda").to(dt),),
-        library=None,   # no one call: F.rms_norm needs a permuted copy
+        library=_pixelnorm_nchw_library,
         nbytes=lambda s, dt: 2 * math.prod(s) * _bsz(dt),
         flops=lambda s: 4 * math.prod(s)),
     "adain": dict(
@@ -536,7 +547,13 @@ EXTRA_SHAPES = {
     # channels; planes read twice), a plane of 2 pixels
     "pixelnorm_nchw": [(3, 512, 1, 1), (2, 512, 3, 5), (2, 256, 7, 7),
                        (4, 3, 8, 8), (2, 1000, 4, 4), (2, 1000, 4, 1),
-                       (5, 128, 1, 2)],
+                       (5, 128, 1, 2),
+                       # the progan-128 G's sample grids at 128x128: cli
+                       # train's final 16 and cli sample --num 4 (their
+                       # lower resolutions are the units' shapes or below)
+                       (16, 128, 128, 128), (4, 512, 4, 4), (4, 512, 8, 8),
+                       (4, 512, 16, 16), (4, 512, 32, 32), (4, 256, 64, 64),
+                       (4, 128, 128, 128)],
     "upsample_blur_2x": [(3, 5, 7, 24), (2, 3, 33, 31), (1, 2, 5, 264),
                          (2, 2, 9, 8)],
     "blur_downsample_2x": [(2, 3, 34, 30), (3, 5, 14, 48), (1, 2, 10, 528),
@@ -566,7 +583,9 @@ SERVED, STEP = "served batch", "R1-off step"
 SERVED_1K, STEP_1K = "1024 served batch", "1024 R1-off step"
 PG_STEP_64 = "progan-128 step at 64x64"
 PG_STEP_128 = "progan-128 step at 128x128"
+PG_SERVED = "progan-128 served batch"
 SMALL_MS = 0.05                # below this a timing is read five more times
+SLOW_MS = 1.0                  # above this a library call is read fewer times
 
 
 def _dt(dtype) -> str:
@@ -690,34 +709,6 @@ def check_mbstd_paths(label: str, x, out, dt) -> float:
     return worst
 
 
-def nchw_variants(g) -> None:
-    """The channel pixelnorm with 4, 8 and 16 warps a block (a block reads
-    that many adjacent 16-byte pieces of each plane) at progan-128's large
-    shapes, bf16, each read three times in turns (ms by CUDA events,
-    device_ms by graph replay)."""
-    for shape in ((16, 512, 32, 32), (16, 256, 64, 64), (8, 128, 128, 128)):
-        (x,) = KERNELS["pixelnorm_nchw"]["inputs"](shape, torch.bfloat16, g)
-        want = pixel_norm_nchw_cuda(x)
-        calls = {w: functools.partial(pixel_norm_nchw_cuda, x, warps=w)
-                 for w in (4, 8, 16)}
-        for w, fn in calls.items():
-            if not torch.equal(fn(), want):
-                raise AssertionError(f"pixelnorm_nchw {shape}: {w} warps a "
-                                     "block gave other bits")
-        reads = {w: [] for w in calls}
-        for _ in range(3):
-            for w, fn in calls.items():
-                reads[w].append((cuda_time_ms(fn, iters=50, warmup=5),
-                                 device_time_ms(fn)))
-        bound = KERNELS["pixelnorm_nchw"]["nbytes"](
-            shape, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
-        log(f"variants pixelnorm_nchw {shape} bf16 (bound {bound:.4f} ms), "
-            "ms / device_ms, median of 3 in turns: " + ", ".join(
-                f"{w} warps {statistics.median(v[0] for v in r):.4f} / "
-                f"{statistics.median(v[1] for v in r):.4f}"
-                for w, r in reads.items()))
-
-
 def mbstd_variants(g) -> None:
     """The cluster of 8 blocks against fewer blocks at the training shape:
     the same call with the cluster size forced, each read three times in
@@ -816,19 +807,23 @@ def time_shape(name: str, shape, g) -> dict:
              plain_ms=cuda_time_ms(lambda: k["plain"](*inp)),
              device_ms=device_time_ms(kern), host_us=host_time_us(kern),
              library_ms=None, library_device_ms=None, library_host_us=None)
-    note = "n/a"
+    note, slow = "n/a", False
     if k["library"] is not None:
         def lib():
             return k["library"](*inp)
 
         lib_err = (lib().float() - k["plain"](*inp).float()).abs().max().item()
-        t.update(library_ms=cuda_time_ms(lib),
-                 library_device_ms=device_time_ms(lib),
-                 library_host_us=host_time_us(lib))
+        # a library call of milliseconds (the NCHW pixelnorm's local
+        # response norm) is read fewer times
+        slow = cuda_time_ms(lib, iters=1, warmup=1) > SLOW_MS
+        t.update(library_ms=cuda_time_ms(lib, *((5, 1) if slow else ())),
+                 library_device_ms=device_time_ms(
+                     lib, *((2, 1) if slow else ())),
+                 library_host_us=host_time_us(lib, *((5,) if slow else ())))
         note = (f"{t['library_ms']:.4f} ms (device "
                 f"{t['library_device_ms']:.4f} ms, host "
                 f"{t['library_host_us']:.1f} us; vs plain {lib_err:.2e})")
-    if t["ms"] < SMALL_MS and k["library"] is not None:
+    if t["ms"] < SMALL_MS and k["library"] is not None and not slow:
         # a call this short is timed by the host's pace, which wanders:
         # read kernel and library call in turns to see by how much
         reads = [(cuda_time_ms(kern), cuda_time_ms(lib)) for _ in range(5)]
@@ -918,8 +913,6 @@ def phase_kernels(units: dict) -> dict:
                 pixelnorm_host_parts(g)
             if name == "minibatch_stddev":
                 mbstd_variants(g)
-            if name == "pixelnorm_nchw":
-                nchw_variants(g)
             for unit, by_kernel in units.items():
                 if by_kernel.get(name):
                     u = r[unit] = unit_sums(times, by_kernel[name])
@@ -1192,7 +1185,7 @@ def wgan_gp_card_vs_cpu() -> None:
     double backward through its convs, average pools and mbstd) on the card
     against the CPU, from the same weights, images and interpolation
     weights: a narrow progan-128 D at 32x32 in a fade (alpha 0.3) with
-    batch 16, float32, TF32 off; 5e-3 of each leaf's scale."""
+    batch 16, float32, TF32 off; 1e-3 of each leaf's scale."""
     from ganlab_tpu_torch.ops import losses
 
     cfg = get_config("progan-128", **{
@@ -1211,6 +1204,7 @@ def wgan_gp_card_vs_cpu() -> None:
     d_card = copy.deepcopy(d_cpu).cuda()
     grads = {}
     before = minibatch_stddev_cuda.launches
+    names = [n for n, _ in d_cpu.named_parameters()]
     for dev, d in (("cuda", d_card), ("cpu", d_cpu)):
         pen = losses.wgan_gp(lambda x: d(x, 5, 0.3, True), real.to(dev),
                              fake.to(dev), None, 10.0, eps=eps.to(dev))
@@ -1221,10 +1215,16 @@ def wgan_gp_card_vs_cpu() -> None:
                           pen, params, allow_unused=True))]
     if minibatch_stddev_cuda.launches == before:
         raise AssertionError("WGAN-GP on the card launched no mbstd kernel")
-    # the biases' gradients are sums that cancel to ~1e-3 of their terms
-    # (the fade's old head), as in the f32 step check
+    # weights and biases alike read up to ~3.6e-4 of their leaf's scale:
+    # cuDNN and the CPU sum the double backward's products in other orders
     _assert_grads_close("WGAN-GP through the ProGAN D, card vs CPU",
-                        grads["cuda"], grads["cpu"], rtol=STEP_GRAD_RTOL)
+                        grads["cuda"], grads["cpu"], rtol=WGAN_GP_GRAD_RTOL)
+    for kind, end in (("weights", ".w"), ("biases", ".b")):
+        worst = max((a - b).abs().max().item() / b.abs().max().item()
+                    for n, a, b in zip(names, grads["cuda"], grads["cpu"])
+                    if n.endswith(end) and b.abs().max().item() > 0)
+        log(f"grad WGAN-GP card vs CPU, {kind}: largest error {worst:.3e} "
+            f"of the leaf scale (tol {WGAN_GP_GRAD_RTOL:g})")
 
 
 # -- 6. training path ----------------------------------------------------------
@@ -2334,7 +2334,8 @@ def main(kernels_only: bool = False) -> None:
         SERVED_1K: serving_shapes(mk, batch=SERVE_1K_BATCH),
         STEP_1K: step_launches(mk, r1=False, batch=b1k),
         PG_STEP_64: kernel_units(step_launches(mp, True, 6, 16)),
-        PG_STEP_128: kernel_units(step_launches(mp, True, 7, 8))})
+        PG_STEP_128: kernel_units(step_launches(mp, True, 7, 8)),
+        PG_SERVED: kernel_units(progan_g_launches(mp))})
     large_err = check_large_offsets()
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")
@@ -2382,7 +2383,8 @@ def main(kernels_only: bool = False) -> None:
             "library_host_us": u["library_host_us"]}
         for unit, suffix in ((STEP, "per_step"), (STEP_1K, "per_step_1024"),
                              (PG_STEP_64, "per_progan128_step_64"),
-                             (PG_STEP_128, "per_progan128_step_128")):
+                             (PG_STEP_128, "per_progan128_step_128"),
+                             (PG_SERVED, "per_progan128_served")):
             for key in ("ms", "bound_ms", "device_ms", "plain_ms",
                         "library_ms"):
                 row[f"{key}_{suffix}"] = of(unit, key)
@@ -2394,9 +2396,10 @@ def main(kernels_only: bool = False) -> None:
         f"stylegan-256, *_per_step_1024 over one R1-off step of "
         f"stylegan-1024 at batch {b1k} (remat), *_per_progan128_step_64 / "
         f"_128 over one progan-128 step at 64x64 (batch 16) / 128x128 "
-        f"(batch 8; the headline of pixelnorm_nchw, whose library_ms is "
-        f"null: no one PyTorch call normalizes dim 1 of NCHW), bf16; "
-        f"host_us is per call [{card}]")
+        f"(batch 8; the headline of pixelnorm_nchw, whose library call is "
+        f"F.local_response_norm with a window of 2C - 1 channels), "
+        f"*_per_progan128_served over one served progan-128 batch of "
+        f"{BATCH}, bf16; host_us is per call [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

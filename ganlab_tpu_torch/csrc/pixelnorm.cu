@@ -259,8 +259,9 @@ int launch(const void* x, void* o, long long rows, int c, float eps,
 // planes a second time (from L1/L2). A lane's vector is half of a 32-byte
 // sector; the next warp of the same block owns the next run, so the other
 // half is read by the same SM at the same time and comes from L1. A block
-// of kNchwWarps warps (or the count the caller asks for) owns adjacent
-// runs, so it reads that many 16-byte pieces of each plane in a row.
+// of kNchwWarps warps owns adjacent runs, so it reads that many 16-byte
+// pieces of each plane in a row (blocks of 8 or 16 warps were no faster
+// on the H100: PERF.md, section 6).
 //
 // The order of the sums is the rows kernel's: lane l of a run sums the
 // channel groups i = l, l + 32, ... of NC channels each, in order (NC =
@@ -269,12 +270,11 @@ int launch(const void* x, void* o, long long rows, int c, float eps,
 // smallest power of two >= min(groups, 32); the rows kernel's butterfly
 // steps above R add zeros, which change no bit. So on the same values
 // the two kernels give the same bits (chip_smoke.py checks it).
-constexpr int kNchwWarps = 4;      // warps per block, unless asked
-constexpr int kNchwMaxWarps = 16;
+constexpr int kNchwWarps = 4;      // warps per block
 constexpr int kNchwCached = 16;    // plane vectors a lane keeps in registers
 
 template <typename T, int W, int NC, bool CACHED>
-__global__ void __launch_bounds__(32 * kNchwMaxWarps)
+__global__ void __launch_bounds__(32 * kNchwWarps)
 pixel_norm_nchw_kernel(const T* __restrict__ x, T* __restrict__ o,
                        long long runs, long long runs_per_image,
                        long long hw, int c, int groups, int r_log2,
@@ -285,7 +285,7 @@ pixel_norm_nchw_kernel(const T* __restrict__ x, T* __restrict__ o,
   const int lane = threadIdx.x & 31;
   const int lr = lane & ((1 << r_log2) - 1);         // lane within the run
   const long long run =
-      ((static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+      ((static_cast<long long>(blockIdx.x) * kNchwWarps +
         (threadIdx.x >> 5))
        << (5 - r_log2)) + (lane >> r_log2);
   long long img = 0, p0 = 0;
@@ -404,13 +404,14 @@ NchwPlan nchw_plan(const void* x, const void* o, int c, long long hw) {
 
 template <typename T, int W, int NC, bool CACHED>
 void run_nchw(const void* x, void* o, long long n, int c, long long hw,
-              int r_log2, int warps, float eps, cudaStream_t stream) {
+              int r_log2, float eps, cudaStream_t stream) {
   const long long per_image = (hw + W - 1) / W;
   const long long runs = n * per_image;
-  const long long per_block = static_cast<long long>(warps) << (5 - r_log2);
+  const long long per_block = static_cast<long long>(kNchwWarps)
+                              << (5 - r_log2);
   const unsigned blocks =
       static_cast<unsigned>((runs + per_block - 1) / per_block);
-  pixel_norm_nchw_kernel<T, W, NC, CACHED><<<blocks, 32 * warps, 0,
+  pixel_norm_nchw_kernel<T, W, NC, CACHED><<<blocks, 32 * kNchwWarps, 0,
                                               stream>>>(
       static_cast<const T*>(x), static_cast<T*>(o), runs, per_image, hw, c,
       c / NC, r_log2, eps);
@@ -418,27 +419,27 @@ void run_nchw(const void* x, void* o, long long n, int c, long long hw,
 
 template <typename T, int W, int NC>
 void run_nchw(const NchwPlan& p, const void* x, void* o, long long n, int c,
-              long long hw, int warps, float eps, cudaStream_t stream) {
+              long long hw, float eps, cudaStream_t stream) {
   if (p.cached) {
-    run_nchw<T, W, NC, true>(x, o, n, c, hw, p.r_log2, warps, eps, stream);
+    run_nchw<T, W, NC, true>(x, o, n, c, hw, p.r_log2, eps, stream);
   } else {
-    run_nchw<T, W, NC, false>(x, o, n, c, hw, p.r_log2, warps, eps, stream);
+    run_nchw<T, W, NC, false>(x, o, n, c, hw, p.r_log2, eps, stream);
   }
 }
 
 template <typename T>
 int launch_nchw(const void* x, void* o, long long n, int c, long long hw,
-                int warps, float eps, cudaStream_t stream) {
+                float eps, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const NchwPlan p = nchw_plan<T>(x, o, c, hw);
   if (p.pix_vec && p.chan_vec) {
-    run_nchw<T, V, V>(p, x, o, n, c, hw, warps, eps, stream);
+    run_nchw<T, V, V>(p, x, o, n, c, hw, eps, stream);
   } else if (p.pix_vec) {
-    run_nchw<T, V, 1>(p, x, o, n, c, hw, warps, eps, stream);
+    run_nchw<T, V, 1>(p, x, o, n, c, hw, eps, stream);
   } else if (p.chan_vec) {
-    run_nchw<T, 1, V>(p, x, o, n, c, hw, warps, eps, stream);
+    run_nchw<T, 1, V>(p, x, o, n, c, hw, eps, stream);
   } else {
-    run_nchw<T, 1, 1>(p, x, o, n, c, hw, warps, eps, stream);
+    run_nchw<T, 1, 1>(p, x, o, n, c, hw, eps, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -462,22 +463,18 @@ extern "C" int ganlab_pixel_norm(const void* x, void* o, long long rows,
 }
 
 // x, o: (n, c, hw) contiguous (NCHW with hw = H * W), the same dtype;
-// normalizes over c for each (image, pixel). warps: the warps of a block,
-// a power of two up to kNchwMaxWarps; 0 takes kNchwWarps.
+// normalizes over c for each (image, pixel).
 extern "C" int ganlab_pixel_norm_nchw(const void* x, void* o, long long n,
                                       int c, long long hw, float eps,
-                                      int dtype, int warps, int device,
-                                      void* stream) {
-  if (warps == 0) warps = kNchwWarps;
-  if (n <= 0 || c <= 0 || hw <= 0 || n * hw > 0x7fffffffLL ||
-      warps < 1 || warps > kNchwMaxWarps || (warps & (warps - 1)) != 0)
+                                      int dtype, int device, void* stream) {
+  if (n <= 0 || c <= 0 || hw <= 0 || n * hw > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_nchw<float>(x, o, n, c, hw, warps, eps, s);
-    case 1: return launch_nchw<__nv_bfloat16>(x, o, n, c, hw, warps, eps, s);
-    case 2: return launch_nchw<__half>(x, o, n, c, hw, warps, eps, s);
+    case 0: return launch_nchw<float>(x, o, n, c, hw, eps, s);
+    case 1: return launch_nchw<__nv_bfloat16>(x, o, n, c, hw, eps, s);
+    case 2: return launch_nchw<__half>(x, o, n, c, hw, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -62,7 +62,7 @@ def _fn(symbol: str = "ganlab_pixel_norm"):
                    ctypes.c_float)
     fn.argtypes = {
         "ganlab_pixel_norm": [p, p, ll, i, f, i, i, p],
-        "ganlab_pixel_norm_nchw": [p, p, ll, i, ll, f, i, i, i, p],
+        "ganlab_pixel_norm_nchw": [p, p, ll, i, ll, f, i, i, p],
         "ganlab_pixel_norm_nchw_plan": [p, p, i, ll, i]}[symbol]
     fn.restype = ctypes.c_int
     return fn
@@ -121,11 +121,8 @@ def pixel_norm_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return out
 
 
-def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8,
-                         warps: int = 0) -> torch.Tensor:
-    """Launch the channel kernel on a contiguous CUDA (N, C, H, W) tensor.
-    ``warps``: the warps of a thread block (1, 2, 4, 8 or 16; 0 takes the
-    kernel's own choice), for measuring the alternatives."""
+def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Launch the channel kernel on a contiguous CUDA (N, C, H, W) tensor."""
     check_input("pixel_norm_nchw", x, ndim=4, dtypes=_DTYPE_CODE)
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -134,7 +131,7 @@ def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8,
     index = x.device.index
     _raise_on(_fn("ganlab_pixel_norm_nchw")(
         x.data_ptr(), out.data_ptr(), n, c, h * w, eps,
-        _DTYPE_CODE[x.dtype], warps, index, stream_handle(index)),
+        _DTYPE_CODE[x.dtype], index, stream_handle(index)),
         "pixel_norm_nchw", x)
     pixel_norm_cuda.launches += 1
     pixel_norm_nchw_cuda.launches += 1
