@@ -15,19 +15,26 @@ Phases (any failure raises and the script exits non-zero):
    and training step (all five) give it at batch 32 (the progressive
    phases' steps use the same shapes), at every shape of a stylegan-1024
    R1-off step at its batch of 4 (512x512 and 1024x1024 planes; AdaIN's
-   loop path) and of a served batch of 16 at 1024x1024, at every shape of
-   a progan-128 step (pixelnorm over the channels of NCHW at batch 16 from
+   clusters of 16 blocks) and of a served batch of 16 at 1024x1024, at
+   every shape of a progan-128 step (pixelnorm over the channels of NCHW at batch 16 from
    4x4 to 64x64 and at batch 8 to 128x128; mbstd at batch 16 and 8), and
    at a few odd shapes, in float32 (TF32 off) and bfloat16, with the path
    each call took; the NCHW pixelnorm also bit for bit against the rows
-   kernel on the same values transposed, from an unaligned copy and from
-   a strided view; mbstd on both its paths, with the batch held
+   kernel on the same values transposed, from an unaligned copy, from
+   a strided view, and with the run kernel forced (all the same bits); mbstd on both its paths, with the batch held
    in registers and read twice, bit-equal across two calls and with fewer
    blocks than its cluster of 8; the resample kernels also
    with a gain, and each one's vector path against its element path bit
    for bit; AdaIN on each of its paths, at an unaligned pointer, on
-   constant planes and on planes with a large mean, and with one block
-   against a thread block cluster per 256² plane. Then kernel, plain and
+   constant planes and on planes with a large mean (the split path also
+   forced on 1024² planes, and taken by planes of 72 and 144 MiB);
+   ``variants`` lines read forced cuts in turns:
+   AdaIN with one block against a thread block cluster per 256² plane, the
+   earlier plans (a cluster of 4 x 1024 threads at 512², the loop path at
+   1024²) against other clusters and the split path at 512² and 1024²
+   (bf16 and float32); the NCHW
+   pixelnorm's run kernel against its tile kernel at its four large
+   ProGAN shapes. Then kernel, plain and
    one library call timed with CUDA events around back-to-back calls
    (``ms``), beside the bound (bytes / 3.35 TB/s or flops / 67 TFLOP/s,
    the larger); the kernel and the
@@ -35,9 +42,10 @@ Phases (any failure raises and the script exits non-zero):
    replay of the same calls) and on the host alone (``host_us``, wall
    time per un-synchronised call). Sums per served batch and per R1-off
    training step of each preset. Then up+blur, blur+down, AdaIN and the
-   NCHW pixelnorm on tensors of 2^31 elements: first and last planes
-   against the plain version, so that an offset that wraps at 32 bits
-   shows.
+   NCHW pixelnorm on tensors of 2^31 elements (AdaIN also through its
+   split path, the NCHW pixelnorm also through its run kernel): first
+   and last planes against the plain version, so that an offset that
+   wraps at 32 bits shows.
 4. Gradients: each autograd Function's gradient against autograd through
    its plain version on the card (float32); the resample Functions'
    backwards must each be one device kernel (the gain rides in the
@@ -553,7 +561,10 @@ EXTRA_SHAPES = {
                        # lower resolutions are the units' shapes or below)
                        (16, 128, 128, 128), (4, 512, 4, 4), (4, 512, 8, 8),
                        (4, 512, 16, 16), (4, 512, 32, 32), (4, 256, 64, 64),
-                       (4, 128, 128, 128)],
+                       (4, 128, 128, 128),
+                       # the tile kernel at C = 256, 512 and 1000 with H*W
+                       # that ends its last tile ragged (72 and 120 pixels)
+                       (2, 256, 9, 8), (3, 512, 10, 12), (2, 1000, 6, 20)],
     "upsample_blur_2x": [(3, 5, 7, 24), (2, 3, 33, 31), (1, 2, 5, 264),
                          (2, 2, 9, 8)],
     "blur_downsample_2x": [(2, 3, 34, 30), (3, 5, 14, 48), (1, 2, 10, 528),
@@ -561,9 +572,16 @@ EXTRA_SHAPES = {
     # one per path of the kernel and the edges between them: a plane that
     # is no multiple of a vector (loop), 33x31, the largest warp plane
     # (32x32) and the first block plane, a block that ends ragged, a
-    # cluster in float32
+    # cluster in float32; 1024x1024 (a cluster of 16 with part of each
+    # slice in shared memory: 64 KiB in bf16, 192 KiB in float32), planes
+    # whose vectors do not split evenly into 16 blocks (724x728,
+    # 1000x1048), and planes too large for a cluster (2048x2048: the split
+    # path, 4096 slices that end ragged at 1000x2100; check_adain_planes
+    # adds a plane above 64 MiB)
     "adain": [(2, 3, 5, 7), (3, 5, 33, 31), (2, 3, 32, 32), (2, 3, 32, 36),
-              (2, 3, 48, 48), (1, 2, 256, 256)],
+              (2, 3, 48, 48), (1, 2, 256, 256), (1, 2, 1024, 1024),
+              (1, 2, 724, 728), (1, 2, 1000, 1048), (1, 1, 2048, 2048),
+              (1, 2, 1000, 2100)],
     # both paths of the kernel, with the batch in registers (N <= 32) and
     # read twice: N = 1, 3, 33, 64, the largest batch; an odd C; H*W = 9
     # and M no multiple of a vector (element path); more chunks than the
@@ -677,11 +695,15 @@ def check_nchw_paths(label: str, x, out) -> None:
     big = torch.empty((2 * n, c, h, w), dtype=x.dtype, device=x.device)
     big[::2] = x
     out_v = port_ops.pixel_norm(big[::2], dim=1)
+    # the run kernel forced on the same values
+    out_r = pixel_norm_nchw_cuda(x, tile=-1)
     log(f"path {label}: {pixel_norm_nchw_path(x, out)}; from an unaligned "
         f"copy: {pixel_norm_nchw_path(xu, out_u)}; bit-equal to the rows "
-        "kernel, the unaligned copy and a strided view")
+        "kernel, the unaligned copy, a strided view and "
+        + pixel_norm_nchw_path(x, out, tile=-1))
     if not pixel_norm_nchw_path(xu, out_u).startswith("element") or \
-            not torch.equal(out_u, out) or not torch.equal(out_v, out):
+            not torch.equal(out_u, out) or not torch.equal(out_v, out) or \
+            not torch.equal(out_r, out):
         raise AssertionError(f"{label}: the channel kernel's paths "
                              "disagree")
 
@@ -743,55 +765,117 @@ def check_adain_planes(g) -> float:
     0, as StyleGAN's 4x4 planes at init: the output is the bias, while
     E[x^2] - mean^2 would leave rounding noise for rsqrt(eps) = 1e4 to
     multiply) and planes with a mean far above their spread
-    (1000 + 16 noise), on every path of the kernel."""
+    (1000 + 16 noise), on every path of the kernel: 1024x1024 takes a
+    cluster with part of each slice in shared memory and is also forced
+    through the split path, which 2048x2048 takes, and 8192x4608 (72 MiB
+    in bf16, 144 in float32: 1152 and 2304 slices, so its partials are
+    combined over several rounds; not read from an unaligned copy, whose
+    loop path gives the whole plane to one block)."""
     worst = 0.0
     for shape in ((4, 8, 4, 4), (2, 3, 5, 7), (2, 3, 64, 64),
-                  (1, 2, 256, 256)):
+                  (1, 2, 256, 256), (1, 2, 1024, 1024), (1, 1, 2048, 2048),
+                  (1, 1, 8192, 4608)):
         for dt in (torch.float32, torch.bfloat16):
             _, ys, yb = KERNELS["adain"]["inputs"](shape, dt, g)
             noise = torch.randn(shape, generator=g, device="cuda")
+            paths = [None] + (["split"] if shape[2] == 1024 else [])
             for what, x in (("constant planes", torch.full(shape, 1.5)),
                             ("planes 1000 + 16 noise", 1000 + 16 * noise)):
                 x = x.to("cuda", dt)
-                out = adain_cuda(x, ys, yb)
-                worst = max(worst, _check(
-                    f"adain {shape} {_dt(dt)} {what} "
-                    f"[{adain_path(x, out)}]", out, adain_ref(x, ys, yb), dt))
-                if what == "constant planes" and not torch.equal(
-                        out, yb[:, :, None, None].expand_as(out)):
-                    raise AssertionError("adain: a constant plane did not "
-                                         "come out as its bias")
+                for path in paths:
+                    out = adain_cuda(x, ys, yb, path=path)
+                    worst = max(worst, _check(
+                        f"adain {shape} {_dt(dt)} {what} "
+                        f"[{adain_path(x, out, path=path)}]", out,
+                        adain_ref(x, ys, yb), dt))
+                    if what == "constant planes" and not torch.equal(
+                            out, yb[:, :, None, None].expand_as(out)):
+                        raise AssertionError("adain: a constant plane did "
+                                             "not come out as its bias")
     return worst
 
 
-# (threads a block, blocks a plane) forced on AdaIN's 256x256 planes
+# forced cuts of AdaIN read in turns beside the chosen one: (shape, dtype)
+# -> adain_cuda keywords. 256x256: one block against a thread block
+# cluster per plane; 512x512: a cluster of 4 x 1024 threads (the earlier
+# plan) against other clusters and the split path; 1024x1024: the loop
+# path (the earlier plan) against clusters with part of each slice in
+# shared memory and the split path, at the stylegan-1024 step's batch of
+# 4 and its served batch of 16.
 ADAIN_VARIANTS = {
-    torch.bfloat16: [(1024, 1), (512, 2), (256, 4), (512, 4), (256, 8)],
-    torch.float32: [(1024, 2), (512, 4), (256, 8), (512, 8)],
+    ((BATCH, 64, 256, 256), torch.bfloat16): [
+        dict(threads=t, cluster=c)
+        for t, c in ((1024, 1), (512, 2), (256, 4), (512, 4), (256, 8))],
+    ((BATCH, 64, 256, 256), torch.float32): [
+        dict(threads=t, cluster=c)
+        for t, c in ((1024, 2), (512, 4), (256, 8), (512, 8))],
+    **{((n, 32, 512, 512), torch.bfloat16): [
+        dict(path="cluster", cluster=4, threads=1024),
+        dict(path="cluster", cluster=16, threads=256),
+        dict(path="split", threads=256), dict(path="split", threads=512)]
+       for n in (4, 16)},
+    **{((n, 16, 1024, 1024), torch.bfloat16): [
+        dict(path="loop"), dict(path="cluster", cluster=16, threads=1024),
+        dict(path="cluster", cluster=16, threads=256),
+        dict(path="split", threads=256), dict(path="split", threads=512),
+        dict(path="split", threads=1024)]
+       for n in (4, 16)},
+    **{((n, 16, 1024, 1024), torch.float32): [
+        dict(path="loop"), dict(path="cluster", cluster=16, threads=1024),
+        dict(path="split", threads=512), dict(path="split", threads=1024)]
+       for n in (4, 16)},
 }
 
 
 def adain_variants(g) -> None:
-    """One block against a thread block cluster per 256x256 plane: the
-    same call with the cut forced, each read three times in turns."""
-    shape = (BATCH, 64, 256, 256)
-    for dt, cuts in ADAIN_VARIANTS.items():
+    """AdaIN's chosen cut against forced ones at the same call: each read
+    three times in turns (``ms`` by CUDA events, median of 3)."""
+    for (shape, dt), cuts in ADAIN_VARIANTS.items():
         inp = KERNELS["adain"]["inputs"](shape, dt, g)
-        calls = {"chosen": lambda: adain_cuda(*inp)}
-        for threads, cluster in cuts:
-            calls[adain_path(inp[0], inp[0], threads=threads,
-                             cluster=cluster)] = functools.partial(
-                adain_cuda, *inp, threads=threads, cluster=cluster)
+        calls = {f"chosen ({adain_path(inp[0], inp[0])})":
+                 functools.partial(adain_cuda, *inp)}
+        for cut in cuts:
+            calls[adain_path(inp[0], inp[0], **cut)] = functools.partial(
+                adain_cuda, *inp, **cut)
         reads = {n: [] for n in calls}
         for _ in range(3):
             for n, fn in calls.items():
                 reads[n].append(cuda_time_ms(fn, iters=20, warmup=3))
         nbytes = KERNELS["adain"]["nbytes"](shape, dt)
-        log(f"variants adain {shape} {_dt(dt)} (chosen: "
-            f"{adain_path(inp[0], inp[0])}; bound "
+        log(f"variants adain {shape} {_dt(dt)} (bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), ms, median of 3 in "
             "turns: " + ", ".join(
                 f"{n} {statistics.median(v):.4f}" for n, v in reads.items()))
+        del inp
+        torch.cuda.empty_cache()
+
+
+# the NCHW pixelnorm's large ProGAN shapes (progan-128 steps at 32x32 to
+# 128x128), read with each forced plan in turns
+NCHW_VARIANT_SHAPES = ((8, 128, 128, 128), (16, 256, 64, 64),
+                       (8, 256, 64, 64), (16, 512, 32, 32))
+
+
+def nchw_variants(g) -> None:
+    """The NCHW pixelnorm's chosen plan against the run kernel, three
+    reads each in turns (ms / device_ms, median of 3)."""
+    for shape in NCHW_VARIANT_SHAPES:
+        (x,) = KERNELS["pixelnorm_nchw"]["inputs"](shape, torch.bfloat16, g)
+        calls = {f"chosen ({pixel_norm_nchw_path(x, x)})":
+                 functools.partial(pixel_norm_nchw_cuda, x),
+                 pixel_norm_nchw_path(x, x, tile=-1):
+                 functools.partial(pixel_norm_nchw_cuda, x, tile=-1)}
+        reads = {n: [] for n in calls}
+        for _ in range(3):
+            for n, fn in calls.items():
+                reads[n].append((cuda_time_ms(fn), device_time_ms(fn)))
+        nbytes = KERNELS["pixelnorm_nchw"]["nbytes"](shape, torch.bfloat16)
+        log(f"variants pixelnorm_nchw {shape} bf16 (bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), ms / device_ms, "
+            "median of 3 in turns: " + ", ".join(
+                f"{n} {statistics.median(v[0] for v in r):.4f} / "
+                f"{statistics.median(v[1] for v in r):.4f}"
+                for n, r in reads.items()))
 
 
 def time_shape(name: str, shape, g) -> dict:
@@ -872,6 +956,33 @@ def pixelnorm_host_parts(g) -> None:
         + ", ".join(f"{n} {v:.2f}" for n, v in reads.items()))
 
 
+def adain_host_parts(g) -> None:
+    """Where the host's time for one AdaIN call on small planes goes: the
+    output's allocation, the C function through ctypes, the plan lookup
+    (cached; the wrapper makes it only for planes above 128 KiB or a
+    forced path) and the whole wrapper (host_time_us of each)."""
+    from ganlab_tpu_torch.ops.kernels import adain, stream_handle
+
+    x, s, b = KERNELS["adain"]["inputs"]((BATCH, 512, 4, 4), torch.bfloat16,
+                                         g)
+    out = torch.empty_like(x)
+    fn = adain._fn("ganlab_adain")
+
+    def raw():
+        fn(x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), None,
+           BATCH * 512, 16, 1e-8, 1, 1, 1, -1, 0, 0, 0, stream_handle(0))
+
+    parts = {"empty_like": lambda: torch.empty_like(x),
+             "C function through ctypes": raw,
+             "plan lookup": lambda: adain._plan(True, 16, 1, -1, 0, 0, 0),
+             "whole wrapper": lambda: adain_cuda(x, s, b)}
+    for _ in range(2):                    # the second reading is the warm one
+        reads = {n: host_time_us(f, calls=300) for n, f in parts.items()}
+    log(f"host adain {tuple(x.shape)} bf16, us per call over 300 "
+        "un-synchronised calls: "
+        + ", ".join(f"{n} {v:.2f}" for n, v in reads.items()))
+
+
 def unit_sums(times: dict, launches: dict) -> dict:
     """The per-shape times summed over one unit's launches."""
     n_all = sum(launches.values())
@@ -911,8 +1022,12 @@ def phase_kernels(units: dict) -> dict:
             times = {s: time_shape(name, s, g) for s in shapes}
             if name == "pixelnorm":
                 pixelnorm_host_parts(g)
+            if name == "adain":
+                adain_host_parts(g)
             if name == "minibatch_stddev":
                 mbstd_variants(g)
+            if name == "pixelnorm_nchw":
+                nchw_variants(g)
             for unit, by_kernel in units.items():
                 if by_kernel.get(name):
                     u = r[unit] = unit_sums(times, by_kernel[name])
@@ -2289,11 +2404,17 @@ LARGE = {"upsample_blur_2x": (64, 32, 512, 512),      # out: 2^31 elements
          "pixelnorm_nchw": (1024, 512, 64, 64)}        # in and out: 2^31
 
 
-def kernel_path(name: str, x, out) -> str:
+# each kernel's other forced paths on the same 2^31-element tensors: the
+# split path for AdaIN's cluster planes, the run kernel for the NCHW tiles
+LARGE_FORCED = {"adain": [dict(path="split")],
+                "pixelnorm_nchw": [dict(tile=-1)]}
+
+
+def kernel_path(name: str, x, out, **forced) -> str:
     if name == "adain":
-        return adain_path(x, out)
+        return adain_path(x, out, **forced)
     if name == "pixelnorm_nchw":
-        return pixel_norm_nchw_path(x, out)
+        return pixel_norm_nchw_path(x, out, **forced)
     return RESAMPLE_PATHS[name](x, out)
 
 
@@ -2309,15 +2430,17 @@ def check_large_offsets() -> float:
         for name, shape in LARGE.items():
             k = KERNELS[name]
             inp = k["inputs"](shape, torch.bfloat16, g)
-            out = k["kernel"](*inp)
-            path = kernel_path(name, inp[0], out)
-            for sl in (slice(0, 1), slice(shape[0] - 1, shape[0])):
-                part = tuple(a[sl] for a in inp)
-                worst = max(worst, _check(
-                    f"{name} {shape} bf16 [{path}] image {sl.start}",
-                    out[sl], k["plain"](*part), torch.bfloat16,
-                    f" ({max(inp[0].numel(), out.numel())} elements)"))
-            del inp, out
+            for forced in [{}] + LARGE_FORCED.get(name, []):
+                out = k["kernel"](*inp, **forced)
+                path = kernel_path(name, inp[0], out, **forced)
+                for sl in (slice(0, 1), slice(shape[0] - 1, shape[0])):
+                    part = tuple(a[sl] for a in inp)
+                    worst = max(worst, _check(
+                        f"{name} {shape} bf16 [{path}] image {sl.start}",
+                        out[sl], k["plain"](*part), torch.bfloat16,
+                        f" ({max(inp[0].numel(), out.numel())} elements)"))
+                del out
+            del inp
             torch.cuda.empty_cache()
     return worst
 

@@ -248,31 +248,138 @@ int launch(const void* x, void* o, long long rows, int c, float eps,
 // move tens of kilobytes: there the host's time to make the launch is
 // what a caller waits for.
 //
-// Design: a "run" is W adjacent pixels of one image: 16 bytes of each
-// plane (8 bf16 / f16 or 4 float32 pixels; one pixel on the element
-// path). R lanes of a warp own one run and split its C channel planes
-// between them; each lane keeps its planes' 16-byte vectors in registers
-// (up to kNchwCached of them), so x is read once: every load of a lane is
-// started before the first use, the per-pixel sums of squares are
-// reduced across the R lanes by __shfl_xor_sync, then each lane scales
-// its vectors and stores them. Above kNchwCached vectors a lane reads its
-// planes a second time (from L1/L2). A lane's vector is half of a 32-byte
-// sector; the next warp of the same block owns the next run, so the other
-// half is read by the same SM at the same time and comes from L1. A block
-// of kNchwWarps warps owns adjacent runs, so it reads that many 16-byte
-// pieces of each plane in a row (blocks of 8 or 16 warps were no faster
-// on the H100: PERF.md, section 6).
+// What limited the first design (the run kernel below, now kept for the
+// shapes the tile kernel does not take): R lanes of a warp shared a "run"
+// of 16 bytes of pixels and held its C planes in registers, so at C >= 256
+// (R = 32) one load instruction of a warp fetched 16 bytes from each of 32
+// planes, half a 32-byte sector of each, and the other half came with
+// another warp's request later. It ran at 2.2-2.5x its bound there and
+// 1.5x at C = 128, where one warp covers two adjacent runs (PERF.md,
+// section 6); blocks of 8 or 16 warps were no faster.
 //
-// The order of the sums is the rows kernel's: lane l of a run sums the
-// channel groups i = l, l + 32, ... of NC channels each, in order (NC =
-// the rows kernel's vector: 16 bytes when C * itemsize is a multiple of
-// 16, else one channel), then the butterfly over the lanes. R is the
-// smallest power of two >= min(groups, 32); the rows kernel's butterfly
-// steps above R add zeros, which change no bit. So on the same values
-// the two kernels give the same bits (chip_smoke.py checks it).
-constexpr int kNchwWarps = 4;      // warps per block
-constexpr int kNchwCached = 16;    // plane vectors a lane keeps in registers
+// Design (the tile kernel): a block of kTileThreads threads takes a tile
+// of one image, kTileBytes (128) of each of its C planes, and stages it
+// through shared memory with 16-byte cp.async: eight neighbouring threads read one plane's 128 bytes, a
+// whole line, so every request is a full line of one plane. Then warp w
+// takes the 16-byte pixel vectors w, w + 8, ... of the tile and, as the
+// run kernel did, lane l sums the squares of the channel groups l, l + 32,
+// ... from shared memory, the butterfly gives the per-pixel sums, and lane
+// 0 puts the scales into shared memory. Last the threads take the tile
+// in the load's order again, scale each vector and write it, a full line
+// of a plane per eight threads. Vector (plane r, column q) sits at column q ^ ((r / NC)
+// & 7) of row r, so the eight lanes of a quarter warp, which read eight
+// channel groups of one column, hit eight different bank groups. The
+// registers hold nothing of the tile: a C of 1000 takes 125 KB of shared
+// memory and no second read. It needs vector pixels (H*W * itemsize a
+// multiple of 16, both pointers 16-byte aligned), at least one tile of
+// pixels a plane and C * tile bytes within kTileSmemMax; the run kernel
+// takes the rest (4x4 planes, odd H*W, unaligned pointers, C above 1500).
+// Tiles of 64 bytes (half lines) were slower at every ProGAN shape, 512
+// no faster, 256 faster at (16, 256, 64, 64) alone and slower at the other
+// three, and a grid of resident blocks that loaded the next tile while it
+// wrote the current one (two tiles of shared memory) slower than one tile
+// a block (PERF.md, section 6).
+//
+// The order of the sums is the rows kernel's, in both kernels: lane l of a
+// pixel sums the channel groups i = l, l + 32, ... of NC channels each, in
+// order (NC = the rows kernel's vector: 16 bytes when C * itemsize is a
+// multiple of 16, else one channel), then the butterfly over the lanes.
+// The tile kernel always reduces over 32 lanes, as the rows kernel does;
+// the run kernel takes R, the smallest power of two >= min(groups, 32),
+// and the rows kernel's butterfly steps above R add zeros, which change no
+// bit. So on the same values the kernels give the same bits (chip_smoke.py
+// checks it).
+constexpr int kNchwWarps = 4;      // run kernel: warps per block
+constexpr int kNchwCached = 16;    // run kernel: plane vectors a lane keeps
+constexpr int kTileThreads = 256;  // tile kernel: threads per block
+constexpr int kTileBytes = 128;    // tile kernel: bytes of each plane
+constexpr int kTileQ = kTileBytes / 16;   // its 16-byte vectors a plane
+constexpr int kTileSmemMax = 192 * 1024;  // tile kernel: the largest tile
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Tile kernel. NC: channels a group sums in order (see above). gridDim.x
+// = images * tiles_per_image; H*W is a multiple of V = 16 / sizeof(T).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kTileThreads)
+pixel_norm_nchw_tile_kernel(const T* __restrict__ x, T* __restrict__ o,
+                            long long tiles_per_image, long long hw, int c,
+                            float eps) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int QP = kTileQ;
+  using Ch = Chunk<T, V>;
+  static_assert(kTileThreads % QP == 0, "a thread keeps its column");
+  extern __shared__ uint4 tile[];            // c rows of QP vectors
+  __shared__ float scale[QP * V];
+  const long long img = blockIdx.x / tiles_per_image;
+  const long long p0 = (blockIdx.x - img * tiles_per_image) * (QP * V);
+  const int nq = static_cast<int>(min(static_cast<long long>(QP),
+                                      (hw - p0) / V));
+  const long long base = img * c * hw + p0;
+  // where vector (plane r, column q) sits in the tile
+  const auto at = [](int r, int q) {
+    return r * QP + (q ^ ((r / NC) & (QP - 1)));
+  };
+
+  // 1. the tile, a line of a plane per QP threads (q fixed per thread)
+  const int q_own = threadIdx.x % QP;
+  if (q_own < nq) {
+    for (int r = threadIdx.x / QP; r < c; r += kTileThreads / QP) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_u32(&tile[at(r, q_own)])),
+                   "l"(x + base + static_cast<long long>(r) * hw +
+                       q_own * V)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 2. per-pixel sums of squares in the rows kernel's order
+  const int lane = threadIdx.x & 31;
+  const int groups = c / NC;
+  float f[V];
+  for (int q = threadIdx.x >> 5; q < nq; q += kTileThreads / 32) {
+    float ss[V];
+#pragma unroll
+    for (int w = 0; w < V; ++w) ss[w] = 0.0f;
+    for (int i = lane; i < groups; i += 32) {
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        Ch::unpack(tile[at(NC * i + e, q)], f);
+#pragma unroll
+        for (int w = 0; w < V; ++w) ss[w] += f[w] * f[w];
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < V; ++w) {
+      const float s = warp_sum(ss[w]);
+      if (lane == 0) scale[q * V + w] = rsqrtf(s / static_cast<float>(c) + eps);
+    }
+  }
+  __syncthreads();
+
+  // 3. scale and write, in the load's order
+  if (q_own >= nq) return;
+  float sc[V];
+#pragma unroll
+  for (int w = 0; w < V; ++w) sc[w] = scale[q_own * V + w];
+  for (int r = threadIdx.x / QP; r < c; r += kTileThreads / QP) {
+    Ch::unpack(tile[at(r, q_own)], f);
+#pragma unroll
+    for (int w = 0; w < V; ++w) f[w] *= sc[w];
+    *reinterpret_cast<uint4*>(o + base + static_cast<long long>(r) * hw +
+                              q_own * V) = Ch::pack(f);
+  }
+}
+
+// Run kernel: R lanes of a warp own a run of W pixels (16 bytes of each
+// plane, or one pixel on the element path) and split its C planes between
+// them, each keeping up to kNchwCached of its vectors in registers (above
+// that it reads its planes a second time, from L1/L2); the sums are
+// reduced across the R lanes by __shfl_xor_sync.
 template <typename T, int W, int NC, bool CACHED>
 __global__ void __launch_bounds__(32 * kNchwWarps)
 pixel_norm_nchw_kernel(const T* __restrict__ x, T* __restrict__ o,
@@ -377,16 +484,21 @@ pixel_norm_nchw_kernel(const T* __restrict__ x, T* __restrict__ o,
   }
 }
 
-// How a call is cut, as chosen by nchw_plan: the pixel vector (W > 1),
-// the channel grouping of the rows kernel (NC > 1), the planes kept in
-// registers, and R = 1 << r_log2 lanes a run.
+// How a call is cut, as chosen by nchw_plan: the tile kernel's bytes of
+// each plane (0: the run kernel), the pixel vector (W > 1), the channel
+// grouping of the rows kernel (NC > 1), and for the run kernel the planes
+// kept in registers and R = 1 << r_log2 lanes a run.
 struct NchwPlan {
-  bool pix_vec, chan_vec, cached;
-  int r_log2;
+  bool ok, pix_vec, chan_vec, cached;
+  int r_log2, tile;
 };
 
+// tile: 0 chooses (the tile kernel where it takes the call, else the run
+// kernel); -1 asks for the run kernel; anything else is refused (ok =
+// false).
 template <typename T>
-NchwPlan nchw_plan(const void* x, const void* o, int c, long long hw) {
+NchwPlan nchw_plan(const void* x, const void* o, int c, long long hw,
+                   int tile) {
   constexpr int V = 16 / sizeof(T);
   const uintptr_t both =
       reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o);
@@ -399,7 +511,32 @@ NchwPlan nchw_plan(const void* x, const void* o, int c, long long hw) {
   p.cached = groups <= 32 * (kNchwCached / nc);
   p.r_log2 = 0;
   while ((1 << p.r_log2) < groups && p.r_log2 < 5) ++p.r_log2;
+  const bool takes =
+      p.pix_vec && static_cast<long long>(c) * kTileBytes <= kTileSmemMax &&
+      hw * static_cast<long long>(sizeof(T)) >= kTileBytes;
+  p.ok = tile == 0 || tile == -1;
+  p.tile = tile == 0 && takes ? kTileBytes : 0;
   return p;
+}
+
+template <typename T, int NC>
+cudaError_t run_tile(const void* x, void* o, long long n, int c, long long hw,
+                     float eps, int device, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int QP = kTileQ;
+  auto kernel = pixel_norm_nchw_tile_kernel<T, NC>;
+  static bool raised[64] = {};      // the shared-memory limit, per device
+  if (!raised[device & 63]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmemMax);
+    if (err != cudaSuccess) return err;
+    raised[device & 63] = true;
+  }
+  const long long per_image = (hw + QP * V - 1) / (QP * V);
+  kernel<<<static_cast<unsigned>(n * per_image), kTileThreads,
+           static_cast<size_t>(c) * QP * 16, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(o), per_image, hw, c, eps);
+  return cudaSuccess;
 }
 
 template <typename T, int W, int NC, bool CACHED>
@@ -429,10 +566,17 @@ void run_nchw(const NchwPlan& p, const void* x, void* o, long long n, int c,
 
 template <typename T>
 int launch_nchw(const void* x, void* o, long long n, int c, long long hw,
-                float eps, cudaStream_t stream) {
+                float eps, int tile, int device, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const NchwPlan p = nchw_plan<T>(x, o, c, hw);
-  if (p.pix_vec && p.chan_vec) {
+  const NchwPlan p = nchw_plan<T>(x, o, c, hw, tile);
+  cudaError_t err = cudaSuccess;
+  if (!p.ok) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (p.tile && p.chan_vec) {
+    err = run_tile<T, V>(x, o, n, c, hw, eps, device, stream);
+  } else if (p.tile) {
+    err = run_tile<T, 1>(x, o, n, c, hw, eps, device, stream);
+  } else if (p.pix_vec && p.chan_vec) {
     run_nchw<T, V, V>(p, x, o, n, c, hw, eps, stream);
   } else if (p.pix_vec) {
     run_nchw<T, V, 1>(p, x, o, n, c, hw, eps, stream);
@@ -441,6 +585,7 @@ int launch_nchw(const void* x, void* o, long long n, int c, long long hw,
   } else {
     run_nchw<T, 1, 1>(p, x, o, n, c, hw, eps, stream);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,34 +608,42 @@ extern "C" int ganlab_pixel_norm(const void* x, void* o, long long rows,
 }
 
 // x, o: (n, c, hw) contiguous (NCHW with hw = H * W), the same dtype;
-// normalizes over c for each (image, pixel).
+// normalizes over c for each (image, pixel). tile: 0 (the plan's choice)
+// or -1 (the run kernel, to measure the one against the other); any other
+// value returns cudaErrorInvalidValue.
 extern "C" int ganlab_pixel_norm_nchw(const void* x, void* o, long long n,
                                       int c, long long hw, float eps,
-                                      int dtype, int device, void* stream) {
+                                      int dtype, int tile, int device,
+                                      void* stream) {
   if (n <= 0 || c <= 0 || hw <= 0 || n * hw > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_nchw<float>(x, o, n, c, hw, eps, s);
-    case 1: return launch_nchw<__nv_bfloat16>(x, o, n, c, hw, eps, s);
-    case 2: return launch_nchw<__half>(x, o, n, c, hw, eps, s);
+    case 0: return launch_nchw<float>(x, o, n, c, hw, eps, tile, device, s);
+    case 1:
+      return launch_nchw<__nv_bfloat16>(x, o, n, c, hw, eps, tile, device, s);
+    case 2: return launch_nchw<__half>(x, o, n, c, hw, eps, tile, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The plan ganlab_pixel_norm_nchw takes for these pointers and sizes:
-// bit 0 pixel vector, bit 1 channel vector, bit 2 cached, bits 3-5 the
-// log2 of the lanes a run; -1 for an unknown dtype.
+// The plan ganlab_pixel_norm_nchw takes for these pointers, sizes and
+// `tile`: bit 0 pixel vector, bit 1 channel vector, bit 2 cached, bits 3-5
+// the log2 of the lanes a run (run kernel), bits 6-14 the tile kernel's
+// bytes of each plane (0: the run kernel); -1 for an unknown dtype or a
+// request the kernels cannot take.
 extern "C" int ganlab_pixel_norm_nchw_plan(const void* x, const void* o,
-                                           int c, long long hw, int dtype) {
+                                           int c, long long hw, int dtype,
+                                           int tile) {
   NchwPlan p;
   switch (dtype) {
-    case 0: p = nchw_plan<float>(x, o, c, hw); break;
-    case 1: p = nchw_plan<__nv_bfloat16>(x, o, c, hw); break;
-    case 2: p = nchw_plan<__half>(x, o, c, hw); break;
+    case 0: p = nchw_plan<float>(x, o, c, hw, tile); break;
+    case 1: p = nchw_plan<__nv_bfloat16>(x, o, c, hw, tile); break;
+    case 2: p = nchw_plan<__half>(x, o, c, hw, tile); break;
     default: return -1;
   }
+  if (!p.ok) return -1;
   return (p.pix_vec ? 1 : 0) | (p.chan_vec ? 2 : 0) | (p.cached ? 4 : 0) |
-         (p.r_log2 << 3);
+         (p.r_log2 << 3) | (p.tile << 6);
 }

@@ -5,7 +5,7 @@ Replaces ``ganlab_tpu/ops/pallas/adain.py::adain_pallas`` (``_impl`` /
 formula, float32), ``r = rsqrt(var + eps)``, ``y = (x - mean) * r * s + b``,
 output in x's dtype. The JAX package runs its kernel only where a
 per-image tile fits VMEM; this one takes every shape the synthesis network
-makes, planes of 4x4 up to 256x256, and any other.
+makes, planes of 4x4 up to 1024x1024, and any other.
 
 Bound: memory. The function needs one read and one write of x (plus the
 (N, C) styles), a handful of flops per element, so the least time is those
@@ -20,14 +20,24 @@ planes a call cost what Triton's Python launcher costs the host.
 Design: the kernel is ``csrc/adain.cu``, built by ``_build`` with nvcc and
 called through its plain C interface with the trimmed wrapper that
 pixelnorm uses. x is NCHW-contiguous, so each (n, c) plane is one
-contiguous run of H*W elements; it is loaded once with 16-byte loads and
-stays in registers through both reductions and the write: a group of
-lanes of a warp per plane up to 32x32, a block per plane above that, a
-thread block cluster per plane (partial sums exchanged through distributed
-shared memory) where one block's registers cannot hold it; a looped path
-takes every other shape and unaligned pointers. ``adain_path`` tells which
-path a call takes. The sums are taken in another order than the plain
-version's, so float32 agrees with it to rounding, not bit for bit.
+contiguous run of H*W elements. Where it fits it is read once with 16-byte
+loads and held on chip through both reductions and the write: a group of
+lanes of a warp per plane up to 32x32, one block per plane up to 256x256
+in 16-bit types, and above that a thread block cluster per plane, up to 16
+blocks of 512 threads, each holding 64 KiB of its slice in registers and
+the rest (1024x1024: 64 KiB in 16-bit types, 192 KiB in float32) in
+shared memory, loaded by bulk asynchronous copies; the partial sums are
+exchanged through distributed shared memory. Planes larger than 16 such
+blocks hold (above about 4.5 MiB; no preset makes one) take the split
+path: two launches, the first reducing slices of the plane to their mean
+and M2 in a scratch that the wrapper allocates, the second combining them
+in slice order by Chan's formula and writing. A looped path takes shapes
+that are no multiple of a vector and unaligned pointers. The wrapper asks
+the library for its plan only where a plane is above 128 KiB or a path is
+forced: a smaller plane never takes the split path, so its call is one
+``ctypes`` call to the kernel. ``adain_path`` tells which path a call
+takes. The sums are taken in another order than the plain version's, so
+float32 agrees with it to rounding, not bit for bit.
 
 ``AdaIN`` is the autograd Function: forward is the kernel (CUDA) or the
 plain version (CPU); backward is the analytic VJP of the JAX package's
@@ -44,7 +54,13 @@ import torch
 from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_PATHS = ("loop", "warp", "block", "cluster")
+_PATHS = ("loop", "warp", "block", "cluster", "split")
+_FORCE = {"loop": 0, "block": 2, "cluster": 3, "split": 4}
+# the kernel's own plan for a plane of up to this many bytes (8192 16-byte
+# vectors) is the warp, block or loop path, none of which needs a scratch;
+# above it the plan may be the split path (also where the device cannot
+# schedule the cluster), so the wrapper asks the library
+_SMALL_PLANE_BYTES = 8192 * 16
 
 
 @functools.cache
@@ -53,11 +69,40 @@ def _fn(symbol: str):
     fn = getattr(_build.library("adain").lib, symbol)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = {
-        "ganlab_adain": [p, p, p, p, ll, ll, ctypes.c_float, i, i, i, i, i, i,
-                         p],
-        "ganlab_adain_path": [p, p, ll, i, i, i]}[symbol]
+        "ganlab_adain": [p, p, p, p, p, ll, ll, ctypes.c_float, i, i, i, i,
+                         i, i, i, p],
+        "ganlab_adain_plan": [i, ll, i, i, i, i, i,
+                              ctypes.POINTER(ctypes.c_int)]}[symbol]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _request(path, threads: int, cluster: int) -> int:
+    """The C library's path code for a forced or chosen path; ``threads``
+    or ``cluster`` alone force the block path (cluster 1) or the cluster
+    path."""
+    if path is None:
+        return -1 if threads == 0 and cluster == 0 else \
+            _FORCE["block" if cluster == 1 else "cluster"]
+    if path not in _FORCE:
+        raise ValueError(f"adain: path must be one of {tuple(_FORCE)}, got "
+                         f"{path!r}")
+    return _FORCE[path]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(aligned: bool, hw: int, dtype: int, code: int, threads: int,
+          cluster: int, device: int) -> tuple[int, ...]:
+    """The C library's plan: (path, threads, vectors a thread, blocks a
+    plane, vectors a block, shared-memory bytes a block); raises
+    ValueError where it refuses."""
+    out = (ctypes.c_int * 6)()
+    if _fn("ganlab_adain_plan")(int(aligned), hw, dtype, code, threads,
+                                cluster, device, out) != 0:
+        raise ValueError(f"adain: the kernel cannot take planes of {hw} "
+                         f"elements as asked (path code {code}, threads "
+                         f"{threads}, cluster {cluster})")
+    return tuple(out)
 
 
 def adain_ref(x: torch.Tensor, style_scale: torch.Tensor,
@@ -104,13 +149,18 @@ def _check(x, style_scale, style_bias):
 
 def adain_cuda(x: torch.Tensor, style_scale: torch.Tensor,
                style_bias: torch.Tensor, eps: float = 1e-8, *,
-               threads: int = 0, cluster: int = 0) -> torch.Tensor:
+               path: str | None = None, threads: int = 0,
+               cluster: int = 0) -> torch.Tensor:
     """Launch the kernel: x (N, C, H, W) and styles (N, C), all CUDA.
 
-    ``threads`` and ``cluster`` (0: the kernel's own choice) force the
-    block path (``cluster=1``) or the cluster path with that many threads
-    a block and blocks a plane, to measure one against the other; a
-    request that cannot hold the plane in registers raises.
+    ``path``, ``threads`` and ``cluster`` (None / 0: the kernel's own
+    choice) force a path to measure one against another: "block" (one
+    block a plane, ``threads`` wide), "cluster" (a cluster of ``cluster``
+    blocks of ``threads``, the plane in registers and what does not fit
+    in shared memory; ``threads`` or ``cluster`` alone force the same,
+    cluster 1 the block path), "split" (slices of ``threads`` x 8
+    vectors, two launches) or "loop". A request the kernel cannot take
+    raises.
     """
     _check(x, style_scale, style_bias)
     out = torch.empty_like(x)
@@ -118,15 +168,24 @@ def adain_cuda(x: torch.Tensor, style_scale: torch.Tensor,
         return out
     n, c, h, w = x.shape
     index = x.device.index
+    code = _request(path, threads, cluster)
+    scratch = None
+    if code != -1 or h * w * x.element_size() > _SMALL_PLANE_BYTES:
+        plan = _plan((x.data_ptr() | out.data_ptr()) % 16 == 0, h * w,
+                     _DTYPE_CODE[x.dtype], code, threads, cluster, index)
+        if _PATHS[plan[0]] == "split":
+            scratch = torch.empty(n * c * plan[3] * 2, dtype=torch.float32,
+                                  device=x.device)
     err = _fn("ganlab_adain")(
         x.data_ptr(), style_scale.data_ptr(), style_bias.data_ptr(),
-        out.data_ptr(), n * c, h * w, eps, _DTYPE_CODE[x.dtype],
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        n * c, h * w, eps, _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[style_scale.dtype], _DTYPE_CODE[style_bias.dtype],
-        threads, cluster, index, stream_handle(index))
+        code, threads, cluster, index, stream_handle(index))
     if err != 0:
         raise RuntimeError(f"adain kernel launch failed: CUDA error {err} at "
-                           f"shape {tuple(x.shape)} (threads {threads}, "
-                           f"cluster {cluster})")
+                           f"shape {tuple(x.shape)} (path {path}, threads "
+                           f"{threads}, cluster {cluster})")
     adain_cuda.launches += 1
     return out
 
@@ -134,24 +193,25 @@ def adain_cuda(x: torch.Tensor, style_scale: torch.Tensor,
 adain_cuda.launches = 0
 
 
-def adain_path(x: torch.Tensor, out: torch.Tensor, *, threads: int = 0,
+def adain_path(x: torch.Tensor, out: torch.Tensor, *,
+               path: str | None = None, threads: int = 0,
                cluster: int = 0) -> str:
     """Which path of the kernel this input and output take and how it is
-    cut: "warp 8 lanes x 1", "block 512 x 4", "cluster 4 x 512 x 4"
-    (blocks x threads x 16-byte vectors a thread) or "loop". Launches
-    nothing."""
+    cut: "warp 8 lanes x 1", "block 512 x 4" (threads x 16-byte vectors a
+    thread), "cluster 16 x 512 x 8 + 64 KiB" (blocks x threads x vectors a
+    thread in registers, + shared memory a block where the registers do
+    not hold the slice), "split 32 x 512 x 8" (slices x threads x vectors
+    a thread) or "loop". Launches nothing."""
     check_input("adain", x, dtypes=_DTYPE_CODE, ndim=4)
-    code = _fn("ganlab_adain_path")(
-        x.data_ptr(), out.data_ptr(), x.shape[2] * x.shape[3],
-        _DTYPE_CODE[x.dtype], threads, cluster)
-    if code < 0:
-        raise ValueError(f"adain: threads {threads}, cluster {cluster} "
-                         f"cannot hold a plane of {tuple(x.shape)}")
-    path = _PATHS[code & 3]
-    blocks, k, width = 1 << (code >> 2 & 3), 1 << (code >> 4 & 3), code >> 6
+    code = _request(path, threads, cluster)
+    kind, width, k, blocks, _, smem = _plan(
+        (x.data_ptr() | out.data_ptr()) % 16 == 0, x.shape[2] * x.shape[3],
+        _DTYPE_CODE[x.dtype], code, threads, cluster, x.device.index)
     return {"loop": "loop", "warp": f"warp {width} lanes x {k}",
             "block": f"block {width} x {k}",
-            "cluster": f"cluster {blocks} x {width} x {k}"}[path]
+            "cluster": f"cluster {blocks} x {width} x {k}"
+            + (f" + {smem // 1024} KiB" if smem else ""),
+            "split": f"split {blocks} x {width} x {k}"}[_PATHS[kind]]
 
 
 class AdaIN(torch.autograd.Function):

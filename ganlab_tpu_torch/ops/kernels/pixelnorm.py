@@ -25,10 +25,16 @@ longer than PyTorch's dispatcher needs for ``F.rms_norm``.
 Design: both kernels are in ``csrc/pixelnorm.cu``, built by ``_build`` with
 nvcc and called through their plain C interface. Rows: one warp per row,
 16-byte loads, the row kept in registers, the sum of squares by warp
-shuffles, no shared memory. NCHW: a run of 16 bytes of pixels of one image,
-its C planes split between the lanes of a warp and kept in registers, the
-per-pixel sums reduced by shuffles in the rows kernel's order (so the two
-give the same bits on the same values); nothing is permuted. The wrapper
+shuffles, no shared memory. NCHW (redesigned for C >= 256, where the
+first design's warps read 16 bytes of each of 32 planes a request): a
+block stages a tile of 128 bytes of each of the C planes of one image
+through shared memory, eight threads a full line of a plane, then takes
+the per-pixel sums from shared memory in the rows kernel's order (so the
+two give the same bits on the same values) and writes the tile back a line
+at a time; nothing is permuted. The first design (a run of 16 bytes of
+pixels, its planes split between the lanes of a warp and kept in
+registers) stays for what the tile does not take: element pixels, planes
+under a tile, C above 1500. The wrapper
 does as little as it can per call: each ``ctypes`` function with its
 argument types is looked up once, the C function itself switches device
 (only when the tensor is not on the current one), and the stream handle is
@@ -62,8 +68,8 @@ def _fn(symbol: str = "ganlab_pixel_norm"):
                    ctypes.c_float)
     fn.argtypes = {
         "ganlab_pixel_norm": [p, p, ll, i, f, i, i, p],
-        "ganlab_pixel_norm_nchw": [p, p, ll, i, ll, f, i, i, p],
-        "ganlab_pixel_norm_nchw_plan": [p, p, i, ll, i]}[symbol]
+        "ganlab_pixel_norm_nchw": [p, p, ll, i, ll, f, i, i, i, p],
+        "ganlab_pixel_norm_nchw_plan": [p, p, i, ll, i, i]}[symbol]
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,9 +127,17 @@ def pixel_norm_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return out
 
 
-def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Launch the channel kernel on a contiguous CUDA (N, C, H, W) tensor."""
+def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8, *,
+                         tile: int = 0) -> torch.Tensor:
+    """Launch the channel kernel on a contiguous CUDA (N, C, H, W) tensor.
+
+    ``tile`` is 0 (the kernel's own plan) or -1 (the run kernel, to measure
+    the first design against the plan's choice); any other value raises.
+    """
     check_input("pixel_norm_nchw", x, ndim=4, dtypes=_DTYPE_CODE)
+    if tile not in (0, -1):
+        raise ValueError(f"pixel_norm_nchw: tile must be 0 or -1, got "
+                         f"{tile!r}")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -131,7 +145,7 @@ def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     index = x.device.index
     _raise_on(_fn("ganlab_pixel_norm_nchw")(
         x.data_ptr(), out.data_ptr(), n, c, h * w, eps,
-        _DTYPE_CODE[x.dtype], index, stream_handle(index)),
+        _DTYPE_CODE[x.dtype], tile, index, stream_handle(index)),
         "pixel_norm_nchw", x)
     pixel_norm_cuda.launches += 1
     pixel_norm_nchw_cuda.launches += 1
@@ -142,17 +156,25 @@ pixel_norm_cuda.launches = 0
 pixel_norm_nchw_cuda.launches = 0
 
 
-def pixel_norm_nchw_path(x: torch.Tensor, out: torch.Tensor) -> str:
-    """The plan the channel kernel takes for these tensors (as the C
-    library chooses it): pixel and channel vectors, whether the planes
-    stay in registers, and the lanes that share a run."""
+def pixel_norm_nchw_path(x: torch.Tensor, out: torch.Tensor, *,
+                         tile: int = 0) -> str:
+    """The plan the channel kernel takes for these tensors and ``tile`` (0
+    or -1, as the C library chooses it): the tile kernel and its bytes of
+    each plane ("tile 128 B, vector channel groups"), or the run kernel with
+    its pixel and channel vectors, whether the planes stay in registers,
+    and the lanes that share a run. Launches nothing."""
     plan = _fn("ganlab_pixel_norm_nchw_plan")(
         x.data_ptr(), out.data_ptr(), x.shape[1],
-        x.shape[2] * x.shape[3], _DTYPE_CODE[x.dtype])
-    return (f"{'vector' if plan & 1 else 'element'} pixels, "
-            f"{'vector' if plan & 2 else 'single'} channel groups, "
+        x.shape[2] * x.shape[3], _DTYPE_CODE[x.dtype], tile)
+    if plan < 0:
+        raise ValueError(f"pixel_norm_nchw: tile must be 0 or -1, got "
+                         f"{tile!r}")
+    groups = f"{'vector' if plan & 2 else 'single'} channel groups"
+    if plan >> 6:
+        return f"tile {plan >> 6} B, {groups}"
+    return (f"{'vector' if plan & 1 else 'element'} pixels, {groups}, "
             f"{'cached' if plan & 4 else 'two reads'}, "
-            f"{1 << (plan >> 3)} lanes a run")
+            f"{1 << (plan >> 3 & 7)} lanes a run")
 
 
 class PixelNorm(torch.autograd.Function):

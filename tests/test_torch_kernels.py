@@ -195,6 +195,16 @@ def test_blur_downsample_paths_on_card(cuda, shape, path, gain, dtype):
         assert torch.equal(out, out_u)
 
 
+def _adain_want(x, s, b, planes):
+    """What AdaIN must give: the plain version, or on constant planes the
+    bias itself (x - mean is 0). The plain version's mean is the sum times
+    1/HW, one ulp off where HW is no power of two (1000x1048), and
+    rsqrt(var + eps) = 1e4 makes that ~1e-3 of the output."""
+    if planes == "constant":
+        return b[:, :, None, None].expand_as(x)
+    return adain_ref(x, s, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -207,13 +217,24 @@ def test_blur_downsample_paths_on_card(cuda, shape, path, gain, dtype):
     ((2, 3, 48, 48), "block"),       # a block whose last vectors are ragged
     ((1, 2, 128, 128), "block"),
     ((1, 2, 256, 256), {torch.float32: "cluster"}),  # 16-bit types: a block
-], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+    ((1, 2, 512, 512), "cluster"),
+    # 16 blocks, part of each slice in shared memory
+    ((1, 2, 1024, 1024), "cluster"),
+    ((1, 2, 724, 728), "cluster"),   # vectors that 16 blocks split unevenly
+    ((1, 2, 1000, 1048), "cluster"),
+    ((1, 1, 2048, 2048), "split"),   # too large for a cluster
+    # float32: 4096 slices that end ragged; 16-bit types: a cluster
+    ((1, 2, 1000, 2100), ({torch.float32: "split"}, "cluster")),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple)
+    and isinstance(v[0], int) else None)
 def test_adain_paths_on_card(cuda, shape, path, planes, dtype):
     """Each path of the AdaIN kernel against the plain version, also from
     an unaligned pointer (the loop path), on random planes, constant
     planes (the output is the bias, bit for bit) and planes whose mean is
     far above their spread (where a one-pass variance fails)."""
-    if isinstance(path, dict):
+    if isinstance(path, tuple):
+        path = path[0].get(dtype, path[1])
+    elif isinstance(path, dict):
         path = path.get(dtype, "block")
     tol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6,
            torch.float16: 2 ** -9}[dtype]
@@ -224,7 +245,7 @@ def test_adain_paths_on_card(cuda, shape, path, planes, dtype):
         x = x.to(dtype)
         s = (1 + _randn(shape[:2], torch.float32, 9, cuda)).to(dtype)
         b = _randn(shape[:2], dtype, 10, cuda)
-        want = adain_ref(x, s, b)
+        want = _adain_want(x, s, b, planes)
         atol = tol * want.abs().max().item()
         out = adain_cuda(x, s, b)
         assert adain_path(x, out).split()[0] == path
@@ -236,6 +257,78 @@ def test_adain_paths_on_card(cuda, shape, path, planes, dtype):
         if planes == "constant":
             assert torch.equal(out, b[:, :, None, None].expand_as(out))
             assert torch.equal(out_u, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", ["random", "constant", "large mean"])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (1, 1, 4608, 4096)),     # 72 MiB: 1152 slices
+    (torch.bfloat16, (1, 1, 8192, 4608)),    # 72 MiB: 1152 slices
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+def test_adain_split_large_planes_on_card(cuda, dtype, shape, planes):
+    """Planes above 64 MiB take the split path with more slices than one
+    round of staged partials holds, against the plain version (float32
+    1e-5, bf16 2**-6 of the scale); constant planes give the bias bit for
+    bit. (No unaligned copy: its loop path gives the plane to one block.)"""
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}[dtype]
+    with torch.inference_mode():
+        noise = _randn(shape, torch.float32, 27, cuda)
+        x = {"random": 0.5 + 2 * noise, "large mean": 1000 + 16 * noise,
+             "constant": torch.full(shape, 1.5, device=cuda)}[planes]
+        x = x.to(dtype)
+        s = (1 + _randn(shape[:2], torch.float32, 28, cuda)).to(dtype)
+        b = _randn(shape[:2], dtype, 29, cuda)
+        want = _adain_want(x, s, b, planes)
+        out = adain_cuda(x, s, b)
+        assert adain_path(x, out) == "split 1152 x 512 x 8"
+        torch.testing.assert_close(out, want, rtol=0,
+                                   atol=tol * want.abs().max().item())
+        if planes == "constant":
+            assert torch.equal(out, b[:, :, None, None].expand_as(out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("planes", ["random", "constant", "large mean"])
+@pytest.mark.parametrize("shape,cuts", [
+    ((1, 2, 1024, 1024), [dict(path="split", threads=t) for t in
+                          (256, 512, 1024)]
+     + [dict(path="cluster", cluster=16, threads=t) for t in
+        (256, 512, 1024)]
+     + [dict(path="loop")]),
+    ((2, 3, 512, 512), [dict(path="cluster", cluster=c) for c in (4, 8, 16)]
+     + [dict(path="split", threads=256)]),
+    # 65884 vectors (bf16): ragged over 16 blocks and over slices of 2048
+    ((1, 2, 724, 728), [dict(path="split", threads=256),
+                        dict(path="cluster", cluster=16, threads=256)]),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+def test_adain_forced_paths_on_card(cuda, shape, cuts, planes, dtype):
+    """The cluster and split paths forced at other cuts than the plan's,
+    beside the loop path, against the plain version (float32 1e-5, bf16
+    2**-6, f16 2**-9 of the scale); constant planes give the bias bit for
+    bit. A cluster of 4 blocks cannot hold a 1024x1024 plane (its slices
+    would need more than 224 KiB of shared memory): asking for it raises."""
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6,
+           torch.float16: 2 ** -9}[dtype]
+    with torch.inference_mode():
+        noise = _randn(shape, torch.float32, 17, cuda)
+        x = {"random": 0.5 + 2 * noise, "large mean": 1000 + 16 * noise,
+             "constant": torch.full(shape, 1.5, device=cuda)}[planes]
+        x = x.to(dtype)
+        s = (1 + _randn(shape[:2], torch.float32, 18, cuda)).to(dtype)
+        b = _randn(shape[:2], dtype, 19, cuda)
+        want = _adain_want(x, s, b, planes)
+        atol = tol * want.abs().max().item()
+        if shape[2] == 1024:
+            with pytest.raises(ValueError):
+                adain_cuda(x, s, b, path="cluster", cluster=4)
+        for cut in cuts:
+            out = adain_cuda(x, s, b, **cut)
+            assert adain_path(x, out, **cut).split()[0] == cut["path"]
+            torch.testing.assert_close(out, want, rtol=0, atol=atol)
+            if planes == "constant":
+                assert torch.equal(out, b[:, :, None, None].expand_as(out))
 
 
 @pytest.mark.gpu
@@ -299,21 +392,30 @@ def test_minibatch_stddev_paths_on_card(cuda, shape, path, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("shape,plan", [
+    # the run kernel: planes under a tile, odd H*W
     ((16, 512, 4, 4), "vector pixels, vector channel groups, cached"),
-    ((4, 256, 16, 16), "vector pixels, vector channel groups, cached"),
-    ((2, 128, 32, 32), "vector pixels, vector channel groups, cached"),
-    ((3, 1000, 4, 8), "vector pixels, vector channel groups, two reads"),
-    ((2, 3, 8, 8), "vector pixels, single channel groups, cached"),
+    ((3, 1000, 4, 4), "vector pixels, vector channel groups, two reads"),
+    ((2, 3, 4, 4), "vector pixels, single channel groups, cached"),
     ((2, 512, 7, 7), "element pixels, vector channel groups, cached"),
     ((3, 5, 1, 1), "element pixels, single channel groups, cached"),
     ((2, 600, 3, 5), "element pixels, vector channel groups, two reads"),
+    # the tile kernel, also at C = 256, 512 and 1000 with H*W that ends
+    # the last tile ragged (72 and 120 pixels)
+    ((4, 256, 16, 16), "tile 128 B, vector channel groups"),
+    ((2, 128, 32, 32), "tile 128 B, vector channel groups"),
+    ((3, 1000, 4, 8), "tile 128 B, vector channel groups"),
+    ((2, 3, 8, 8), "tile 128 B, single channel groups"),
+    ((2, 256, 9, 8), "tile 128 B, vector channel groups"),
+    ((3, 512, 10, 12), "tile 128 B, vector channel groups"),
+    ((2, 1000, 6, 20), "tile 128 B, vector channel groups"),
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple)
     else v.split(",")[0].replace(" ", "-"))
 def test_pixel_norm_nchw_on_card(cuda, shape, plan, dtype):
-    """The channel kernel on each of its plans against the plain version
+    """The channel kernels on each of their plans against the plain version
     (float32 1e-5, bf16 2**-6, f16 2**-9 of the scale), also from an
     unaligned pointer (element pixels), and bit for bit against the rows
-    kernel on the same values transposed to (N*H*W, C)."""
+    kernel on the same values transposed to (N*H*W, C), and against the
+    run kernel forced on the same values."""
     tol = 1e-5 if dtype == torch.float32 else \
         2 ** -6 if dtype == torch.bfloat16 else 2 ** -9
     n, c, h, w = shape
@@ -333,6 +435,7 @@ def test_pixel_norm_nchw_on_card(cuda, shape, plan, dtype):
         out_u = pixel_norm_nchw_cuda(xu)
         assert pixel_norm_nchw_path(xu, out_u).startswith("element")
         assert torch.equal(out_u, out)
+        assert torch.equal(pixel_norm_nchw_cuda(x, tile=-1), out)
 
 
 @pytest.mark.gpu
