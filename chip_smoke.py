@@ -106,9 +106,29 @@ Phases (any failure raises and the script exits non-zero):
    ``progan-64`` (R1 every step) and ``resnetgan-cifar10`` (WGAN-GP,
    batch 64, ``synthetic``) for 24 steps each; ``resnetgan-cifar10`` with
    ``loss.d_steps_per_g=5``, G changing only on every fifth step.
-10. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
+10. StyleGAN2 at full width (``stylegan2-256``: modulated convs, skip
+    G, residual D, path-length regularization; bf16, seeded random
+    weights with every term live, the toRGB and style affine weights
+    perturbed): ``BatchSampler`` at batch 32 (launches per batch as
+    derived: 1 pixelnorm, 12 up+blur; a float32 pair card vs CPU; img/s,
+    latency, idle share); ``cli train --preset stylegan2-256`` on the
+    preset's own ``synthetic`` data at its batch of 8 for 48 steps, R1 at
+    0, 16, 32 and path length every 4th (three step programs), every
+    step's launches against ``stylegan2_step_launches``, ``pl_penalty`` >
+    0 exactly on PL steps, ``pl_mean`` off 0, ms per step of each program,
+    img/s per 16-step cycle, peak memory; resume bit for bit across the
+    R1 + PL step 48; one step of each program profiled, the PL term's
+    forward and outer backward timed, the backward's share in cuDNN's
+    convolutions; an R1 + PL step of a narrow 32² model in float32 card
+    vs CPU (1e-3 of each leaf's scale, the mapping layers included);
+    ``cli sample`` and ``cli eval-ppl --space w`` (64 pairs at 256²).
+    Phase 3 checks and times the kernels at every StyleGAN2 shape (the
+    3-channel skip RGBs at batch 32, 8 and 4, the residual D's blur+downs
+    at batch 8) and phase 4 adds a path-length-shaped second derivative
+    through the resample Functions.
+11. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
     weights), ms per 64 images.
-11. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+12. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -138,7 +158,6 @@ from ganlab_tpu_torch import cli as port_cli
 from ganlab_tpu_torch import models as port_models
 from ganlab_tpu_torch import ops as port_ops
 from ganlab_tpu_torch.data import make_source
-from ganlab_tpu_torch.models.stylegan import noise_shapes
 from ganlab_tpu_torch.ops.kernels import _build
 from ganlab_tpu_torch.ops.kernels.adain import (
     adain_cuda,
@@ -411,6 +430,88 @@ def progan_step_launches(mc, res_log2=None, batch=16) -> dict:
     return total
 
 
+def _sg2_shapes(mc, lg: int, batch: int) -> dict:
+    """The resample shapes of a StyleGAN2 G at 2^lg and ``batch``: the
+    up+blur inputs of the blocks' features (``x_up``) and of the skip RGBs
+    (``rgb_up``), and the up+blur outputs (``x_dn``, ``rgb_dn``), where
+    their backwards (blur+down) read."""
+    out = {"x_up": {}, "rgb_up": {}, "x_dn": {}, "rgb_dn": {}}
+    for l in range(3, lg + 1):
+        for key, c in (("x", mc.nf(l - 2)), ("rgb", mc.img_channels)):
+            _add(out, {f"{key}_up": {(batch, c, 2 ** (l - 1),
+                                      2 ** (l - 1)): 1},
+                       f"{key}_dn": {(batch, c, 2 ** l, 2 ** l): 1}})
+    return out
+
+
+def stylegan2_serving_launches(mc, res_log2=None, batch=BATCH) -> dict:
+    """kernel -> {shape: launches} of one StyleGAN2 G forward from z: one
+    pixelnorm over the batch's z, one up+blur per block (its features) and
+    one per skip RGB, from 8x8 up."""
+    lg = mc.res_log2 if res_log2 is None else res_log2
+    sh = _sg2_shapes(mc, lg, batch)
+    total = {"pixelnorm": {(batch, mc.latent_dim): 1}}
+    _add(total, {"upsample_blur_2x": sh["x_up"]})
+    _add(total, {"upsample_blur_2x": sh["rgb_up"]})
+    return total
+
+
+def stylegan2_step_launches(mc, r1: bool, pl: bool, res_log2=None,
+                            batch=8, pl_batch=4) -> dict:
+    """kernel -> {shape: launches} of one StyleGAN2 training step at
+    2^res_log2, ``batch`` and the path-length batch ``pl_batch``, derived
+    from the model's structure and the step's code.
+
+    * G forward: one pixelnorm over the 2B rows of concat([z1, z2]); one
+      up+blur per synthesis block and one per skip RGB (from 8x8 up);
+    * D forward (residual blocks where ``mc.d_resnet``): one blur+down per
+      branch of each block, one mbstd;
+    * D backward: each blur+down's backward is UpsampleBlur2x at the
+      block's output shape; G backward: each up+blur's backward is
+      BlurDownsample2x at its output shape; pixelnorm's and mbstd's
+      backwards are plain PyTorch.
+
+    D phase: G forward (no grad), D on real and on fake, one backward of
+    both. G phase: G forward, D forward, backward through D into G. R1
+    adds what it adds in ``step_launches``. Path length (``pl``) adds, at
+    ``pl_batch``: the mapping's pixelnorm and the synthesis forward; the
+    gradient with respect to the styles (create_graph), a backward of
+    every up+blur; and in the outer backward the backward of each
+    first-order node that carries a gradient with a graph (the blocks'
+    features: up+blur again) and of the forward up+blur of the features,
+    which the first-order graph reads (blur+down). The skip RGBs'
+    first-order backwards act on the projection alone, which has no
+    graph, so the outer backward passes neither them nor the forward's
+    RGB upsamples."""
+    lg = mc.res_log2 if res_log2 is None else res_log2
+    per = 2 if mc.d_resnet else 1
+    sh = _sg2_shapes(mc, lg, batch)
+    d_dn = {s: per for s in sh["x_dn"]}
+    d_up = {s: per for s in sh["x_up"]}
+    g_fwd = stylegan2_serving_launches(mc, lg, batch)
+    g_fwd["pixelnorm"] = {(2 * batch, mc.latent_dim): 1}
+    d_fwd = {"blur_downsample_2x": d_dn,
+             "minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
+    d_bwd = {"upsample_blur_2x": d_up}
+    g_bwd = {"blur_downsample_2x": sh["x_dn"]}
+    parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,      # D phase
+             g_fwd, d_fwd, d_bwd, g_bwd,             # G phase
+             {"blur_downsample_2x": sh["rgb_dn"]}]
+    if r1:
+        parts += [d_fwd, d_bwd, {"blur_downsample_2x": d_dn}, d_bwd]
+    if pl:
+        p = _sg2_shapes(mc, lg, pl_batch)
+        parts += [stylegan2_serving_launches(mc, lg, pl_batch),
+                  {"blur_downsample_2x": p["x_dn"]},
+                  {"blur_downsample_2x": p["rgb_dn"]},
+                  {"upsample_blur_2x": p["x_up"]},
+                  {"blur_downsample_2x": p["x_dn"]}]
+    total: dict = {}
+    for part in parts:
+        _add(total, part)
+    return total
+
+
 def kernel_units(launches: dict) -> dict:
     """A step's launches by the shapes each kernel entry checks and times:
     the pixelnorm entry times the rows kernel on its (rows, C) shapes, the
@@ -602,6 +703,9 @@ SERVED_1K, STEP_1K = "1024 served batch", "1024 R1-off step"
 PG_STEP_64 = "progan-128 step at 64x64"
 PG_STEP_128 = "progan-128 step at 128x128"
 PG_SERVED = "progan-128 served batch"
+SG2_SERVED = "stylegan2-256 served batch"
+SG2_STEP = "stylegan2-256 step (R1 off, PL off)"
+SG2_PL_STEP = "stylegan2-256 PL step"
 SMALL_MS = 0.05                # below this a timing is read five more times
 SLOW_MS = 1.0                  # above this a library call is read fewer times
 
@@ -1046,12 +1150,16 @@ def phase_kernels(units: dict) -> dict:
 
 # -- 5. serving path -------------------------------------------------------
 def make_sampler(cfg) -> BatchSampler:
-    """Full-width G with seeded random weights; every term made live."""
+    """Full-width G with seeded random weights; every term made live (for
+    StyleGAN2 also the toRGB and style affine weights perturbed)."""
     torch.manual_seed(0)
     sd = build_generator(cfg.model).state_dict()
     gen = torch.Generator().manual_seed(1)
+    sg2 = cfg.model.model == "stylegan2"
     for k, v in sd.items():
-        if k.endswith(("noise.scale", ".bias", ".b")):
+        if k.endswith(("noise.scale", ".bias", ".b")) or (sg2 and (
+                k.endswith("affine.w") or (".torgb" in k and
+                                           k.endswith(".w")))):
             v += 0.2 * torch.randn(v.shape, generator=gen)
     w_avg = 0.5 * torch.randn(cfg.model.latent_dim, generator=gen)
     return BatchSampler(cfg, params=sd, w_avg=w_avg, batch_size=BATCH)
@@ -1060,6 +1168,45 @@ def make_sampler(cfg) -> BatchSampler:
 def reset_counts():
     for k in KERNELS.values():
         k["kernel"].launches = 0
+
+
+def serving_speed(sampler) -> dict:
+    """Batch latency of 8 requests of one batch (median, max; host clock,
+    each ends in a host copy), then img/s over one request of 8 batches."""
+    lat = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        sampler.generate(BATCH, seed=100 + i)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    sampler.generate(8 * BATCH, seed=200)
+    return dict(img_per_s=8 * BATCH / (time.perf_counter() - t0),
+                batch_ms_median=statistics.median(lat), batch_ms_max=max(lat))
+
+
+def f32_card_vs_cpu(preset: str, sampler) -> float:
+    """Two images of the sampler's G in float32 (TF32 off), on the card and
+    on the CPU from the same z and explicit noise maps (the family's);
+    fails above IMAGE_ATOL. Returns the largest difference."""
+    cfg32 = get_config(preset, **{"run.compute_dtype": "float32"})
+    s32 = build_sample_fn(cfg32, sampler.res_log2)
+    gcpu = torch.Generator().manual_seed(3)
+    z2 = torch.randn(2, cfg32.model.latent_dim, generator=gcpu)
+    noises = [torch.randn(2, 1, h, w, generator=gcpu)
+              for h, w in port_models.noise_shapes(cfg32.model,
+                                                   sampler.res_log2)]
+    with torch.inference_mode():
+        on_card = s32(sampler.g, sampler.w_avg, z2.cuda(), None, 0.7, 1.0,
+                      [n.cuda() for n in noises]).cpu()
+        g_cpu = copy.deepcopy(sampler.g).cpu()
+        on_cpu = s32(g_cpu, sampler.w_avg.cpu(), z2, None, 0.7, 1.0, noises)
+    err = (on_card - on_cpu).abs().max().item()
+    log(f"{preset}: f32 card vs CPU on 2 images ({len(noises)} noise maps): "
+        f"max_abs {err:.3e} (tol {IMAGE_ATOL:g}), image std "
+        f"{on_cpu.std().item():.3f}")
+    if not err <= IMAGE_ATOL:
+        raise AssertionError(f"{preset}: card and CPU disagree in float32")
+    return err
 
 
 def phase_serving(card: str) -> dict:
@@ -1102,40 +1249,12 @@ def phase_serving(card: str) -> dict:
         img = sample(sampler.g, sampler.w_avg, zz, None, 0.7, 1.0)
     assert img.shape == (BATCH, 3, res, res) and bool(img.isfinite().all())
 
-    # float32 on the card vs float32 on the CPU, explicit noise
-    cfg32 = get_config("stylegan-256", **{"run.compute_dtype": "float32"})
-    s32 = build_sample_fn(cfg32, sampler.res_log2)
-    gcpu = torch.Generator().manual_seed(3)
-    z2 = torch.randn(2, cfg.model.latent_dim, generator=gcpu)
-    noises = [torch.randn(2, 1, h, w, generator=gcpu)
-              for h, w in noise_shapes(sampler.res_log2)]
-    with torch.inference_mode():
-        on_card = s32(sampler.g, sampler.w_avg, z2.cuda(), None, 0.7, 1.0,
-                      [n.cuda() for n in noises]).cpu()
-        g_cpu = copy.deepcopy(sampler.g).cpu()
-        on_cpu = s32(g_cpu, sampler.w_avg.cpu(), z2, None, 0.7, 1.0, noises)
-    err = (on_card - on_cpu).abs().max().item()
-    log(f"main: f32 card vs CPU on 2 images: max_abs {err:.3e} "
-        f"(tol {IMAGE_ATOL:g}), image std {on_cpu.std().item():.3f}")
-    if not err <= IMAGE_ATOL:
-        raise AssertionError("card and CPU disagree in float32")
-
-    # throughput and latency (host clock; each call ends in a host copy)
-    lat = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        sampler.generate(BATCH, seed=100 + i)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    n_img = 8 * BATCH
-    t0 = time.perf_counter()
-    sampler.generate(n_img, seed=200)
-    dt = time.perf_counter() - t0
+    f32_card_vs_cpu("stylegan-256", sampler)
+    perf = serving_speed(sampler)
     torch.cuda.reset_peak_memory_stats()
     sampler.generate(BATCH, seed=300)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    perf = dict(img_per_s=n_img / dt, batch_ms_median=statistics.median(lat),
-                batch_ms_max=max(lat), peak_gib=peak)
-    log(f"main: {perf['img_per_s']:.1f} img/s over {n_img} images; batch "
+    log(f"main: {perf['img_per_s']:.1f} img/s over {8 * BATCH} images; batch "
         f"latency median {perf['batch_ms_median']:.2f} ms max "
         f"{perf['batch_ms_max']:.2f} ms; peak mem {peak:.2f} GiB "
         f"[{card}]")
@@ -1189,7 +1308,11 @@ def profile_call(label: str, fn, card: str, top: int = 12) -> dict:
         log(f"profile: {us / 1e3:9.3f} ms  {100 * us / 1e3 / sum_ms:5.1f}%  "
             f"x{count:<5d} {key[:90]}")
     log(f"profile: {label}: {sum(r[1] for r in rows)} device events in all")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=idle)
+    by_name: dict = {}
+    for us, _, key in rows:
+        by_name[key] = by_name.get(key, 0.0) + us / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=idle,
+                by_name=by_name)
 
 
 # substrings of the hand-written kernels' names in a profile
@@ -1292,7 +1415,43 @@ def phase_gradients() -> None:
     want = r1(upsample_blur_2x_ref, blur_downsample_2x_ref,
               minibatch_stddev_ref)
     _assert_grads_close("second order (R1 shape)", got, want)
+    pl_got = pl_second_order(port_ops.upsample_blur_2x,
+                             port_ops.blur_downsample_2x, "cuda")
+    pl_want = pl_second_order(upsample_blur_2x_ref, blur_downsample_2x_ref,
+                              "cuda")
+    _assert_grads_close("second order (path-length shape)", pl_got, pl_want)
     wgan_gp_card_vs_cpu()
+
+
+def pl_second_order(up, down, device, seed: int = 3):
+    """Path length's shape of derivative through a small skip synthesis:
+    styles from a mapping matrix, a modulated 3x3 conv after up+blur, a
+    skip RGB upsampled and added, blur+down at the end; the gradient of
+    the projection with respect to the styles (create_graph), and the
+    gradient of its squared deviation with respect to every parameter,
+    the mapping's included. float32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return torch.randn(s, generator=g, device=device) * scale
+
+    x0, z, y = r(8, 16, 8, 8), r(8, 32), r(8, 3, 8, 8, scale=0.125)
+    params = [t.requires_grad_(True) for t in (
+        r(32, 32, scale=0.2), r(32, 16, scale=0.2), r(32, 16, scale=0.2),
+        r(16, 16, 3, 3, scale=0.1), r(3, 16, 1, 1, scale=0.3),
+        r(3, 16, 1, 1, scale=0.3))]
+    m, a0, a1, w1, rgb_lo, rgb_hi = params
+    w = F.leaky_relu(z @ m, 0.2)
+    ws = w[:, None, :].repeat(1, 2, 1)
+    s0, s1 = ws[:, 0] @ a0 + 1, ws[:, 1] @ a1 + 1
+    h0 = x0 * s0[:, :, None, None]
+    h = F.leaky_relu(F.conv2d(up(h0) * s1[:, :, None, None], w1,
+                              padding=1), 0.2)
+    img = down(up(F.conv2d(h0, rgb_lo)) + F.conv2d(h, rgb_hi))
+    (gw,) = torch.autograd.grad((img * y).sum(), ws, create_graph=True)
+    length = gw.square().sum(2).mean(1).sqrt()
+    return torch.autograd.grad((length - length.mean().detach())
+                               .square().mean(), params)
 
 
 def wgan_gp_card_vs_cpu() -> None:
@@ -1489,13 +1648,17 @@ def probe_cudnn_benchmark(cfg, phase, state, real, card) -> dict:
     return out
 
 
-def phase_train_card_vs_cpu(preset: str = "stylegan-256") -> None:
+def phase_train_card_vs_cpu(preset: str = "stylegan-256",
+                            rtol: float = STEP_GRAD_RTOL) -> None:
     """One penalty step (R1 for stylegan-256, WGAN-GP and drift for
-    progan-128) of a narrow 32² model in float32 (TF32 off), on the card
-    and on the CPU from the same initial state and draws. D's lr is 0
-    here: Adam's first update is about lr * sign(g), so where D's gradient
-    is ~0 the two devices' updated D's would differ by up to 2 lr, and G's
-    gradients, taken against the updated D, with them."""
+    progan-128, R1 and path length for stylegan2-256) of a narrow 32²
+    model in float32 (TF32 off), on the card and on the CPU from the same
+    initial state and draws. D's lr is 0 here: Adam's first update is
+    about lr * sign(g), so where D's gradient is ~0 the two devices'
+    updated D's would differ by up to 2 lr, and G's gradients, taken
+    against the updated D, with them. Every gradient leaf within ``rtol``
+    of its scale; with path length the mapping layers' leaves are among
+    them and must be nonzero."""
     cfg = get_config(preset, **{
         "model.resolution": 32, "model.fmap_base": 512,
         "model.fmap_max": 64, "model.latent_dim": 128,
@@ -1521,7 +1684,9 @@ def phase_train_card_vs_cpu(preset: str = "stylegan-256") -> None:
         st = create_train_state(cfg, seed=3, device=dev)
         st.g.load_state_dict(base.g.state_dict())
         st.d.load_state_dict(base.d.state_dict())
-        step = train_steps.build_train_step(cfg, phase, penalty_override=True)
+        step = train_steps.build_train_step(
+            cfg, phase, penalty_override=True,
+            pl_override=True if cfg.pl_active else None)
         st, m = step(st, real, draws)
         grads = {f"{net}.{k}": p.grad.detach().cpu()
                  for net in ("g", "d")
@@ -1541,13 +1706,20 @@ def phase_train_card_vs_cpu(preset: str = "stylegan-256") -> None:
     worst = rels[-1][0]
     log("train: f32 step, largest gradient differences (of the leaf "
         "scale): " + ", ".join(f"{k} {r:.2e}" for r, k in rels[-4:]))
-    if not worst <= STEP_GRAD_RTOL:
+    if not worst <= rtol:
         raise AssertionError(f"f32 step grad {rels[-1][1]}: {worst:.3e} "
                              "of scale")
-    log(f"train: {preset} f32 {cfg.loss.penalty} step at 32² card vs CPU: "
+    mapping = [k for k in g_cpu if k.startswith("g.mapping.")]
+    if cfg.pl_active and (not mapping or any(
+            not g_cpu[k].abs().max().item() > 0 for k in mapping)):
+        raise AssertionError("f32 PL step: the mapping layers have no "
+                             "gradient")
+    what = cfg.loss.penalty + (" + path length" if cfg.pl_active else "")
+    log(f"train: {preset} f32 {what} step at 32² card vs CPU: "
         f"losses {m_cpu} agree "
-        f"within {STEP_LOSS_RTOL:g} rel; {len(g_cpu)} gradient leaves agree, "
-        f"worst {worst:.3e} of the leaf scale (tol {STEP_GRAD_RTOL:g})")
+        f"within {STEP_LOSS_RTOL:g} rel; {len(g_cpu)} gradient leaves agree "
+        f"({len(mapping)} of the mapping layers), worst {worst:.3e} of the "
+        f"leaf scale (tol {rtol:g})")
 
 
 # -- 7. the progressive trainer ------------------------------------------------
@@ -1591,6 +1763,7 @@ def run_cli_train(preset: str, sets: dict, workdir: str,
             records.append(dict(
                 phase=phase.index, step=count["i"], ms=ms, t0=t0,
                 r1=count["i"] % cfg_.loss.penalty_every == 0,
+                pl=cfg_.pl_active and count["i"] % cfg_.loss.pl_every == 0,
                 shape=tuple(real.shape), device=real.device.type,
                 counts={n: k["kernel"].launches
                         for n, k in KERNELS.items()}))
@@ -2220,19 +2393,11 @@ def progan_serving(cfg, state, card) -> dict:
                              f"images {a.shape}")
     if not np.array_equal(a[:3], sampler.generate(3, seed=0)):
         raise AssertionError("progan serving: not index-stable")
-    lat = []
-    for i in range(8):
-        t0 = time.perf_counter()
-        sampler.generate(BATCH, seed=100 + i)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
-    sampler.generate(8 * BATCH, seed=200)
-    img_s = 8 * BATCH / (time.perf_counter() - t0)
-    out = dict(img_per_s=img_s, batch_ms_median=statistics.median(lat),
-               batch_ms_max=max(lat), launches=counts)
+    out = dict(serving_speed(sampler), launches=counts)
     log(f"progan: BatchSampler on the progan-128 G-EMA, batch {BATCH}: "
-        f"{img_s:.1f} img/s over {8 * BATCH} images; batch latency median "
-        f"{out['batch_ms_median']:.2f} ms max {out['batch_ms_max']:.2f} ms; "
+        f"{out['img_per_s']:.1f} img/s over {8 * BATCH} images; batch "
+        f"latency median {out['batch_ms_median']:.2f} ms max "
+        f"{out['batch_ms_max']:.2f} ms; "
         f"launches per batch {per_batch} [{card}]")
     profile_call(f"one served progan-128 batch of {BATCH}",
                  lambda: sampler.generate(BATCH, seed=500), card, top=6)
@@ -2365,6 +2530,296 @@ def phase_progan(card: str) -> dict:
                 fixed=fixed)
 
 
+# -- 10. StyleGAN2 -------------------------------------------------------------
+SG2_STEPS = 48                 # R1 at 0, 16 and 32; path length every 4th
+SG2_BATCH = 8                  # the preset's batch at 256x256
+SG2_PPL_SAMPLES = 64
+SG2_PROGRAMS = {(True, True): "R1 + PL", (False, True): "PL",
+                (False, False): "neither"}
+
+
+def sg2_launch_units(mc) -> dict:
+    """The StyleGAN2 units the kernel phase checks and times: a served
+    batch of 32, a step with neither regularizer, and a PL step, at the
+    preset's batch of 8 (PL's batch 4)."""
+    return {SG2_SERVED: stylegan2_serving_launches(mc),
+            SG2_STEP: stylegan2_step_launches(mc, False, False,
+                                              batch=SG2_BATCH,
+                                              pl_batch=SG2_BATCH // 2),
+            SG2_PL_STEP: stylegan2_step_launches(mc, False, True,
+                                                 batch=SG2_BATCH,
+                                                 pl_batch=SG2_BATCH // 2)}
+
+
+def sg2_serving(card: str) -> dict:
+    """``BatchSampler`` on a full-width stylegan2-256 G (bf16, seeded random
+    weights, every term live) at batch 32: launches per batch as derived,
+    index stability, a float32 pair on the card against the CPU, img/s,
+    batch latency and a profile."""
+    cfg = get_config("stylegan2-256")
+    mc = cfg.model
+    assert (mc.resolution, mc.latent_dim, mc.fmap_base, cfg.run.compute_dtype,
+            mc.d_resnet) == (256, 512, 8192, "bfloat16", True)
+    sampler = make_sampler(cfg)
+    t0 = time.perf_counter()
+    sampler.warmup()
+    log(f"stylegan2: warmup batch {time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    a = sampler.generate(100, seed=0)
+    b = sampler.generate(10, seed=0)
+    counts = {n: k["kernel"].launches for n, k in KERNELS.items()}
+    per_batch = launch_totals(stylegan2_serving_launches(mc))
+    if counts != {n: 5 * v for n, v in per_batch.items()}:
+        raise AssertionError(f"stylegan2 serving: launches {counts} in 5 "
+                             f"batches, derived {per_batch} a batch")
+    assert a.shape == (100, 256, 256, 3) and a.dtype == np.uint8
+    np.testing.assert_array_equal(a[:10], b)
+    assert float(a.astype(np.float32).std()) > 1.0, "images are flat"
+
+    f32_card_vs_cpu("stylegan2-256", sampler)
+    out = serving_speed(sampler)
+    prof = profile_call(f"one served stylegan2-256 batch of {BATCH}",
+                        lambda: sampler.generate(BATCH, seed=500), card,
+                        top=8)
+    out.update(idle_share=prof["idle_share"], launches=counts)
+    log(f"stylegan2: BatchSampler at batch {BATCH}: {out['img_per_s']:.1f} "
+        "img/s over "
+        f"{8 * BATCH} images; batch latency median "
+        f"{out['batch_ms_median']:.2f} ms max {out['batch_ms_max']:.2f} ms "
+        f"(8 batches); idle share {prof['idle_share']:.3f}; launches per "
+        f"batch {per_batch} [{card}]")
+    return out
+
+
+def sg2_check_run(cfg, run: dict, workdir: str, card: str) -> dict:
+    """Every step ran its program with the derived launch counts; R1 on
+    every 16th step, path length on every 4th: ``pl_penalty`` finite and >
+    0 on those, 0 on the others; ms per step of each program, img/s per
+    16-step cycle."""
+    mc = cfg.model
+    with open(os.path.join(workdir, "train.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    recs = run["records"]
+    if len(recs) != SG2_STEPS or [r["step"] for r in rows] != \
+            list(range(1, SG2_STEPS + 1)):
+        raise AssertionError(f"stylegan2: {len(recs)} steps, {len(rows)} "
+                             "log rows")
+    launches = {n: 0 for n in KERNELS}
+    for r, row in zip(recs, rows):
+        want = launch_totals(stylegan2_step_launches(
+            mc, r["r1"], r["pl"], batch=SG2_BATCH, pl_batch=SG2_BATCH // 2))
+        if r["counts"] != want or r["shape"] != (SG2_BATCH, 256, 256, 3) \
+                or r["device"] != "cuda":
+            raise AssertionError(f"stylegan2: step {r['step']} launches "
+                                 f"{r['counts']}, derived {want}")
+        for n in launches:
+            launches[n] += r["counts"][n]
+        vals = [row[k] for k in ("d_loss", "g_loss", "penalty", "real_score",
+                                 "fake_score", "pl_penalty")]
+        if not all(math.isfinite(v) for v in vals) or \
+                (row["pl_penalty"] > 0) != r["pl"] or \
+                (row["penalty"] > 0) != r["r1"]:
+            raise AssertionError(f"stylegan2: step {r['step']} "
+                                 f"(R1 {r['r1']}, PL {r['pl']}): {row}")
+    ms = {}
+    for key, name in SG2_PROGRAMS.items():
+        # the first step of each program builds cuDNN's plans
+        first = next(i for i, r in enumerate(recs)
+                     if (r["r1"], r["pl"]) == key)
+        ms[name] = [r["ms"] for i, r in enumerate(recs)
+                    if (r["r1"], r["pl"]) == key and i > first]
+    cycles = [sum(r["ms"] for r in recs[c:c + 16]) / 1e3
+              for c in (16, 32)]
+    out = dict(ms={k: statistics.median(v) for k, v in ms.items()},
+               img_s_cycle=[16 * SG2_BATCH / c for c in cycles],
+               launches=launches, first_ms=recs[0]["ms"],
+               pl_penalties=[row["pl_penalty"] for row in rows
+                             if row["pl_penalty"] > 0])
+    log(f"stylegan2: cli train, {SG2_STEPS} steps at batch {SG2_BATCH}, "
+        "ms per step (median after each program's first): "
+        + ", ".join(f"{k} {v:.2f} (of {len(ms[k])})"
+                    for k, v in out["ms"].items())
+        + f"; img/s over the 16-step cycles 16..31 and 32..47: "
+        f"{out['img_s_cycle'][0]:.1f}, {out['img_s_cycle'][1]:.1f}; first "
+        f"step {out['first_ms']:.0f} ms; peak memory {run['peak_gib']:.2f} "
+        "GiB; pl_penalty on PL steps "
+        f"{[round(v, 4) for v in out['pl_penalties']]} [{card}]")
+    return out
+
+
+def sg2_resume(cfg, live, workdir: str) -> None:
+    """A second Trainer on the workdir holds the live state bit for bit;
+    the next two steps from both (step 48: R1 and path length; step 49:
+    neither) end in the same bits, under cuDNN's deterministic
+    algorithms; serving from the workdir equals serving the live G-EMA."""
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    second = Trainer(cfg, workdir)
+    try:
+        if second.state.step != live.step or live.step != SG2_STEPS:
+            raise AssertionError(f"stylegan2 resume: at step "
+                                 f"{second.state.step}, live {live.step}")
+        n = _assert_states_equal("stylegan2 resume", second.state, live)
+        a = BatchSampler(cfg, workdir=workdir, batch_size=4).generate(
+            4, seed=3)
+        b = BatchSampler(cfg, state=live, batch_size=4).generate(4, seed=3)
+        if not np.array_equal(a, b):
+            raise AssertionError("stylegan2: serving from the workdir "
+                                 "differs from the live G-EMA")
+        source = make_source(cfg.data, 256, seed=123)
+        reals = [torch.from_numpy(source.batch(SG2_BATCH, 256)).cuda()
+                 for _ in range(2)]
+        step_live = make_lazy_stepper(cfg, phase, initial_step=live.step)
+        step_second = second._step_fn(phase)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for real in reals:
+                live, m1 = step_live(live, real)
+                _, m2 = step_second(second.state, real)
+                if {k: float(v) for k, v in m1.items()} != \
+                        {k: float(v) for k, v in m2.items()}:
+                    raise AssertionError(f"stylegan2 resume: {m1} vs {m2}")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if not float(m1["pl_penalty"]) == 0.0 or \
+                not float(second.state.pl_mean) > 0:
+            raise AssertionError("stylegan2 resume: no PL step crossed")
+        n = _assert_states_equal("stylegan2 resume + 2 steps", second.state,
+                                 live)
+        log(f"stylegan2: a second Trainer resumed at step {SG2_STEPS} with "
+            f"all {n} leaves (pl_mean {float(live.pl_mean):.5f} among "
+            "them) bit-equal; steps 48 (R1 + PL) and 49 from both: "
+            "bit-equal; serving from the workdir equals the live G-EMA")
+    finally:
+        second.close()
+
+
+def sg2_profiles(cfg, state, card) -> dict:
+    """One step of each program profiled (the top device operations and
+    the idle share), then the path-length term of a PL step alone: its
+    forward with the gradient with respect to the styles, and its outer
+    backward (the double backward through the synthesis), timed, and the
+    backward profiled with the share of its device time in cuDNN's
+    convolutions."""
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    source = make_source(cfg.data, 256, seed=7)
+    real = torch.from_numpy(source.batch(SG2_BATCH, 256)).cuda()
+    out = {}
+    for (r1, pl), name in SG2_PROGRAMS.items():
+        step = train_steps.build_train_step(cfg, phase, penalty_override=r1,
+                                            pl_override=pl)
+        step(state, real)
+        out[name] = profile_call(f"one stylegan2-256 {name} step (batch "
+                                 f"{SG2_BATCH})", lambda: step(state, real),
+                                 card, top=10)
+    dr = train_steps.draw_pl(cfg, 8, SG2_BATCH, state.generator,
+                             state.device)
+    lc = cfg.loss
+
+    def term():
+        return train_steps.path_length_penalty(
+            state.g, state.pl_mean, dr, 8, 1.0,
+            weight=lc.pl_weight * lc.pl_every, decay=lc.pl_decay)
+
+    times = {"forward + style gradient": [], "outer backward": []}
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pen = term()[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pen.backward()
+        torch.cuda.synchronize()
+        times["forward + style gradient"].append((t1 - t0) * 1e3)
+        times["outer backward"].append((time.perf_counter() - t1) * 1e3)
+    state.g.zero_grad(set_to_none=True)
+    pl_ms = {k: statistics.median(v[1:]) for k, v in times.items()}
+    pen = term()[0]
+    names = profile_call(f"the PL term's outer backward (batch "
+                         f"{SG2_BATCH // 2})", pen.backward, card,
+                         top=6)["by_name"]
+    state.g.zero_grad(set_to_none=True)
+    total = sum(names.values())
+    conv = sum(v for k, v in names.items() if is_conv_kernel(k))
+    out["pl_ms"] = pl_ms
+    out["pl_backward_conv_share"] = conv / total
+    step_ms = out["PL"]["wall_ms"]
+    log(f"stylegan2: the PL term at batch {SG2_BATCH // 2}: forward + "
+        f"style gradient {pl_ms['forward + style gradient']:.2f} ms, outer "
+        f"backward {pl_ms['outer backward']:.2f} ms (median of 3), "
+        f"together {sum(pl_ms.values()) / step_ms:.3f} of a profiled PL "
+        f"step ({step_ms:.2f} ms); cuDNN / conv kernels are "
+        f"{conv / total:.3f} of the outer backward's device time "
+        f"({conv:.2f} of {total:.2f} ms) [{card}]")
+    return out
+
+
+CONV_NAMES = ("conv", "cudnn", "xmma", "implicit_gemm", "dgrad", "wgrad",
+              "fprop", "cutlass")
+
+
+def is_conv_kernel(name: str) -> bool:
+    low = name.lower()
+    return any(k in low for k in CONV_NAMES)
+
+
+def phase_stylegan2(card: str) -> dict:
+    """StyleGAN2 at full width through its entry points: serving at batch
+    32; ``cli train --preset stylegan2-256`` on the preset's own
+    (``synthetic``) data at its batch of 8 for 48 steps (R1 at 0, 16, 32,
+    path length every 4th: all three programs), launch counts per step as
+    derived, ``pl_penalty`` and ``pl_mean``; resume bit for bit across a PL
+    step; one step of each program profiled and the PL term's parts timed;
+    an R1 + PL step in float32 card vs CPU (1e-3 of each leaf's scale, the
+    mapping layers included); ``cli sample`` and ``cli eval-ppl --space
+    w``."""
+    serving = sg2_serving(card)
+    sets = {"run.log_every": 1, "run.checkpoint_every": 10 ** 6}
+    cfg = get_config("stylegan2-256", **sets)
+    lc = cfg.loss
+    assert (cfg.schedule.progressive, cfg.schedule.batch_for(256),
+            lc.penalty, lc.penalty_every, lc.pl_weight, lc.pl_every,
+            cfg.data.dataset) == (False, SG2_BATCH, "r1", 16, 2.0, 4,
+                                  "synthetic")
+    launches = {n: 0 for n in KERNELS}
+    for n in launches:
+        launches[n] += serving["launches"][n]
+    workdir = tempfile.mkdtemp(prefix="ganlab_sg2_")
+    try:
+        run = run_cli_train("stylegan2-256", sets, workdir,
+                            max_steps=SG2_STEPS)
+        checked = sg2_check_run(cfg, run, workdir, card)
+        for n in launches:
+            launches[n] += checked["launches"][n]
+        live = run["live"]
+        if not float(live.pl_mean) > 0:
+            raise AssertionError("stylegan2: pl_mean did not move off 0")
+        log(f"stylegan2: cli train took {run['wall_s']:.1f} s; pl_mean "
+            f"{float(live.pl_mean):.5f} after {SG2_STEPS} steps [{card}]")
+        sg2_resume(cfg, live, workdir)
+        prof = sg2_profiles(cfg, live, card)
+        phase_train_card_vs_cpu("stylegan2-256", rtol=WGAN_GP_GRAD_RTOL)
+        png = os.path.join(workdir, "sg2_sample.png")
+        secs = {}
+        for label, fn in (
+                ("cli sample", lambda: port_cli.main(
+                    ["sample", "--workdir", workdir, "--num", "4", "--out",
+                     png])),
+                ("cli eval-ppl --space w", lambda: port_cli.main(
+                    ["eval-ppl", "--workdir", workdir, "--num-samples",
+                     str(SG2_PPL_SAMPLES), "--space", "w"]))):
+            t0 = time.perf_counter()
+            c = counted(label, fn, need=("pixelnorm", "upsample_blur_2x"))
+            secs[label] = time.perf_counter() - t0
+            for n in launches:
+                launches[n] += c[n]
+            log(f"stylegan2: {label} took {secs[label]:.1f} s [{card}]")
+        check_png(png, "cli sample (stylegan2-256)")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return dict(launches=launches, serving=serving, train=checked,
+                peak_gib=run["peak_gib"], prof=prof, secs=secs)
+
+
 # -- 10. Inception at full size -----------------------------------------------
 def phase_inception(card: str) -> dict:
     """One ``InceptionExtractor`` forward (random weights with non-trivial
@@ -2452,7 +2907,9 @@ def main(kernels_only: bool = False) -> None:
     cfg1k = get_config("stylegan-1024")
     mk, b1k = cfg1k.model, cfg1k.schedule.batch_for(1024)
     mp = get_config("progan-128").model
+    m2 = get_config("stylegan2-256").model
     results = phase_kernels({
+        **sg2_launch_units(m2),
         SERVED: serving_shapes(mc), STEP: step_launches(mc, r1=False),
         SERVED_1K: serving_shapes(mk, batch=SERVE_1K_BATCH),
         STEP_1K: step_launches(mk, r1=False, batch=b1k),
@@ -2469,6 +2926,7 @@ def main(kernels_only: bool = False) -> None:
     trainer = phase_trainer(card)
     user = phase_user_data(card)
     progan = phase_progan(card)
+    sg2 = phase_stylegan2(card)
     phase_inception(card)
     kernels = []
     for name, k in KERNELS.items():
@@ -2484,7 +2942,8 @@ def main(kernels_only: bool = False) -> None:
                     "training": train["launches"][name],
                     "trainer": trainer["launches"][name],
                     "user_path_1024": user["launches"][name],
-                    "progan": progan["launches"][name]}
+                    "progan": progan["launches"][name],
+                    "stylegan2": sg2["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -2494,6 +2953,18 @@ def main(kernels_only: bool = False) -> None:
                                   "r1_on": train["expect"][True][name]},
             "launches_per_progan128_step_128": launch_totals(
                 step_launches(mp, True, 7, 8))[name],
+            "launches_per_stylegan2_step": {
+                "neither": launch_totals(stylegan2_step_launches(
+                    m2, False, False, batch=SG2_BATCH,
+                    pl_batch=SG2_BATCH // 2))[name],
+                "pl": launch_totals(stylegan2_step_launches(
+                    m2, False, True, batch=SG2_BATCH,
+                    pl_batch=SG2_BATCH // 2))[name],
+                "r1_pl": launch_totals(stylegan2_step_launches(
+                    m2, True, True, batch=SG2_BATCH,
+                    pl_batch=SG2_BATCH // 2))[name]},
+            "launches_per_stylegan2_served": launch_totals(
+                stylegan2_serving_launches(m2))[name],
             "fwd_route": k["route"], "bwd_route": BWD_ROUTE[name],
             "max_abs_err": max(r["max_abs_err"], large_err
                                if name in LARGE else 0.0),
@@ -2507,7 +2978,10 @@ def main(kernels_only: bool = False) -> None:
         for unit, suffix in ((STEP, "per_step"), (STEP_1K, "per_step_1024"),
                              (PG_STEP_64, "per_progan128_step_64"),
                              (PG_STEP_128, "per_progan128_step_128"),
-                             (PG_SERVED, "per_progan128_served")):
+                             (PG_SERVED, "per_progan128_served"),
+                             (SG2_STEP, "per_stylegan2_step"),
+                             (SG2_PL_STEP, "per_stylegan2_pl_step"),
+                             (SG2_SERVED, "per_stylegan2_served")):
             for key in ("ms", "bound_ms", "device_ms", "plain_ms",
                         "library_ms"):
                 row[f"{key}_{suffix}"] = of(unit, key)
@@ -2522,7 +2996,12 @@ def main(kernels_only: bool = False) -> None:
         f"(batch 8; the headline of pixelnorm_nchw, whose library call is "
         f"F.local_response_norm with a window of 2C - 1 channels), "
         f"*_per_progan128_served over one served progan-128 batch of "
-        f"{BATCH}, bf16; host_us is per call [{card}]")
+        f"{BATCH}, *_per_stylegan2_step over one stylegan2-256 step with "
+        f"neither R1 nor path length at batch {SG2_BATCH}, "
+        f"*_per_stylegan2_pl_step over a path-length step (PL batch "
+        f"{SG2_BATCH // 2}), *_per_stylegan2_served over one served "
+        f"stylegan2-256 batch of {BATCH}, bf16; host_us is per call "
+        f"[{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

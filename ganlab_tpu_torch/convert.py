@@ -4,8 +4,8 @@
 ``jax.tree_util.tree_map(np.asarray, params)`` gives (with or without the
 top-level ``"params"`` key) and returns the ``state_dict`` of the port's
 module with the same names: ``"a/b/c"`` becomes ``"a.b.c"``. It covers the
-StyleGAN and ProGAN generators, the ProGAN discriminator and both ResNet-GAN
-nets. Layouts:
+StyleGAN, StyleGAN2 and ProGAN generators, the ProGAN discriminator (with
+residual blocks too) and both ResNet-GAN nets. Layouts:
 
 * conv weights HWIO (kh, kw, in, out) -> OIHW (out, in, kh, kw);
 * the constant input (1, H, W, C) -> (1, C, H, W);
@@ -64,10 +64,13 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
     ``arrays`` holds ``params_g`` / ``params_d`` / ``params_ema`` (flax
     trees), ``opt_g`` / ``opt_d`` (each ``{"count", "mu", "nu"}``: optax's
     Adam step count and its two moment trees, shaped like the parameters),
-    ``w_avg``, ``step`` and ``shown_imgs``. optax keeps one count and a
+    ``w_avg``, ``step`` and ``shown_imgs``, and ``pl_mean`` where the JAX
+    state has one (path-length regularization). optax keeps one count and a
     moment for every leaf; the same is written for every parameter here,
     so the next Adam update of the two packages agrees. The JAX PRNG key is
-    not carried: torch's streams are not JAX's.
+    not carried: torch's streams are not JAX's. A port state with a
+    ``pl_mean`` takes the JAX one, or a fresh 0 where the JAX state has
+    none, as the JAX package's checkpoint migration does.
     """
     for module, key in ((state.g, "params_g"), (state.d, "params_d"),
                         (state.g_ema, "params_ema")):
@@ -85,6 +88,10 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
     with torch.no_grad():
         state.w_avg.copy_(torch.from_numpy(
             np.asarray(arrays["w_avg"], dtype=np.float32)))
+        if state.pl_mean is not None:
+            saved = arrays.get("pl_mean")
+            state.pl_mean.fill_(0.0 if saved is None else float(
+                np.asarray(saved, dtype=np.float32)))
     state.step = int(arrays["step"])
     state.shown_imgs = int(arrays["shown_imgs"])
     # the moments' count and the step counter start together in a JAX

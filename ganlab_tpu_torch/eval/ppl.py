@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from ganlab_tpu_torch.eval.lpips import LPIPSDistance
-from ganlab_tpu_torch.models import build_generator, is_style
-from ganlab_tpu_torch.models.stylegan import noise_shapes, num_style_layers
+from ganlab_tpu_torch.models import build_generator, is_style, noise_shapes
+from ganlab_tpu_torch.models.stylegan import num_style_layers
 from ganlab_tpu_torch.utils.latents import lerp, slerp
 
 
@@ -72,8 +72,9 @@ def ppl_pairs(cfg, g, z: torch.Tensor, t: torch.Tensor, epsilon: float,
     return synth(lat0), synth(lat1)
 
 
-def _drawn(style: bool, sampling: str, batch: int, dim: int, res_log2: int,
-           seed: int, device):
+def _drawn(cfg, sampling: str, batch: int, res_log2: int, seed: int,
+           device):
+    style, dim = is_style(cfg.model), cfg.model.latent_dim
     gen = torch.Generator(device=device).manual_seed(seed)
     while True:
         z = torch.randn((2, batch, dim), generator=gen, device=device)
@@ -81,7 +82,8 @@ def _drawn(style: bool, sampling: str, batch: int, dim: int, res_log2: int,
             if sampling == "full" else torch.zeros((batch, 1), device=device)
         noises = [torch.randn((batch, 1, h, w), generator=gen,
                               device=device)
-                  for h, w in noise_shapes(res_log2)] if style else None
+                  for h, w in noise_shapes(cfg.model, res_log2)] \
+            if style else None
         yield z, t, noises
 
 
@@ -111,8 +113,7 @@ def compute_ppl(cfg, g, *, num_samples: int = 5000, epsilon: float = 1e-4,
               "PPL uses random features — valid for relative comparison "
               "only", flush=True)
     if draws is None:
-        draws = _drawn(style, sampling, batch, cfg.model.latent_dim, lg,
-                       seed, device)
+        draws = _drawn(cfg, sampling, batch, lg, seed, device)
     dists, done = [], 0
     for z, t, noises in draws:
         if done >= num_samples:

@@ -22,12 +22,15 @@ the last axis of NHWC); its input block's dense output is reshaped in the
 JAX package's (h, w, c) order and then permuted to NCHW, the mirror of the
 D's flatten, so the dense weight converts as it is too.
 
+``model.d_resnet`` gives the D residual blocks (StyleGAN2's ResNet D):
+a skip branch of a 1x1 conv (no bias, gain 1) and the block's downsample
+beside the main branch, the sum scaled by 1/sqrt(2).
+
 ``model.remat`` recomputes each block's activations in the backward pass
 (``torch.utils.checkpoint``; R1's and WGAN-GP's double backward passes
 through it), as the JAX package wraps ``GBlock`` and ``DBlock`` in
 ``nn.remat``. The JAX package's TPU knobs ``fold_width`` and
-``fused_up_conv`` and the ResNet variant of the D ``d_resnet`` are
-rejected.
+``fused_up_conv`` are rejected.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ganlab_tpu_torch.ops import (
     leaky_relu,
     minibatch_stddev,
     pixel_norm,
+    rounded,
     upsample_nearest_2x,
 )
 
@@ -162,19 +166,31 @@ class ProGenerator(nn.Module):
 
 
 class DBlock(nn.Module):
-    """One discriminator block: 2x (conv3x3 + lrelu) -> downsample."""
+    """One discriminator block: 2x (conv3x3 + lrelu) -> downsample.
+
+    ``resnet``: plus a skip branch, 1x1 conv (no bias, gain 1) ->
+    downsample, and the sum of the two branches times 1/sqrt(2)."""
 
     def __init__(self, in_ch: int, features_in: int, features_out: int,
-                 blur: bool = False):
+                 blur: bool = False, resnet: bool = False):
         super().__init__()
-        self.blur = blur
+        self.blur, self.resnet = blur, resnet
+        if resnet:
+            self.skip = EqualConv(in_ch, features_out, 1, gain=1.0,
+                                  use_bias=False)
         self.conv0 = EqualConv(in_ch, features_in, 3)
         self.conv1 = EqualConv(features_in, features_out, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = leaky_relu(self.conv0(x))
-        x = leaky_relu(self.conv1(x))
+    def _down(self, x: torch.Tensor) -> torch.Tensor:
         return blur_downsample_2x(x) if self.blur else downsample_avg_2x(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skip = self._down(self.skip(x)) if self.resnet else None
+        x = leaky_relu(self.conv0(x))
+        x = self._down(leaky_relu(self.conv1(x)))
+        if skip is None:
+            return x
+        return (x + skip) * rounded(1.0 / math.sqrt(2.0), x.dtype)
 
 
 class DOutputBlock(nn.Module):
@@ -201,10 +217,6 @@ class ProDiscriminator(nn.Module):
     def __init__(self, cfg: ModelConfig, blur_resample: bool = False):
         super().__init__()
         reject_tpu_knobs(cfg, ("fold_width",))
-        if cfg.d_resnet:
-            raise NotImplementedError(
-                "model.d_resnet is not ported to PyTorch yet: the ResNet D "
-                "comes with StyleGAN2 (ROADMAP.md A.5)")
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         for lg in range(2, self.max_log2 + 1):
@@ -213,7 +225,7 @@ class ProDiscriminator(nn.Module):
         for lg in range(3, self.max_log2 + 1):
             self.add_module(f"block{2 ** lg}", DBlock(
                 cfg.nf(lg - 1), cfg.nf(lg - 1), cfg.nf(lg - 2),
-                blur=blur_resample))
+                blur=blur_resample, resnet=cfg.d_resnet))
         self.block4_out = DOutputBlock(cfg.nf(1), cfg.mbstd_group_size)
 
     def forward(self, img: torch.Tensor, res_log2: int | None = None,

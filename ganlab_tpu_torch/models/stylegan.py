@@ -228,7 +228,11 @@ class StyleGenerator(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mapping = MappingNetwork(cfg)
-        self.synthesis = SynthesisNetwork(cfg, blur=blur)
+        self.synthesis = self.make_synthesis(cfg, blur)
+
+    @staticmethod
+    def make_synthesis(cfg: ModelConfig, blur: bool) -> nn.Module:
+        return SynthesisNetwork(cfg, blur=blur)
 
     def map_latents(self, z: torch.Tensor) -> torch.Tensor:
         return self.mapping(z)

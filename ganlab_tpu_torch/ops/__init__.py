@@ -5,6 +5,7 @@ from ganlab_tpu_torch.ops.equalized import (
     equalized_dense,
     he_constant,
     leaky_relu,
+    rounded,
 )
 from ganlab_tpu_torch.ops.minibatch_stddev import minibatch_stddev
 from ganlab_tpu_torch.ops.normalization import adain, instance_norm, pixel_norm

@@ -9,6 +9,7 @@ is applied to the weight, in the weight's dtype, as the JAX op does.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -56,3 +57,11 @@ def equalized_conv2d(x: torch.Tensor, w: torch.Tensor,
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     """LeakyReLU(0.2), the activation used throughout ProGAN/StyleGAN."""
     return F.leaky_relu(x, slope)
+
+
+@functools.cache
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: it multiplies a
+    tensor of that dtype as ``jnp.asarray(value, dtype)`` does in the JAX
+    package (a constant factor such as sqrt(2) in bfloat16)."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))

@@ -3,8 +3,9 @@
 Port of ``ganlab_tpu/train/checkpoint.py`` (orbax there) on ``torch.save``.
 One file per step, ``<directory>/ckpt_<step:08d>.pt``, holds plain tensors
 and numbers only: the state dicts of G, D and G-EMA, both Adam states, the
-w-average, the counters (``step``, ``shown_imgs``, ``opt_step0``) and the
-state of the generator that makes a step's random draws. The schedule
+w-average, the path-length mean where the state has one (``pl_mean``), the
+counters (``step``, ``shown_imgs``, ``opt_step0``) and the state of the
+generator that makes a step's random draws. The schedule
 position is not stored: phase and fade-in alpha derive from ``shown_imgs``
 and the lazy-regularization cadence from ``step``, so a restored state
 continues bit for bit (``tests/test_torch_checkpoint.py``).
@@ -20,6 +21,11 @@ counts stay host scalars, as the optimizer wants them). A
 ``torch.Generator``'s state belongs to its device type: restored onto the
 other type, the draws continue from a generator seeded from the saved seed
 and step instead (deterministic, but another stream).
+
+``pl_mean`` migrates as in the JAX package: a checkpoint without it
+resumes into a path-length configuration with a fresh 0, and one with it
+resumes into a configuration without path-length regularization by
+dropping it.
 """
 
 from __future__ import annotations
@@ -41,10 +47,13 @@ def state_payload(state: TrainState) -> dict:
     """The checkpoint's content: plain tensors (on the state's device: they
     are not copied) and numbers."""
     gen = state.generator
+    # pl_mean only where the state has one, as the JAX package's None leaf
+    pl = {} if state.pl_mean is None else {"pl_mean": state.pl_mean}
     return {
         "format": _FORMAT,
         **{k: getattr(state, k).state_dict() for k in _MODULES + _OPTIMIZERS},
         "w_avg": state.w_avg,
+        **pl,
         "step": int(state.step),
         "shown_imgs": int(state.shown_imgs),
         "opt_step0": int(state.opt_step0),
@@ -67,6 +76,11 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
         opt.load_state_dict(payload[k])
     with torch.no_grad():
         state.w_avg.copy_(payload["w_avg"])
+        saved_pl = payload.get("pl_mean")
+        if state.pl_mean is not None and saved_pl is None:
+            state.pl_mean.zero_()
+        elif state.pl_mean is not None:
+            state.pl_mean.copy_(saved_pl)
     state.step = int(payload["step"])
     state.shown_imgs = int(payload["shown_imgs"])
     state.opt_step0 = int(payload["opt_step0"])

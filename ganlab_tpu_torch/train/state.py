@@ -1,7 +1,7 @@
 """The training state: G, D, G-EMA, two Adams, w-average, counters, RNG.
 
 Port of ``ganlab_tpu/train/state.py``, for every ported family (ResNet-GAN,
-ProGAN, StyleGAN). The JAX package keeps an immutable
+ProGAN, StyleGAN, StyleGAN2). The JAX package keeps an immutable
 pytree that a jitted step maps to a new one; here ``TrainState`` holds the
 modules and optimizers, and a step updates them in place and returns the
 same object. Parameters stay float32; every random draw of a step comes
@@ -34,6 +34,8 @@ class TrainState:
     shown_imgs: int = 0             # images shown so far
     opt_step0: int = 0              # ``step`` when the Adam moments were
                                     # last (re)initialized
+    pl_mean: torch.Tensor | None = None  # () float32 running mean of the
+                                    # path lengths when ``cfg.pl_active``
 
     @property
     def device(self) -> torch.device:
@@ -42,12 +44,15 @@ class TrainState:
 
 def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
     """Every tensor and counter of the state, by name: the parameters of G,
-    D and G-EMA, each parameter's Adam state, the w-average, the
-    generator's state and the counters. Two states are the same training
-    run at the same point exactly when these agree."""
+    D and G-EMA, each parameter's Adam state, the w-average, the path-length
+    mean (when the state has one), the generator's state and the counters.
+    Two states are the same training run at the same point exactly when
+    these agree."""
     out = {"w_avg": state.w_avg, "generator": state.generator.get_state(),
            "counters": torch.tensor([state.step, state.shown_imgs,
                                      state.opt_step0])}
+    if state.pl_mean is not None:
+        out["pl_mean"] = state.pl_mean
     for net in ("g", "d", "g_ema"):
         for k, v in getattr(state, net).state_dict().items():
             out[f"{net}.{k}"] = v
@@ -132,7 +137,9 @@ def create_train_state(cfg: Config, seed: int = 0,
                        device: str | torch.device = "cuda") -> TrainState:
     """Every resolution's parameters up front, initialized from ``seed``
     (on the CPU, so a seed gives the same weights on every device), then
-    moved to ``device``; the step's generator is seeded from ``seed`` too."""
+    moved to ``device``; the step's generator is seeded from ``seed`` too.
+    ``pl_mean`` is a float32 zero where path-length regularization is
+    configured (``cfg.pl_active``), else None, as in the JAX package."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("create_train_state: device 'cuda' requested but "
@@ -147,4 +154,5 @@ def create_train_state(cfg: Config, seed: int = 0,
     return TrainState(
         g=g, d=d, g_ema=g_ema, opt_g=opt_g, opt_d=opt_d,
         w_avg=torch.zeros(cfg.model.latent_dim, device=device),
-        generator=torch.Generator(device=device).manual_seed(seed + 1))
+        generator=torch.Generator(device=device).manual_seed(seed + 1),
+        pl_mean=torch.zeros((), device=device) if cfg.pl_active else None)

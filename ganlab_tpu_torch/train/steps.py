@@ -12,6 +12,9 @@ One step:
    the drift term where ``loss.drift_weight`` is set; loss + penalty
    minimized with one backward and one Adam step;
 3. G update against the updated D, differentiating only G's parameters;
+   on a path-length step (``loss.pl_weight`` > 0, style families) the
+   objective adds the path-length penalty (``path_length_penalty``) and
+   the state's ``pl_mean`` takes its updated running mean;
 4. G-EMA with ``optim.ema_beta_for(batch)`` and, for the style families,
    the running w-average;
 5. counters.
@@ -27,16 +30,19 @@ the state's shown-image count before the step, one value for the D step,
 the penalty's critic and the G step, and every forward of G and D takes
 the fade branch, whatever alpha's value.
 
-The host picks one of two step functions per step (lazy regularization,
-``loss.penalty_every`` = k): the penalty step, weight x k, every k-th step,
-and the step without it otherwise. Every random draw (latents, mixing,
-crossover, noise maps, flip mask, WGAN-GP interpolation) comes from the
-state's generator, or is injected through ``draws=`` (``StepDraws``),
-which the parity tests use.
+The host picks one step function per step (lazy regularization): the D
+penalty fires with weight x ``loss.penalty_every`` every
+``penalty_every``-th step, path-length regularization with weight x
+``loss.pl_every`` every ``pl_every``-th step, and each pair of the two
+that occurs is one step function (k = 16 and pl_every = 4: three). Every
+random draw (latents, mixing, crossover, noise maps, flip mask, WGAN-GP
+interpolation, the path-length batch) comes from the state's generator, or
+is injected through ``draws=`` (``StepDraws``), which the parity tests
+use.
 
 Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
-A): the fused steps, two-phase regularization, path-length
-regularization, augmentation and gradient accumulation. Entry:
+A): the fused steps, two-phase regularization, augmentation and gradient
+accumulation. Entry:
 ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
 ``stepper(state, real_u8)``.
 """
@@ -50,12 +56,8 @@ import numpy as np
 import torch
 
 from ganlab_tpu_torch.config import Config
-from ganlab_tpu_torch.models import is_style
-from ganlab_tpu_torch.models.stylegan import (
-    mix_styles,
-    noise_shapes,
-    num_style_layers,
-)
+from ganlab_tpu_torch.models import is_style, noise_shapes
+from ganlab_tpu_torch.models.stylegan import mix_styles, num_style_layers
 from ganlab_tpu_torch.ops import losses as L
 from ganlab_tpu_torch.train.schedule import PhaseSpec
 from ganlab_tpu_torch.train.state import (
@@ -93,8 +95,18 @@ class GenDraws:
     z2: torch.Tensor | None = None  # (N, latent), the mixing latent
     use_mix: torch.Tensor | None = None  # () bool, Bernoulli(mixing prob)
     cross: torch.Tensor | None = None    # () int64 crossover in [1, L)
-    noises: list = dataclasses.field(default_factory=list)  # per style
+    noises: list = dataclasses.field(default_factory=list)  # per noise
                                     # layer (N, 1, H, W)
+
+
+@dataclasses.dataclass
+class PLDraws:
+    """The random inputs of the path-length term, at the batch
+    N // ``loss.pl_batch_shrink``."""
+
+    z: torch.Tensor                 # (N, latent) compute dtype
+    noises: list                    # per noise layer (N, 1, H, W)
+    y: torch.Tensor                 # (N, C, H, W) float32, N(0, 1) / 2^lg
 
 
 @dataclasses.dataclass
@@ -105,6 +117,7 @@ class StepDraws:
     d: GenDraws                     # the D phase's fake batch
     g: GenDraws                     # the G phase's fake batch
     gp_eps: torch.Tensor            # (N, 1, 1, 1) WGAN-GP interpolation
+    pl: PLDraws | None = None       # when ``cfg.pl_active``
 
     def to(self, device) -> "StepDraws":
         return _moved(self, device)
@@ -125,19 +138,45 @@ def draw_generator(cfg: Config, res_log2: int, batch: int,
         < cfg.model.style_mixing_prob
     cross = torch.randint(1, num_style_layers(res_log2), (), generator=gen,
                           device=device)
-    noises = [normal(batch, 1, h, w) for h, w in noise_shapes(res_log2)]
+    noises = [normal(batch, 1, h, w)
+              for h, w in noise_shapes(cfg.model, res_log2)]
     return GenDraws(z1, z2, use_mix, cross, noises)
+
+
+def pl_batch(cfg: Config, batch: int) -> int:
+    """The path-length term's batch: batch // ``loss.pl_batch_shrink``."""
+    return max(batch // max(cfg.loss.pl_batch_shrink, 1), 1)
+
+
+def draw_pl(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
+            device) -> PLDraws:
+    nb, res = pl_batch(cfg, batch), 2 ** res_log2
+    dtype = _dtype_of(cfg)
+    z = torch.randn((nb, cfg.model.latent_dim), generator=gen,
+                    device=device, dtype=dtype)
+    noises = [torch.randn((nb, 1, h, w), generator=gen, device=device,
+                          dtype=dtype)
+              for h, w in noise_shapes(cfg.model, res_log2)]
+    # the projection's 1/sqrt(H W) = 1/2^lg for a square image
+    y = torch.randn((nb, cfg.model.img_channels, res, res), generator=gen,
+                    device=device) * (1.0 / res)
+    return PLDraws(z, noises, y)
 
 
 def draw_step(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
               device) -> StepDraws:
-    """All draws of one step, in a fixed order, from ``gen``."""
+    """All draws of one step, in a fixed order, from ``gen``. The
+    path-length draws come last and only where ``cfg.pl_active`` (on every
+    step, whether or not the term fires), so the streams of the other
+    configurations stay as they were."""
     flip = torch.rand((batch,), generator=gen, device=device) < 0.5
     d = draw_generator(cfg, res_log2, batch, gen, device)
     gp_eps = torch.rand((batch, 1, 1, 1), generator=gen, device=device,
                         dtype=_dtype_of(cfg))
     g = draw_generator(cfg, res_log2, batch, gen, device)
-    return StepDraws(flip, d, g, gp_eps)
+    pl = draw_pl(cfg, res_log2, batch, gen, device) if cfg.pl_active \
+        else None
+    return StepDraws(flip, d, g, gp_eps, pl)
 
 
 def _preprocess(real_u8: torch.Tensor, hflip: bool, flip: torch.Tensor,
@@ -195,7 +234,6 @@ def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
     for what, on in (("loss.fused_g_step", lc.fused_g_step),
                      ("loss.fused_seq", lc.fused_seq),
                      ("loss.reg_separate", lc.reg_separate),
-                     ("loss.pl_weight > 0", lc.pl_weight > 0),
                      ("aug.mode (ADA)", cfg.aug_active),
                      ("optim.grad_accum > 1", cfg.optim.grad_accum > 1)):
         if on:
@@ -221,15 +259,45 @@ def phase_alpha(phase: PhaseSpec, shown_imgs: int,
     return a if dtype == torch.float32 else float(torch.tensor(a).to(dtype))
 
 
+def path_length_penalty(g, pl_mean: torch.Tensor, dr: PLDraws,
+                        res_log2: int, alpha, *, weight: float, decay: float,
+                        fade: bool = False):
+    """(penalty, new pl_mean, lengths) of path-length regularization
+    (StyleGAN2 app. B): lengths |J_w^T y| of the synthesis at the mapped
+    ``dr.z`` with the noise ``dr.noises`` against the projection ``dr.y``,
+    the running mean moved toward their mean by ``decay`` (detached), and
+    ``weight * mean((length - new mean)^2)``.
+
+    The gradient with respect to the per-layer styles keeps its graph, and
+    the styles stay attached to the mapping network, so the penalty's
+    gradient reaches every layer of G, the mapping layers too."""
+    w = g.map_latents(dr.z)
+    ws = w[:, None, :].repeat(1, num_style_layers(res_log2), 1)
+    img = g.synthesize(ws, res_log2, alpha, dr.noises, fade=fade)
+    (gw,) = torch.autograd.grad((img.float() * dr.y).sum(), ws,
+                                create_graph=True)
+    pl_len = gw.float().square().sum(dim=2).mean(dim=1).sqrt()
+    new_mean = (pl_mean + decay * (pl_len.mean() - pl_mean)).detach()
+    return weight * (pl_len - new_mean).square().mean(), new_mean, pl_len
+
+
 def build_train_step(cfg: Config, phase: PhaseSpec,
-                     penalty_override: bool | None = None) -> Callable:
+                     penalty_override: bool | None = None,
+                     pl_override: bool | None = None) -> Callable:
     """``step(state, real_u8, draws=None) -> (state, metrics)`` for a phase.
 
     ``penalty_override``: None applies the configured penalty every step
     at its plain weight; True applies it with weight x ``penalty_every``;
-    False leaves it out. The step runs on the state's device; ``real_u8``
-    and injected ``draws`` are moved there."""
+    False leaves it out. ``pl_override`` does the same for path-length
+    regularization (weight x ``pl_every`` when True), which only a
+    ``cfg.pl_active`` configuration has. The step runs on the state's
+    device; ``real_u8`` and injected ``draws`` are moved there. The
+    function carries its two weights as ``pen_weight`` and ``pl_weight``
+    (0.0 where the term is off)."""
     _check_supported(cfg, phase)
+    if pl_override and not cfg.pl_active:
+        raise ValueError("pl_override=True needs loss.pl_weight > 0 and a "
+                         "style family")
     res_log2 = phase.res_log2
     gen_forward = build_generator_forward(cfg, res_log2)
     dtype = _dtype_of(cfg)
@@ -245,6 +313,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
     style = is_style(cfg.model)
     n_critic = max(1, lc.d_steps_per_g)
     w_beta = torch.tensor(cfg.model.w_avg_beta, dtype=torch.float32)
+    with_pl = cfg.pl_active if pl_override is None else pl_override
+    pl_weight = lc.pl_weight * (lc.pl_every if pl_override is True else 1)
 
     def ema_beta(batch: int, shown: int) -> float:
         o = cfg.optim
@@ -304,8 +374,17 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             try:
                 fake, w_mean = gen_forward(g, draws.g, alpha, fade)
                 g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
+                objective = g_loss
+                if with_pl:
+                    if draws.pl is None:
+                        raise ValueError("a path-length step needs "
+                                         "StepDraws.pl")
+                    pl_pen, pl_mean, _ = path_length_penalty(
+                        g, state.pl_mean, draws.pl, res_log2, alpha,
+                        weight=pl_weight, decay=lc.pl_decay, fade=fade)
+                    objective = g_loss + pl_pen
                 state.opt_g.zero_grad(set_to_none=True)
-                g_loss.backward()
+                objective.backward()
             finally:
                 d.requires_grad_(True)
             set_hparams(state.opt_g, hp_g)
@@ -313,6 +392,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             seed_new_moments(state.opt_g, state.step // n_critic
                              - state.opt_step0 // n_critic)
             state.opt_g.step()
+            if with_pl:
+                state.pl_mean = pl_mean
 
             with torch.no_grad():
                 _ema_update(state.g_ema, g,
@@ -329,8 +410,14 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                    "penalty": penalty.detach(),
                    "real_score": real_s.detach().mean(),
                    "fake_score": fake_s.detach().mean(), "alpha": alpha}
+        if cfg.pl_active:
+            # only path-length configurations carry the metric, as in JAX
+            metrics["pl_penalty"] = pl_pen.detach() if with_pl \
+                else torch.zeros((), device=dev)
         return state, metrics
 
+    step.pen_weight = pen_weight if with_penalty else 0.0
+    step.pl_weight = pl_weight if with_pl else 0.0
     return step
 
 
@@ -370,16 +457,19 @@ def make_lazy_stepper(cfg: Config, phase: PhaseSpec,
     """Host-side lazy-regularization dispatcher:
     ``stepper(state, real_u8, draws=None) -> (state, metrics)``.
 
-    Builds the step variants that occur (penalty on / off) and picks one
-    per step from its own counter, seeded with ``initial_step`` on resume.
-    No laziness -> one step function."""
+    Builds the step variants that occur, one per (D penalty, path length)
+    pair of overrides, when first needed, and picks one per step from its
+    own counter, seeded with ``initial_step`` on resume. No laziness -> one
+    step function. The stepper's ``programs`` maps each pair to its step
+    function."""
     combo_at, lazy = _lazy_combos(cfg)
     cache: dict = {}
 
-    def get(dpen, _pl):  # pl is always False: build_train_step rejects PL
-        if dpen not in cache:
-            cache[dpen] = build_train_step(cfg, phase, penalty_override=dpen)
-        return cache[dpen]
+    def get(dpen, pl):
+        if (dpen, pl) not in cache:
+            cache[(dpen, pl)] = build_train_step(
+                cfg, phase, penalty_override=dpen, pl_override=pl)
+        return cache[(dpen, pl)]
 
     if not lazy:
         return get(*combo_at(0))
@@ -391,4 +481,5 @@ def make_lazy_stepper(cfg: Config, phase: PhaseSpec,
         counter["i"] += 1
         return fn(state, real_u8, draws)
 
+    stepper.programs = cache
     return stepper

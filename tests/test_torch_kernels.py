@@ -10,7 +10,9 @@ path's bits), mbstd on its vector and element paths with the batch held
 in registers and read twice, pixelnorm at widths that do and do not fill 16-byte vectors; each
 autograd Function's gradient, and the second derivative through the
 resample and mbstd Functions, against autograd through the plain versions
-on the card, in float32 within 1e-5 of the scale. This file imports no
+on the card, in float32 within 1e-5 of the scale; the resample kernels at
+every StyleGAN2 shape (``chip_smoke.sg2_launch_units``) and a
+path-length-shaped second derivative through them. This file imports no
 JAX, so it runs on a GPU host that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -m gpu
@@ -524,5 +526,63 @@ def test_second_order_through_kernels_on_card(cuda):
         return torch.autograd.grad(gx.square().sum(), params)
 
     for a, b in zip(r1(_kernel_ops()), r1(_plain_ops())):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def _stylegan2_shapes():
+    """kernel -> the shapes a stylegan2-256 served batch of 32, a step at
+    batch 8 and a path-length step (batch 4) give it (chip_smoke derives
+    them from the model's structure)."""
+    import chip_smoke
+    from ganlab_tpu_torch.config import get_config
+
+    shapes: dict = {}
+    for unit in chip_smoke.sg2_launch_units(
+            get_config("stylegan2-256").model).values():
+        for name, by_shape in unit.items():
+            shapes.setdefault(name, set()).update(by_shape)
+    return shapes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stylegan2_shapes_on_card(cuda, dtype):
+    """The resample kernels at every shape of the StyleGAN2 path (the
+    3-channel skip RGBs, the residual D's two blur+downs a block), with
+    the gains their autograd Functions give them, against the plain
+    versions."""
+    tol = _tol(dtype)
+    shapes = _stylegan2_shapes()
+    assert (32, 3, 128, 128) in shapes["upsample_blur_2x"]
+    assert (8, 3, 256, 256) in shapes["blur_downsample_2x"]
+    with torch.inference_mode():
+        for name, kern, ref, gains in (
+                ("upsample_blur_2x", upsample_blur_2x_cuda,
+                 upsample_blur_2x_ref, (1.0, 0.25)),
+                ("blur_downsample_2x", blur_downsample_2x_cuda,
+                 blur_downsample_2x_ref, (1.0, 4.0))):
+            for i, shape in enumerate(sorted(shapes[name])):
+                x = _randn(shape, dtype, i, cuda)
+                for gain in gains:
+                    want = ref(x, gain)
+                    torch.testing.assert_close(
+                        kern(x, gain), want, rtol=tol,
+                        atol=tol * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_path_length_second_order_through_kernels_on_card(cuda):
+    """Path length's shape of derivative (the gradient with respect to the
+    styles with its graph, then the gradient of the lengths' deviation
+    with respect to every parameter) through up+blur and blur+down, the
+    Functions against the plain versions, float32."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    kern, plain = _kernel_ops(), _plain_ops()
+    got = chip_smoke.pl_second_order(kern["up"], kern["down"], cuda)
+    want = chip_smoke.pl_second_order(plain["up"], plain["down"], cuda)
+    for a, b in zip(got, want):
         scale = b.abs().max().item()
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)

@@ -78,21 +78,28 @@ def test_d_forward_and_input_grad(pair, lg, alpha):
 
 
 def test_unported_d_knobs_are_rejected():
-    """model.remat is ported (tests/test_torch_remat.py)."""
+    """model.remat is ported (tests/test_torch_remat.py) and so is
+    model.d_resnet (residual blocks, tests/test_torch_stylegan2.py): a D
+    with it builds; the TPU layout knob fold_width is rejected."""
     assert ProDiscriminator(get_config(
         "stylegan-256", **dict(SMALL, **{"model.remat": True})).model).remat
     for knob in ("model.fold_width", "model.d_resnet"):
+        cfg = get_config("stylegan-256", **dict(SMALL, **{knob: True}))
+        if knob == "model.d_resnet":
+            d = ProDiscriminator(cfg.model, blur_resample=True)
+            assert d.block8.resnet and d.block8.skip.w.shape[2:] == (1, 1)
+            continue
         with pytest.raises(NotImplementedError):
-            ProDiscriminator(get_config(
-                "stylegan-256", **dict(SMALL, **{knob: True})).model)
+            ProDiscriminator(cfg.model)
 
 
 def test_build_models_stylegan_only():
     """The StyleGAN pair takes the blur + downsample D; ProGAN and
-    ResNet-GAN build too (tests/test_torch_resnetgan.py); only StyleGAN2
-    is still to port."""
+    ResNet-GAN build too (tests/test_torch_resnetgan.py), and so does
+    StyleGAN2's pair: its G with the residual blur + downsample D."""
     g, d = build_models(get_config("stylegan-256", **SMALL).model)
     assert isinstance(d, ProDiscriminator) and hasattr(g, "map_latents")
     assert d.block8.blur
-    with pytest.raises(NotImplementedError):
-        build_models(get_config("stylegan2-256").model)
+    g2, d2 = build_models(get_config("stylegan2-256").model)
+    assert isinstance(d2, ProDiscriminator) and hasattr(g2, "map_latents")
+    assert d2.block8.blur and d2.block256.resnet

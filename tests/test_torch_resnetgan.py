@@ -240,5 +240,8 @@ def test_build_models_families():
         assert isinstance(g, g_cls) and isinstance(d, d_cls), preset
         if d_cls is ProDiscriminator:      # ProGAN's D pools, no blur
             assert not d.block8.blur
-    with pytest.raises(NotImplementedError, match="A.5"):
-        build_models(get_config("stylegan2-256").model)
+    # StyleGAN2 (ROADMAP.md A.5): its G with the residual blur + down D
+    g, d = build_models(get_config("stylegan2-256", **{
+        "model.fmap_base": 64}).model)
+    assert isinstance(d, ProDiscriminator) and hasattr(g, "map_latents")
+    assert d.block8.blur and d.block8.resnet
