@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training-step, progressive-trainer,
-user-data and ProGAN / ResNet-GAN paths on one NVIDIA GPU.
+user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel
+and export paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -126,9 +127,29 @@ Phases (any failure raises and the script exits non-zero):
     3-channel skip RGBs at batch 32, 8 and 4, the residual D's blur+downs
     at batch 8) and phase 4 adds a path-length-shaped second derivative
     through the resample Functions.
-11. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
+11. Gradient accumulation, data parallelism and the exported sampler,
+    at full width, bf16: the fixed-256² stylegan-256 step with
+    ``optim.grad_accum`` = 2 at a microbatch of 16 (an R1-on and an
+    R1-off step, launches twice a microbatch's); a stylegan2-256
+    path-length step with two microbatches of 8 (``pl_mean`` chained at
+    the decay 1 - (1 - pl_decay)^(1/2)); two ranks spawned over ``gloo``
+    on the one card with identical shards of 16 for three steps (states
+    bitwise identical, first-step gradients against the one-process
+    ``grad_accum`` = 2 step within 1e-2 of each leaf's scale; two ranks
+    sharing a card read correctness, not a data-parallel speed);
+    stylegan-1024 at its preset batch of 4 with remat and ``grad_accum``
+    = 4 in its 1024² phase (three steps, peak memory); ``export_sampler``
+    -> ``ExportedSampler`` for stylegan-256 (cuda and cpu programs;
+    images against ``BatchSampler``'s within one level and more than
+    99% equal; the loaded program's launches per batch; img/s of both at
+    a batch of 32). Phase 3 also holds each ``torch.ops.ganlab``
+    operator bit for bit to its launching wrapper, times the kernels
+    through the operators (``host_us``) and the wrappers alone
+    (``wrapper_host_us``), and reads the host's time a call of the rows
+    pixelnorm as a ``torch.library.custom_op`` beside the operator.
+12. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
     weights), ms per 64 images.
-12. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+13. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -148,6 +169,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -158,18 +180,23 @@ from ganlab_tpu_torch import cli as port_cli
 from ganlab_tpu_torch import models as port_models
 from ganlab_tpu_torch import ops as port_ops
 from ganlab_tpu_torch.data import make_source
+from ganlab_tpu_torch.export import ExportedSampler, export_sampler
 from ganlab_tpu_torch.ops.kernels import _build
 from ganlab_tpu_torch.ops.kernels.adain import (
+    ADAIN,
     adain_cuda,
     adain_path,
     adain_ref,
 )
 from ganlab_tpu_torch.ops.kernels.mbstd import (
+    MINIBATCH_STDDEV,
     minibatch_stddev_cuda,
     minibatch_stddev_path,
     minibatch_stddev_ref,
 )
 from ganlab_tpu_torch.ops.kernels.pixelnorm import (
+    PIXEL_NORM,
+    PIXEL_NORM_NCHW,
     pixel_norm_cuda,
     pixel_norm_nchw_cuda,
     pixel_norm_nchw_path,
@@ -177,6 +204,8 @@ from ganlab_tpu_torch.ops.kernels.pixelnorm import (
     pixel_norm_ref,
 )
 from ganlab_tpu_torch.ops.kernels.resample import (
+    BLUR_DOWNSAMPLE_2X,
+    UPSAMPLE_BLUR_2X,
     blur_downsample_2x_cuda,
     blur_downsample_2x_path,
     blur_downsample_2x_ref,
@@ -184,6 +213,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
     upsample_blur_2x_path,
     upsample_blur_2x_ref,
 )
+from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train import (
     Trainer,
@@ -563,6 +593,7 @@ KERNELS = {
         replaces="ganlab_tpu/ops/pallas/pixelnorm.py:64",
         kernel=pixel_norm_cuda,
         plain=pixel_norm_ref,
+        op=lambda x: PIXEL_NORM(x, 1e-8),
         inputs=lambda s, dt, g: (
             torch.randn(s, generator=g, device="cuda").to(dt),),
         library=(lambda x: F.rms_norm(x, (x.shape[-1],), eps=1e-8))
@@ -577,6 +608,7 @@ KERNELS = {
         replaces="ganlab_tpu/ops/pallas/pixelnorm.py:64",
         kernel=pixel_norm_nchw_cuda,
         plain=pixel_norm_nchw_ref,
+        op=lambda x: PIXEL_NORM_NCHW(x, 1e-8),
         inputs=lambda s, dt, g: (
             torch.randn(s, generator=g, device="cuda").to(dt),),
         library=_pixelnorm_nchw_library,
@@ -587,6 +619,7 @@ KERNELS = {
         source="ganlab_tpu_torch/csrc/adain.cu",
         replaces="ganlab_tpu/ops/pallas/adain.py:77",
         kernel=adain_cuda, plain=adain_ref,
+        op=lambda x, ys, yb: ADAIN(x, ys, yb, 1e-8),
         inputs=lambda s, dt, g: (
             (torch.randn(s, generator=g, device="cuda") * 2 + 0.5).to(dt),
             (torch.randn(s[:2], generator=g, device="cuda") + 1).to(dt),
@@ -602,6 +635,7 @@ KERNELS = {
         replaces="ganlab_tpu/ops/pallas/resample.py:132",
         kernel=upsample_blur_2x_cuda,
         plain=upsample_blur_2x_ref,
+        op=lambda x, gain=1.0: UPSAMPLE_BLUR_2X(x, gain),
         inputs=lambda s, dt, g: (
             torch.randn(s, generator=g, device="cuda").to(dt),),
         library=lambda x: F.conv_transpose2d(
@@ -615,6 +649,7 @@ KERNELS = {
         replaces="ganlab_tpu/ops/pallas/resample.py:154",
         kernel=blur_downsample_2x_cuda,
         plain=blur_downsample_2x_ref,
+        op=lambda x, gain=1.0: BLUR_DOWNSAMPLE_2X(x, gain),
         inputs=lambda s, dt, g: (
             torch.randn(s, generator=g, device="cuda").to(dt),),
         library=lambda x: F.conv2d(
@@ -628,6 +663,7 @@ KERNELS = {
         replaces="ganlab_tpu/ops/pallas/mbstd.py:45",
         kernel=minibatch_stddev_cuda,
         plain=minibatch_stddev_ref,
+        op=lambda x: MINIBATCH_STDDEV(x, 1e-8),
         inputs=lambda s, dt, g: (
             (torch.randn(s, generator=g, device="cuda") * 1.5 + 0.3)
             .to(dt),),
@@ -742,6 +778,11 @@ def check_shape(name: str, shape, g) -> float:
         label = f"{name} {shape} {_dt(dt)}"
         worst = max(worst, _check(label, out, k["plain"](*inp), dt,
                                   f" first call {first_s:.2f} s"))
+        # the registered operator (what the autograd Function calls) is
+        # the launching wrapper on a CUDA tensor: the same bits
+        if not torch.equal(k["op"](*inp), out):
+            raise AssertionError(f"{label}: torch.ops.ganlab differs from "
+                                 "the launching wrapper")
         if name in WITH_GAIN:
             worst = max(worst, _check(
                 f"{label} gain {CHECK_GAIN}", k["kernel"](*inp, CHECK_GAIN),
@@ -989,11 +1030,13 @@ def time_shape(name: str, shape, g) -> dict:
     inp = k["inputs"](shape, torch.bfloat16, g)
 
     def kern():
-        return k["kernel"](*inp)
+        # the operator the autograd Function calls: the model's path
+        return k["op"](*inp)
 
     t = dict(ms=cuda_time_ms(kern),
              plain_ms=cuda_time_ms(lambda: k["plain"](*inp)),
              device_ms=device_time_ms(kern), host_us=host_time_us(kern),
+             wrapper_host_us=host_time_us(lambda: k["kernel"](*inp)),
              library_ms=None, library_device_ms=None, library_host_us=None)
     note, slow = "n/a", False
     if k["library"] is not None:
@@ -1024,7 +1067,8 @@ def time_shape(name: str, shape, g) -> dict:
     t["ops_ms"] = k["flops"](shape) / F32_FLOPS_PER_S * 1e3
     bound = max(t["bytes_ms"], t["ops_ms"])
     log(f"time {name} {shape} bf16: kernel {t['ms']:.4f} ms (device "
-        f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us)  plain "
+        f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us through the "
+        f"operator, {t['wrapper_host_us']:.1f} us the wrapper alone)  plain "
         f"{t['plain_ms']:.4f} ms  library {note}  bound {bound:.4f} ms "
         f"({'bytes' if t['bytes_ms'] >= t['ops_ms'] else 'operations'}); "
         f"{nbytes / t['ms'] / 1e6:.0f} GB/s = "
@@ -1050,7 +1094,11 @@ def pixelnorm_host_parts(g) -> None:
 
     parts = {"empty_like": lambda: torch.empty_like(x),
              "C function through ctypes": raw,
-             "whole wrapper": lambda: pixel_norm_cuda(x)}
+             "whole wrapper": lambda: pixel_norm_cuda(x),
+             "torch.ops.ganlab (Library operator)":
+                 lambda: PIXEL_NORM(x, 1e-8),
+             "torch.library.custom_op around the wrapper":
+                 functools.partial(_custom_pixel_norm(), x, 1e-8)}
     if KERNELS["pixelnorm"]["library"] is not None:
         parts["F.rms_norm"] = lambda: KERNELS["pixelnorm"]["library"](x)
     for _ in range(2):                    # the second reading is the warm one
@@ -1058,6 +1106,22 @@ def pixelnorm_host_parts(g) -> None:
     log(f"host pixelnorm {tuple(x.shape)} bf16, us per call over 300 "
         "un-synchronised calls: "
         + ", ".join(f"{n} {v:.2f}" for n, v in reads.items()))
+
+
+@functools.cache
+def _custom_pixel_norm():
+    """The rows pixelnorm registered the other way, as a Python
+    ``torch.library.custom_op`` around the same wrapper: read beside the
+    package's ``torch.library.Library`` operator for the host's cost."""
+    @torch.library.custom_op("ganlab_smoke::pixel_norm", mutates_args=())
+    def op(x: torch.Tensor, eps: float) -> torch.Tensor:
+        return pixel_norm_cuda(x, eps)
+
+    @op.register_fake
+    def _(x, eps):
+        return torch.empty_like(x)
+
+    return op
 
 
 def adain_host_parts(g) -> None:
@@ -1095,7 +1159,8 @@ def unit_sums(times: dict, launches: dict) -> dict:
         vals = [times[s][key] for s in launches]
         r[key] = None if None in vals else \
             sum(n * v for n, v in zip(launches.values(), vals))
-    for key in ("host_us", "library_host_us"):      # per call: the mean
+    for key in ("host_us", "wrapper_host_us", "library_host_us"):
+        # per call: the mean
         vals = [times[s][key] for s in launches]
         r[key] = None if None in vals else \
             sum(n * v for n, v in zip(launches.values(), vals)) / n_all
@@ -2820,7 +2885,374 @@ def phase_stylegan2(card: str) -> dict:
                 peak_gib=run["peak_gib"], prof=prof, secs=secs)
 
 
-# -- 10. Inception at full size -----------------------------------------------
+# -- 11. accumulation, data parallelism, export ----------------------------
+ACCUM_MICRO = 16               # a microbatch of the fixed-256² step
+DP_STEPS = 3                   # R1 on the first (penalty_every 16)
+DP_GRAD_RTOL = 1e-2            # DP ranks vs one accumulating process, bf16,
+                               # of each gradient leaf's scale
+ACCUM_1K = 4                   # microbatches of the 1024² step
+
+
+def _launch_counts() -> dict:
+    return {n: k["kernel"].launches for n, k in KERNELS.items()}
+
+
+def _scaled_totals(launches: dict, times: int) -> dict:
+    return {n: times * v for n, v in launch_totals(launches).items()}
+
+
+def _timed_step(step, state, real):
+    """(state, metrics, ms, launches) of one step, the counts set to 0
+    just before it and read just after."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, real)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, {k: float(v) for k, v in m.items()}, ms, _launch_counts()
+
+
+def _check_accum_step(label: str, m: dict, counts: dict, expect: dict,
+                      r1: bool) -> None:
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"{label}: non-finite metrics {m}")
+    if (m["penalty"] > 0) != r1:
+        raise AssertionError(f"{label}: penalty {m['penalty']}")
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts}, derived {expect}")
+
+
+def phase_accum(card: str) -> dict:
+    """The fixed-256² stylegan-256 step (full width, bf16) with
+    ``optim.grad_accum`` = 2 at a microbatch of 16: an R1-on and an
+    R1-off step, each twice (the second timed); every step's launches
+    twice a microbatch's (``step_launches`` at batch 16)."""
+    cfg = training_config(**{"optim.grad_accum": 2,
+                             "schedule.batch_schedule": {256: ACCUM_MICRO}})
+    mc = cfg.model
+    phase = build_phases(cfg.schedule, mc)[-1]
+    state = create_train_state(cfg, seed=0)
+    gdata = torch.Generator(device="cuda").manual_seed(21)
+    real = torch.randint(0, 256, (2 * ACCUM_MICRO, 256, 256, 3),
+                         generator=gdata, device="cuda", dtype=torch.uint8)
+    totals = {n: 0 for n in KERNELS}
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for r1 in (True, False):
+        step = train_steps.build_train_step(cfg, phase, penalty_override=r1)
+        expect = _scaled_totals(step_launches(mc, r1, batch=ACCUM_MICRO), 2)
+        for i in range(2):
+            state, m, ms, counts = _timed_step(step, state, real)
+            _check_accum_step(f"accum R1-{'on' if r1 else 'off'} {i}", m,
+                              counts, expect, r1)
+            for n in totals:
+                totals[n] += counts[n]
+            log(f"accum: stylegan-256 256² grad_accum 2 x {ACCUM_MICRO} "
+                f"R1-{'on ' if r1 else 'off'} call {i}: {ms:.2f} ms, "
+                f"launches {counts} (2 x a microbatch's) "
+                + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+        out["ms_r1_on" if r1 else "ms_r1_off"] = ms
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if state.shown_imgs != 4 * 2 * ACCUM_MICRO:
+        raise AssertionError(f"accum: shown {state.shown_imgs}")
+    log(f"accum: {out['ms_r1_on']:.2f} ms an R1-on, {out['ms_r1_off']:.2f} "
+        f"ms an R1-off step of 2 x {ACCUM_MICRO} images; peak memory "
+        f"{peak:.2f} GiB [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    return dict(out, peak_gib=peak, launches=totals)
+
+
+def phase_pl_accum(card: str) -> dict:
+    """stylegan2-256 at its preset batch of 8 with ``optim.grad_accum`` =
+    2 through two path-length steps (the second timed): ``pl_mean`` moves
+    once a microbatch with the decay 1 - (1 - pl_decay)^(1/2), from each
+    microbatch's mean length; launches twice a microbatch's."""
+    cfg = get_config("stylegan2-256", **{"optim.grad_accum": 2})
+    mc, lc = cfg.model, cfg.loss
+    phase = build_phases(cfg.schedule, mc)[-1]
+    micro = phase.batch_size
+    state = create_train_state(cfg, seed=0)
+    state.pl_mean.fill_(0.25)
+    seen, penalty = [], train_steps.path_length_penalty
+
+    def recording(g, pl_mean, dr, *a, **k):
+        out = penalty(g, pl_mean, dr, *a, **k)
+        seen.append((pl_mean.item(), out[2].mean().item(), out[1].item()))
+        return out
+
+    gdata = torch.Generator(device="cuda").manual_seed(22)
+    real = torch.randint(0, 256, (2 * micro, 256, 256, 3), generator=gdata,
+                         device="cuda", dtype=torch.uint8)
+    step = train_steps.build_train_step(cfg, phase, penalty_override=False,
+                                        pl_override=True)
+    expect = _scaled_totals(stylegan2_step_launches(
+        mc, False, True, batch=micro,
+        pl_batch=train_steps.pl_batch(cfg, micro)), 2)
+    dm = 1.0 - (1.0 - lc.pl_decay) ** 0.5
+    want = 0.25
+    for i in range(2):
+        seen.clear()
+        train_steps.path_length_penalty = recording
+        try:
+            state, m, ms, counts = _timed_step(step, state, real)
+        finally:
+            train_steps.path_length_penalty = penalty
+        _check_accum_step(f"pl accum {i}", m, counts, expect, False)
+        chain = [f"{want:.6f}"]
+        for mean_in, length, new in seen:
+            if abs(mean_in - want) > 1e-5 * max(abs(want), 1.0):
+                raise AssertionError(f"pl accum: microbatch took pl_mean "
+                                     f"{mean_in}, chained {want}")
+            want = want + dm * (length - want)
+            if abs(new - want) > 1e-5 * max(abs(want), 1.0):
+                raise AssertionError(f"pl accum: pl_mean {new}, chained "
+                                     f"{want}")
+            chain.append(f"{new:.6f} (mean length {length:.4f})")
+            want = new
+        if len(seen) != 2 or state.pl_mean.item() != want or \
+                not m["pl_penalty"] > 0:
+            raise AssertionError(f"pl accum: {seen}, state "
+                                 f"{state.pl_mean.item()}")
+        log(f"accum: stylegan2-256 PL step grad_accum 2 x {micro}, call "
+            f"{i}: {ms:.2f} ms, launches {counts}; pl_mean "
+            + " -> ".join(chain) + f", decay a microbatch {dm:.6g} "
+            f"(pl_decay {lc.pl_decay}) [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=counts)
+
+
+def _dp_state(cfg):
+    """A full-width state from seed 0 with every term live (the 4x4 planes
+    are constant at init, where AdaIN's gradient is rounding noise)."""
+    state = create_train_state(cfg, seed=0)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for net in (state.g, state.d):
+            for k, v in net.state_dict().items():
+                if k.endswith(("noise.scale", ".bias", ".b", "const")):
+                    v += 0.2 * torch.randn(v.shape, generator=gen).to(v)
+    return state
+
+
+def _dp_shard() -> torch.Tensor:
+    gdata = torch.Generator(device="cuda").manual_seed(23)
+    return torch.randint(0, 256, (ACCUM_MICRO, 256, 256, 3),
+                         generator=gdata, device="cuda", dtype=torch.uint8)
+
+
+def _grads(state) -> dict:
+    return {f"{net}.{k}": p.grad.detach().clone()
+            for net in ("g", "d")
+            for k, p in getattr(state, net).named_parameters()
+            if p.grad is not None}
+
+
+def _dp_rank(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of ``phase_dp`` (a spawned process)."""
+    import hashlib
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cudnn.deterministic = True
+    pdist.initialize("gloo", device="cuda:0", rank=rank, world_size=world,
+                     init_method=f"tcp://localhost:{port}")
+    cfg = training_config(**{"schedule.batch_schedule": {256: ACCUM_MICRO}})
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    state = _dp_state(cfg)
+    pdist.broadcast_state(state)
+    stepper = make_lazy_stepper(cfg, phase)
+    shard = _dp_shard()                      # the same images on each rank
+    reset_counts()
+    ms, grads = [], None
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = stepper(state, shard)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads = _grads(state)
+            metrics0 = {k: float(v) for k, v in m.items()}
+    counts = _launch_counts()
+    digest = hashlib.sha256()
+    for k, v in sorted(state_tensors(state).items()):
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().reshape(-1).view(torch.uint8)
+                      .numpy().tobytes())
+    out = dict(rank=rank, ms=ms, launches=counts, digest=digest.hexdigest(),
+               shown=state.shown_imgs, world=pdist.world_size(),
+               metrics0=metrics0)
+    pdist.shutdown()
+    del state
+    if rank == 0:
+        # the reference: one process, grad_accum = 2 over the two shards,
+        # whose microbatch j draws what rank j drew
+        cfg2 = training_config(**{
+            "schedule.batch_schedule": {256: ACCUM_MICRO},
+            "optim.grad_accum": 2})
+        ref = _dp_state(cfg2)
+        ref, m = make_lazy_stepper(cfg2, phase)(ref,
+                                                torch.cat([shard, shard]))
+        want = _grads(ref)
+        if set(want) != set(grads):
+            raise AssertionError("dp: other gradient leaves than the "
+                                 "reference")
+        rels = sorted(((grads[k] - w).float().abs().max().item()
+                       / max(w.float().abs().max().item(), 1e-30), k)
+                      for k, w in want.items())
+        out.update(worst=rels[-1], n_leaves=len(rels),
+                   ref_metrics={k: float(v) for k, v in m.items()})
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_dp(card: str) -> dict:
+    """Data parallelism on the one card: two ranks spawned over ``gloo``
+    on ``cuda:0`` (NCCL refuses two ranks on one device), identical
+    shards of 16 images, the fixed-256² stylegan-256 step at full width
+    for three steps (R1 on the first). Their D and G gradients of the
+    first step against the one-process ``grad_accum`` = 2 step fed both
+    microbatches (whose draws are the ranks'), within ``DP_GRAD_RTOL`` of
+    each leaf's scale; the two ranks' states bitwise identical after
+    three steps (sha256 of every state tensor, the generator included).
+    Two ranks sharing one card measure correctness, not a DP speed."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    outdir = tempfile.mkdtemp(prefix="ganlab_dp_")
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _dp_rank, args=(2, port, outdir), nprocs=2, join=True,
+        start_method="spawn")
+    wall = time.perf_counter() - t0
+    r = []
+    for i in range(2):
+        with open(os.path.join(outdir, f"rank{i}.json")) as f:
+            r.append(json.load(f))
+    shutil.rmtree(outdir, ignore_errors=True)
+    worst, leaf = r[0]["worst"]
+    if r[0]["digest"] != r[1]["digest"]:
+        raise AssertionError("dp: the two ranks' states differ")
+    if not worst <= DP_GRAD_RTOL:
+        raise AssertionError(f"dp: gradient {leaf} {worst:.3e} of its scale")
+    if r[0]["shown"] != DP_STEPS * 2 * ACCUM_MICRO or r[0]["world"] != 2:
+        raise AssertionError(f"dp: shown {r[0]['shown']}")
+    need = ("pixelnorm", "adain", "upsample_blur_2x", "blur_downsample_2x",
+            "minibatch_stddev")
+    if any(x["launches"][n] == 0 for x in r for n in need):
+        raise AssertionError(f"dp: launches {[x['launches'] for x in r]}")
+    log(f"dp: two gloo ranks on one card, {DP_STEPS} steps of 2 x "
+        f"{ACCUM_MICRO} images: states bitwise identical (sha256 "
+        f"{r[0]['digest'][:16]}); step-0 gradients vs one process with "
+        f"grad_accum 2: {r[0]['n_leaves']} leaves, worst {worst:.3e} of the "
+        f"leaf scale ({leaf}; tol {DP_GRAD_RTOL:g}, bf16); metrics rank 0 "
+        f"{r[0]['metrics0']} one process {r[0]['ref_metrics']}; launches a "
+        f"rank {r[0]['launches']}")
+    log(f"dp: ms a step on rank 0 {[round(x, 2) for x in r[0]['ms']]}, rank "
+        f"1 {[round(x, 2) for x in r[1]['ms']]}; {wall:.1f} s for the phase "
+        f"with the spawns. Two ranks share one card here: this is a check "
+        f"of correctness, not a data-parallel speed [{card}]")
+    return dict(launches=r[0]["launches"], worst=worst, ms=r[0]["ms"])
+
+
+def phase_1024_accum(card: str) -> dict:
+    """stylegan-1024 as the preset has it (remat, batch 4 at 1024²) with
+    ``optim.grad_accum`` = 4 in its 1024² phase: an R1-on and two R1-off
+    steps of 4 x 4 images, launches four times a microbatch's (remat's
+    recomputes included), peak memory."""
+    cfg = get_config("stylegan-1024", **{"optim.grad_accum": ACCUM_1K})
+    mc = cfg.model
+    phase = build_phases(cfg.schedule, mc)[-1]
+    micro = phase.batch_size
+    assert mc.remat and phase.resolution == 1024 and micro == 4, phase
+    state = create_train_state(cfg, seed=0)
+    state.shown_imgs = phase.start_img
+    gdata = torch.Generator(device="cuda").manual_seed(24)
+    real = torch.randint(0, 256, (ACCUM_1K * micro, 1024, 1024, 3),
+                         generator=gdata, device="cuda", dtype=torch.uint8)
+    stepper = make_lazy_stepper(cfg, phase)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, ms_all = {n: 0 for n in KERNELS}, []
+    for i in range(3):
+        r1 = i == 0
+        state, m, ms, counts = _timed_step(stepper, state, real)
+        _check_accum_step(f"1024 accum step {i}", m, counts, _scaled_totals(
+            step_launches(mc, r1, batch=micro), ACCUM_1K), r1)
+        for n in totals:
+            totals[n] += counts[n]
+        ms_all.append(ms)
+        log(f"accum: stylegan-1024 1024² grad_accum {ACCUM_1K} x {micro} "
+            f"step {i} R1-{'on ' if r1 else 'off'}: {ms:.2f} ms, launches "
+            f"{counts}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"accum: stylegan-1024 at 1024² with remat and {ACCUM_1K} "
+        f"microbatches of {micro}: {ms_all[0]:.1f} ms R1-on, "
+        f"{statistics.median(ms_all[1:]):.1f} ms R1-off; peak memory "
+        f"{peak:.2f} GiB [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    return dict(ms=ms_all, peak_gib=peak, launches=totals)
+
+
+def phase_export(card: str) -> dict:
+    """``export_sampler`` -> ``ExportedSampler`` for stylegan-256 (full
+    width, bf16, seeded random weights as in phase 5), programs for cuda
+    and cpu, a batch of 32: images against ``BatchSampler``'s for the same
+    seeds (at most one level apart, more than 99% equal); the loaded cuda
+    program's launches per batch (1 pixelnorm, 14 AdaIN, 6 up+blur, read
+    from the wrappers' counts); img/s of both at a batch of 32."""
+    cfg = get_config("stylegan-256")
+    sampler = make_sampler(cfg)
+    path = os.path.join(tempfile.mkdtemp(prefix="ganlab_export_"),
+                        "sampler.ganlab.zip")
+    t0 = time.perf_counter()
+    # what export_sampler reads of a state: the G-EMA and the w-average
+    export_sampler(cfg, types.SimpleNamespace(g_ema=sampler.g,
+                                              w_avg=sampler.w_avg),
+                   path, batch_size=BATCH)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exported = ExportedSampler(path)
+    load_s = time.perf_counter() - t0
+    if exported.meta["platforms"] != ["cuda", "cpu"]:
+        raise AssertionError(f"export: platforms {exported.meta}")
+    exported.generate(1, seed=0)                       # first call
+    reset_counts()
+    a = exported.generate(2 * BATCH, seed=3)
+    counts = _launch_counts()
+    expect = {"pixelnorm": 2, "pixelnorm_nchw": 0, "adain": 28,
+              "upsample_blur_2x": 12, "blur_downsample_2x": 0,
+              "minibatch_stddev": 0}
+    if counts != expect:
+        raise AssertionError(f"export: launches {counts}, expected {expect}")
+    b = sampler.generate(2 * BATCH, seed=3)
+    diff = np.abs(a.astype(int) - b.astype(int))
+    equal = float((a == b).mean())
+    if a.shape != b.shape or diff.max() > 1 or not equal > 0.99:
+        raise AssertionError(f"export: max level difference {diff.max()}, "
+                             f"equal share {equal}")
+    ex_speed, live_speed = serving_speed(exported), serving_speed(sampler)
+    size = os.path.getsize(path) / 2 ** 20
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    log(f"export: stylegan-256 artifact {size:.1f} MiB (cuda + cpu "
+        f"programs) in {export_s:.1f} s, loaded in {load_s:.1f} s; "
+        f"{2 * BATCH} images vs BatchSampler: max level difference "
+        f"{diff.max()}, equal {equal:.6f}; launches {counts}")
+    log(f"export: a batch of {BATCH}: exported program "
+        f"{ex_speed['img_per_s']:.1f} img/s (latency median "
+        f"{ex_speed['batch_ms_median']:.2f} ms), BatchSampler "
+        f"{live_speed['img_per_s']:.1f} img/s "
+        f"({live_speed['batch_ms_median']:.2f} ms) [{card}]")
+    return dict(launches=counts, img_per_s=ex_speed["img_per_s"],
+                live_img_per_s=live_speed["img_per_s"])
+
+
+# -- 12. Inception at full size -----------------------------------------------
 def phase_inception(card: str) -> dict:
     """One ``InceptionExtractor`` forward (random weights with non-trivial
     batch-norm statistics, as a weights file would give) on 64 images of
@@ -2927,6 +3359,11 @@ def main(kernels_only: bool = False) -> None:
     user = phase_user_data(card)
     progan = phase_progan(card)
     sg2 = phase_stylegan2(card)
+    accum = phase_accum(card)
+    pl_accum = phase_pl_accum(card)
+    dp = phase_dp(card)
+    accum_1k = phase_1024_accum(card)
+    exported = phase_export(card)
     phase_inception(card)
     kernels = []
     for name, k in KERNELS.items():
@@ -2943,7 +3380,12 @@ def main(kernels_only: bool = False) -> None:
                     "trainer": trainer["launches"][name],
                     "user_path_1024": user["launches"][name],
                     "progan": progan["launches"][name],
-                    "stylegan2": sg2["launches"][name]}
+                    "stylegan2": sg2["launches"][name],
+                    "accum": accum["launches"][name],
+                    "pl_accum": pl_accum["launches"][name],
+                    "dp_rank0": dp["launches"][name],
+                    "accum_1024": accum_1k["launches"][name],
+                    "export": exported["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -2973,6 +3415,7 @@ def main(kernels_only: bool = False) -> None:
             "bound_by": u["bound_by"], "library_ms": u["library_ms"],
             "ms_per": per,
             "device_ms": u["device_ms"], "host_us": u["host_us"],
+            "wrapper_host_us": u["wrapper_host_us"],
             "library_device_ms": u["library_device_ms"],
             "library_host_us": u["library_host_us"]}
         for unit, suffix in ((STEP, "per_step"), (STEP_1K, "per_step_1024"),
@@ -3001,7 +3444,9 @@ def main(kernels_only: bool = False) -> None:
         f"*_per_stylegan2_pl_step over a path-length step (PL batch "
         f"{SG2_BATCH // 2}), *_per_stylegan2_served over one served "
         f"stylegan2-256 batch of {BATCH}, bf16; host_us is per call "
-        f"[{card}]")
+        f"through the torch.ops.ganlab operator (what the autograd "
+        f"Functions call), wrapper_host_us per call of the launching "
+        f"wrapper alone [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,17 +10,27 @@
                     a checkpoint vs the dataset
 * ``eval-ppl``      perceptual path length of a checkpoint
 
-The JAX package's ``export`` and ``project`` are not ported yet (ROADMAP.md
-A.7, A.8). Commands run on the GPU unless ``--device cpu`` is given (the
-JAX CLI's ``--platform``).
+* ``export``        the G-EMA sampler as a ``torch.export`` artifact
+                    (``export.py``)
+
+The JAX package's ``project`` is not ported yet (ROADMAP.md A.8). Commands
+run on the GPU unless ``--device cpu`` is given (the JAX CLI's
+``--platform``).
+
+``train`` is data-parallel when started by ``torchrun``: one process a
+card, each on ``cuda:LOCAL_RANK``, gradients averaged over the processes
+(``--backend``, default ``nccl`` on CUDA and ``gloo`` on the CPU);
+``--no-mesh`` keeps one process. The global batch of a step is the
+phase's batch x ``optim.grad_accum`` x the number of processes.
 
 Example:
     python -m ganlab_tpu_torch.cli prepare-data --src /data/ffhq \\
         --out /data/ffhq_npy --max-res 1024
-    python -m ganlab_tpu_torch.cli train --preset stylegan-1024 \\
-        --set data.dataset=npy --set data.data_dir=/data/ffhq_npy \\
-        --workdir runs/ffhq
+    torchrun --nproc-per-node 8 -m ganlab_tpu_torch.cli train \\
+        --preset stylegan-1024 --set data.dataset=npy \\
+        --set data.data_dir=/data/ffhq_npy --workdir runs/ffhq
     python -m ganlab_tpu_torch.cli sample --workdir runs/ffhq --psi 0.7
+    python -m ganlab_tpu_torch.cli export --workdir runs/ffhq --batch 16
 """
 
 from __future__ import annotations
@@ -90,6 +100,13 @@ def main(argv=None) -> int:
     _add_common(p_train)
     p_train.add_argument("--max-steps", type=int, default=None,
                          help="stop after N optimizer steps (smoke runs)")
+    p_train.add_argument("--no-mesh", action="store_true",
+                         help="one process, no data parallelism (refused "
+                              "under a launcher of several processes)")
+    p_train.add_argument("--backend", default=None,
+                         help="torch.distributed backend of a torchrun "
+                              "launch (default: nccl on CUDA, gloo on the "
+                              "CPU)")
 
     p_prep = sub.add_parser("prepare-data", help="build npy shards")
     p_prep.add_argument("--src", required=True, help="image folder")
@@ -139,6 +156,23 @@ def main(argv=None) -> int:
     p_mix.add_argument("--psi", type=float, default=None)
     p_mix.add_argument("--out", default=None)
 
+    p_exp = sub.add_parser("export",
+                           help="serialize the G-EMA sampler to a "
+                                "torch.export artifact")
+    _add_common(p_exp)
+    p_exp.add_argument("--out", default=None,
+                       help="artifact path (default WORKDIR/export/"
+                            "sampler.ganlab.zip)")
+    p_exp.add_argument("--batch", type=int, default=16,
+                       help="fixed serving batch size compiled into the "
+                            "artifact")
+    p_exp.add_argument("--platforms", default="cuda,cpu",
+                       help="comma list of device types to export a "
+                            "program for (cuda only where a card is "
+                            "present)")
+    p_exp.add_argument("--psi", type=float, default=None,
+                       help="default truncation psi of the artifact")
+
     args = parser.parse_args(argv)
     if args.cmd == "prepare-data":
         from ganlab_tpu_torch.data import prepare_dataset
@@ -151,22 +185,10 @@ def main(argv=None) -> int:
 
     cfg = _load_config(args)
     handler = {"eval-fid": _eval_fid, "eval-ppl": _eval_ppl,
-               "interpolate": _interpolate,
-               "mixgrid": _mixgrid}.get(args.cmd)
+               "interpolate": _interpolate, "mixgrid": _mixgrid,
+               "export": _export, "train": _train}.get(args.cmd)
     if handler is not None:
         return handler(cfg, args)
-
-    if args.cmd == "train":
-        from ganlab_tpu_torch.train.loop import Trainer
-
-        trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
-        try:
-            trainer.train(max_steps=args.max_steps)
-            path = trainer.save_samples(tag="final")
-            print(f"final samples: {path}")
-        finally:
-            trainer.close()
-        return 0
 
     # sample
     if args.num:
@@ -176,6 +198,52 @@ def main(argv=None) -> int:
     try:
         path = trainer.save_samples(tag="sample", psi=args.psi, out=args.out)
         print(f"samples: {path}")
+    finally:
+        trainer.close()
+    return 0
+
+
+def _train(cfg, args) -> int:
+    from ganlab_tpu_torch.parallel import dist as pdist
+    from ganlab_tpu_torch.train.loop import Trainer
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.no_mesh and world > 1:
+        raise SystemExit(f"--no-mesh runs one process; this launch has "
+                         f"WORLD_SIZE={world}")
+    # cuda under torchrun means this rank's card, cuda:LOCAL_RANK
+    device = pdist.initialize(
+        args.backend,
+        device=None if args.device == "cuda" and world > 1 else args.device)
+    try:
+        trainer = Trainer(cfg, workdir=args.workdir, device=device)
+        try:
+            trainer.train(max_steps=args.max_steps)
+            if trainer.is_main:
+                path = trainer.save_samples(tag="final")
+                print(f"final samples: {path}")
+        finally:
+            trainer.close()
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def _export(cfg, args) -> int:
+    from ganlab_tpu_torch.export import export_sampler
+
+    trainer = _sampling_trainer(cfg, args)
+    try:
+        out = args.out or os.path.join(args.workdir, "export",
+                                       "sampler.ganlab.zip")
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        path = export_sampler(
+            cfg, trainer.state, out, batch_size=args.batch,
+            platforms=tuple(p.strip() for p in args.platforms.split(",")),
+            default_psi=args.psi)
+        size_mb = os.path.getsize(path) / 1e6
+        print(f"exported: {path} ({size_mb:.1f} MB, batch {args.batch}, "
+              f"platforms {args.platforms})")
     finally:
         trainer.close()
     return 0
@@ -227,7 +295,8 @@ def _sampling_trainer(cfg, args):
 
     trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
     if trainer.ckpt.latest_step() is None:
-        print("WARNING: no checkpoint found; sampling from a freshly "
+        what = "exporting" if args.cmd == "export" else "sampling from"
+        print(f"WARNING: no checkpoint found; {what} a freshly "
               "initialized generator", flush=True)
     return trainer
 

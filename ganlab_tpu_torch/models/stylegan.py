@@ -210,13 +210,14 @@ def mix_styles(w1: torch.Tensor, w2: torch.Tensor, crossover,
     return torch.where(idx < cross, w1[:, None, :], w2[:, None, :])
 
 
-def truncate_ws(ws: torch.Tensor, w_avg: torch.Tensor, psi: float,
+def truncate_ws(ws: torch.Tensor, w_avg: torch.Tensor, psi,
                 cutoff: int) -> torch.Tensor:
-    """Truncation trick: w <- w_avg + psi*(w - w_avg) for layers < cutoff."""
+    """Truncation trick: w <- w_avg + psi*(w - w_avg) for layers < cutoff.
+    ``psi`` is a number or a 0-d tensor (an exported sampler's input)."""
     idx = torch.arange(ws.shape[1], device=ws.device)[None, :, None]
     psi_per_layer = torch.where(
         idx < cutoff,
-        torch.tensor(psi, dtype=ws.dtype, device=ws.device),
+        torch.as_tensor(psi, dtype=ws.dtype, device=ws.device),
         torch.tensor(1.0, dtype=ws.dtype, device=ws.device))
     return w_avg[None, None, :] + psi_per_layer * (ws - w_avg[None, None, :])
 

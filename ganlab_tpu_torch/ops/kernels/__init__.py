@@ -16,18 +16,50 @@ shape and contiguity, raises on anything else, allocates its output with
 ``launches`` attribute. The CUDA C++ sources are built by ``_build`` at
 first use and called through ``ctypes``; per call such a wrapper does
 nothing but the checks, the allocation, ``stream_handle`` and the call.
-There is no fallback: the dispatching ops in ``ganlab_tpu_torch.ops`` send
-a CPU tensor to the plain version and every other tensor to the kernel.
+
+Each launch is also an operator of the ``ganlab`` namespace of
+``torch.library`` (``torch.ops.ganlab.pixel_norm``, ``pixel_norm_nchw``,
+``adain``, ``upsample_blur_2x``, ``blur_downsample_2x``,
+``minibatch_stddev``), defined when this package is imported, with the
+launching wrapper as its CUDA implementation, the plain version as its
+CPU one and a fake implementation (output shape and dtype, no data) for
+``FakeTensorMode``, ``torch.export`` and the meta device. So a traced or
+exported graph holds the operator, and the dispatcher picks the kernel
+or the plain version by the tensors' device: there is no fallback, a
+CPU tensor takes the plain version and a CUDA tensor the kernel. The
+operators are ``torch.library.Library`` definitions with Python
+implementations, not ``torch.library.custom_op``, which wraps every call
+in further Python layers: the host's time a call of the three ways (the
+wrapper alone, this operator, a ``custom_op`` around the same wrapper)
+is read by ``chip_smoke.py`` phase 3 and written down in ``PERF.md``.
+
 Gradients go through the autograd Function beside each kernel
 (``PixelNorm``, ``AdaIN``, ``UpsampleBlur2x``, ``BlurDownsample2x``,
-``MinibatchStddev``), whose forward calls the launching wrapper with grad
-mode off; a direct call of a wrapper on a tensor that autograd would need
-to differentiate raises.
+``MinibatchStddev``), whose forward calls the operator with grad mode
+off; a direct call of a wrapper on a tensor that autograd would need to
+differentiate raises.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+LIBRARY = torch.library.Library("ganlab", "DEF")
+
+
+def define_op(name: str, schema: str, *, cpu: Callable, cuda: Callable,
+              fake: Callable) -> torch._ops.OpOverload:
+    """Define ``ganlab::<name><schema>`` with its CPU (plain version), CUDA
+    (launching wrapper) and fake implementations; returns the operator's
+    overload, which callers keep (it skips the overload lookup of
+    ``torch.ops.ganlab.<name>`` on every call)."""
+    LIBRARY.define(name + schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"ganlab::{name}", fake, lib=LIBRARY)
+    return getattr(torch.ops.ganlab, name).default
 
 
 def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int) -> None:
@@ -59,3 +91,13 @@ def _current_stream_handle(device_index: int) -> int:
 # stream. PyTorch's raw getter builds no Stream object per call.
 stream_handle = getattr(torch._C, "_cuda_getCurrentRawStream",
                         _current_stream_handle)
+
+
+# the kernel modules define their operators when imported: importing this
+# package registers all of them (an exported program needs them to load)
+from ganlab_tpu_torch.ops.kernels import (  # noqa: E402, F401
+    adain,
+    mbstd,
+    pixelnorm,
+    resample,
+)

@@ -39,8 +39,10 @@ forced: a smaller plane never takes the split path, so its call is one
 takes. The sums are taken in another order than the plain version's, so
 float32 agrees with it to rounding, not bit for bit.
 
-``AdaIN`` is the autograd Function: forward is the kernel (CUDA) or the
-plain version (CPU); backward is the analytic VJP of the JAX package's
+``AdaIN`` is the autograd Function: forward is the operator
+``torch.ops.ganlab.adain`` (the launching wrapper on CUDA tensors, with
+both launches of the split path inside the one call; the plain version on
+CPU tensors); backward is the analytic VJP of the JAX package's
 ``adain.py::_bwd`` in plain PyTorch (that package has no backward kernel).
 """
 
@@ -51,7 +53,12 @@ import functools
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
+from ganlab_tpu_torch.ops.kernels import (
+    _build,
+    check_input,
+    define_op,
+    stream_handle,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PATHS = ("loop", "warp", "block", "cluster", "split")
@@ -214,6 +221,15 @@ def adain_path(x: torch.Tensor, out: torch.Tensor, *,
             "split": f"split {blocks} x {width} x {k}"}[_PATHS[kind]]
 
 
+ADAIN = define_op(
+    "adain",
+    "(Tensor x, Tensor style_scale, Tensor style_bias, float eps) -> Tensor",
+    cpu=lambda x, s, b, eps: adain_ref(x.contiguous(), s, b, eps),
+    cuda=lambda x, s, b, eps: adain_cuda(
+        x.contiguous(), s.contiguous(), b.contiguous(), eps),
+    fake=lambda x, s, b, eps: x.new_empty(x.shape))
+
+
 class AdaIN(torch.autograd.Function):
     """Differentiable AdaIN (kernel forward, plain analytic backward)."""
 
@@ -221,10 +237,7 @@ class AdaIN(torch.autograd.Function):
     def forward(ctx, x, style_scale, style_bias, eps=1e-8):
         ctx.save_for_backward(x, style_scale)
         ctx.eps = eps
-        if x.device.type == "cpu":
-            return adain_ref(x, style_scale, style_bias, eps)
-        return adain_cuda(x.contiguous(), style_scale.contiguous(),
-                          style_bias.contiguous(), eps)
+        return ADAIN(x, style_scale, style_bias, eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -29,8 +29,9 @@ is read once. Built by ``_build`` with nvcc and called through its plain C
 interface like the other kernels: the ``ctypes`` function is looked up
 once, the C function switches device, the stream handle is an int.
 
-``MinibatchStddev`` is the autograd Function: forward is the kernel (CUDA)
-or the plain version (CPU); backward is plain PyTorch on the saved x, as
+``MinibatchStddev`` is the autograd Function: forward is the operator
+``torch.ops.ganlab.minibatch_stddev`` (the kernel on a CUDA tensor, the
+plain version on a CPU tensor); backward is plain PyTorch on the saved x, as
 the JAX package's ``_mb_bwd`` is plain XLA, and stays differentiable
 because it lies inside R1's double backward.
 """
@@ -42,7 +43,12 @@ import functools
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
+from ganlab_tpu_torch.ops.kernels import (
+    _build,
+    check_input,
+    define_op,
+    stream_handle,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 1024
@@ -134,6 +140,18 @@ def minibatch_stddev_path(x: torch.Tensor, out: torch.Tensor) -> str:
             f"{'held' if code & 2 else 'reread'} {code >> 2}")
 
 
+def _fake(x: torch.Tensor, eps: float) -> torch.Tensor:
+    n, c, h, w = x.shape
+    return x.new_empty((n, c + 1, h, w))
+
+
+MINIBATCH_STDDEV = define_op(
+    "minibatch_stddev", "(Tensor x, float eps) -> Tensor",
+    cpu=lambda x, eps: minibatch_stddev_ref(x.contiguous(), eps),
+    cuda=lambda x, eps: minibatch_stddev_cuda(x.contiguous(), eps),
+    fake=_fake)
+
+
 class MinibatchStddev(torch.autograd.Function):
     """Differentiable whole-batch minibatch stddev (kernel forward)."""
 
@@ -141,9 +159,7 @@ class MinibatchStddev(torch.autograd.Function):
     def forward(ctx, x, eps=1e-8):
         ctx.save_for_backward(x)
         ctx.eps = eps
-        if x.device.type == "cpu":
-            return minibatch_stddev_ref(x, eps)
-        return minibatch_stddev_cuda(x.contiguous(), eps)
+        return MINIBATCH_STDDEV(x, eps)
 
     @staticmethod
     def backward(ctx, g):

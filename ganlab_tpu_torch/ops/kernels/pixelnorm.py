@@ -41,7 +41,9 @@ argument types is looked up once, the C function itself switches device
 read without building a Stream object. Output in the input's dtype.
 
 ``PixelNorm`` is the autograd Function for both (``dim`` -1 or 1): forward
-is the kernel (CUDA) or the plain version (CPU); backward is the analytic
+is the operator ``torch.ops.ganlab.pixel_norm`` (or ``pixel_norm_nchw``),
+whose CUDA implementation is the launching wrapper and whose CPU one the
+plain version; backward is the analytic
 VJP of the JAX package's ``pixelnorm.py::_pn_bwd`` in plain PyTorch (that
 package's backward kernel is never called). Both wrappers add to
 ``pixel_norm_cuda.launches`` (the kernel's count);
@@ -55,7 +57,12 @@ import functools
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
+from ganlab_tpu_torch.ops.kernels import (
+    _build,
+    check_input,
+    define_op,
+    stream_handle,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -177,6 +184,23 @@ def pixel_norm_nchw_path(x: torch.Tensor, out: torch.Tensor, *,
             f"{1 << (plan >> 3 & 7)} lanes a run")
 
 
+def _fake(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+# the plain version is looked up at each call, so that a caller that
+# replaces it (a test counting the calls) is seen
+PIXEL_NORM = define_op(
+    "pixel_norm", "(Tensor x, float eps) -> Tensor",
+    cpu=lambda x, eps: pixel_norm_ref(x.contiguous(), eps),
+    cuda=lambda x, eps: pixel_norm_cuda(x.contiguous(), eps), fake=_fake)
+PIXEL_NORM_NCHW = define_op(
+    "pixel_norm_nchw", "(Tensor x, float eps) -> Tensor",
+    cpu=lambda x, eps: pixel_norm_ref(x.contiguous(), eps, dim=1),
+    cuda=lambda x, eps: pixel_norm_nchw_cuda(x.contiguous(), eps),
+    fake=_fake)
+
+
 class PixelNorm(torch.autograd.Function):
     """Differentiable pixelnorm over the last axis of (rows, C)
     (``dim=-1``) or over the channels of (N, C, H, W) (``dim=1``)."""
@@ -185,10 +209,7 @@ class PixelNorm(torch.autograd.Function):
     def forward(ctx, x, eps=1e-8, dim=-1):
         ctx.save_for_backward(x)
         ctx.eps, ctx.dim = eps, _axis(dim)
-        if x.device.type == "cpu":
-            return pixel_norm_ref(x, eps, dim)
-        launch = pixel_norm_cuda if dim == -1 else pixel_norm_nchw_cuda
-        return launch(x.contiguous(), eps)
+        return (PIXEL_NORM if dim == -1 else PIXEL_NORM_NCHW)(x, eps)
 
     @staticmethod
     def backward(ctx, g):

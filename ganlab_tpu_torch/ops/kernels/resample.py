@@ -19,8 +19,9 @@ as R1's double backward, run through the kernels, and none adds an
 elementwise pass.
 
 ``UpsampleBlur2x`` and ``BlurDownsample2x`` are the autograd Functions.
-Each forward runs the kernel on a CUDA tensor and the plain version on a
-CPU tensor.
+Each forward calls its operator (``torch.ops.ganlab.upsample_blur_2x``,
+``blur_downsample_2x``), which runs the kernel on a CUDA tensor and the
+plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ganlab_tpu_torch.ops.kernels import _build, check_input, stream_handle
+from ganlab_tpu_torch.ops.kernels import (
+    _build,
+    check_input,
+    define_op,
+    stream_handle,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -165,6 +171,28 @@ upsample_blur_2x_cuda.launches = 0
 blur_downsample_2x_cuda.launches = 0
 
 
+def _up_fake(x: torch.Tensor, gain: float) -> torch.Tensor:
+    n, c, h, w = x.shape
+    return x.new_empty((n, c, 2 * h, 2 * w))
+
+
+def _down_fake(x: torch.Tensor, gain: float) -> torch.Tensor:
+    n, c, h, w = x.shape
+    return x.new_empty((n, c, h // 2, w // 2))
+
+
+UPSAMPLE_BLUR_2X = define_op(
+    "upsample_blur_2x", "(Tensor x, float gain) -> Tensor",
+    cpu=lambda x, gain: upsample_blur_2x_ref(x.contiguous(), gain),
+    cuda=lambda x, gain: upsample_blur_2x_cuda(x.contiguous(), gain),
+    fake=_up_fake)
+BLUR_DOWNSAMPLE_2X = define_op(
+    "blur_downsample_2x", "(Tensor x, float gain) -> Tensor",
+    cpu=lambda x, gain: blur_downsample_2x_ref(x.contiguous(), gain),
+    cuda=lambda x, gain: blur_downsample_2x_cuda(x.contiguous(), gain),
+    fake=_down_fake)
+
+
 class UpsampleBlur2x(torch.autograd.Function):
     """Differentiable ``gain *`` nearest-2x + blur; backward is
     BlurDownsample2x with gain ``4 * gain``."""
@@ -172,9 +200,7 @@ class UpsampleBlur2x(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gain=1.0):
         ctx.gain = gain
-        if x.device.type == "cpu":
-            return upsample_blur_2x_ref(x, gain)
-        return upsample_blur_2x_cuda(x.contiguous(), gain)
+        return UPSAMPLE_BLUR_2X(x, gain)
 
     @staticmethod
     def backward(ctx, g):
@@ -188,9 +214,7 @@ class BlurDownsample2x(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gain=1.0):
         ctx.gain = gain
-        if x.device.type == "cpu":
-            return blur_downsample_2x_ref(x, gain)
-        return blur_downsample_2x_cuda(x.contiguous(), gain)
+        return BLUR_DOWNSAMPLE_2X(x, gain)
 
     @staticmethod
     def backward(ctx, g):

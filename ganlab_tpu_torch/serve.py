@@ -40,16 +40,13 @@ from ganlab_tpu_torch.convert import from_flax, is_flax_tree
 from ganlab_tpu_torch.models import build_generator, is_style
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.utils.image import save_image_grid, to_uint8
-from ganlab_tpu_torch.utils.latents import slerp
+from ganlab_tpu_torch.utils.latents import (  # noqa: F401 (stream_seed:
+    slerp,                                    # this module's name too)
+    stream_latents,
+    stream_seed,
+)
 
 _NOISE_STREAM = 0x6E6F6973  # 'nois': generate()'s noise stream of a seed
-
-
-def stream_seed(*parts: int) -> int:
-    """A 63-bit torch seed from non-negative integers, well mixed."""
-    state = np.random.SeedSequence([int(p) for p in parts]) \
-        .generate_state(1, np.uint64)[0]
-    return int(state) & (2 ** 63 - 1)
 
 
 class BatchSampler:
@@ -152,12 +149,8 @@ class BatchSampler:
 
     def latents(self, n: int, *, seed: int = 0, start: int = 0) -> np.ndarray:
         """The index-stable z's generate() uses (for editing/interp)."""
-        zdim = self.cfg.model.latent_dim
-        zs = []
-        for i in range(start, start + n):
-            gen = torch.Generator().manual_seed(stream_seed(seed, i))
-            zs.append(torch.randn(zdim, generator=gen))
-        return torch.stack(zs).numpy()
+        return stream_latents(n, self.cfg.model.latent_dim, seed=seed,
+                              start=start)
 
     def interpolate(self, *, seed_a: int = 0, seed_b: int = 1,
                     index_a: int = 0, index_b: int = 0, steps: int = 16,

@@ -1,4 +1,5 @@
-"""Host-side training loop: the progressive schedule over one device.
+"""Host-side training loop: the progressive schedule, on one device or
+data-parallel over processes.
 
 Port of ``ganlab_tpu/train/loop.py::Trainer``. Cold start: config -> data
 source -> state init or checkpoint restore -> per-phase step loop. Batches
@@ -21,11 +22,23 @@ untruncated samples at the phase's resolution and fade-in alpha, against
 real features computed once per resolution) and the row is logged to
 ``train.jsonl`` with the JAX trainer's keys.
 
-Single device. Not ported (ROADMAP.md A): a device mesh (A.6) and
-``run.profile`` (A.8) raise ``NotImplementedError``; ``optim.grad_accum >
-1`` raises when the step is built. ``run.chunk_steps`` is a dispatch knob
-of the JAX package (scan-chunked stepping) with nothing to switch here: it
-is ignored.
+Data parallelism (``parallel/dist.py``): built after the process group is
+joined (``torchrun --nproc-per-node N``, ``cli train``), the trainer is
+one replica of N. Every rank restores from the same checkpoint, then the
+state is broadcast from rank 0, so all replicas start identical; each
+rank feeds ``batch x optim.grad_accum`` images a step from its own
+source, seeded ``run.seed + 7919 x rank``, and the step averages the
+gradients across the ranks. ``shown_imgs``, alpha and the phase walk
+advance by the global batch, ``batch x grad_accum x N``. Rank 0 alone
+writes the config, the checkpoints, the ``train.jsonl`` / TensorBoard
+rows and the sample grids, and runs the in-training evaluation. With
+``optim.grad_accum`` = A each step takes A microbatches of the phase's
+batch (``train/steps.py``).
+
+Not ported (ROADMAP.md A.8): ``run.profile`` raises
+``NotImplementedError``. ``run.chunk_steps`` is a dispatch knob of the JAX
+package (scan-chunked stepping) with nothing to switch here: it is
+ignored.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import torch
 
 from ganlab_tpu_torch.config import Config, save_config
 from ganlab_tpu_torch.data import Prefetcher, device_placer, make_source
+from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train.checkpoint import CheckpointManager
 from ganlab_tpu_torch.train.schedule import alpha_at, build_phases, phase_at
@@ -61,18 +75,25 @@ class Trainer:
         self.cfg = cfg
         self.workdir = workdir
         self.phases = build_phases(cfg.schedule, cfg.model)
+        # data parallelism: this process is replica ``rank`` of ``world``
+        self.world, self.rank = pdist.world_size(), pdist.rank()
+        self.is_main = self.rank == 0
         self.ckpt = CheckpointManager(
             os.path.join(workdir, cfg.run.checkpoint_dir),
             keep=cfg.run.keep_checkpoints)
-        self.logger = MetricLogger(workdir, tensorboard=cfg.run.tensorboard)
-        # The run's full config next to its checkpoints: the post-training
-        # commands reload it from the workdir, so a bare `--workdir`
-        # rebuilds the exact trained model.
-        save_config(cfg, os.path.join(workdir, "config.json"))
+        self.logger = MetricLogger(workdir if self.is_main else None,
+                                   tensorboard=cfg.run.tensorboard)
+        if self.is_main:
+            # The run's full config next to its checkpoints: the
+            # post-training commands reload it from the workdir, so a bare
+            # `--workdir` rebuilds the exact trained model.
+            save_config(cfg, os.path.join(workdir, "config.json"))
 
         self.state = create_train_state(cfg, seed=cfg.run.seed, device=device)
-        if self.ckpt.restore(self.state) is not None:
+        if self.ckpt.restore(self.state) is not None and self.is_main:
             print(f"resumed from step {self.state.step}", flush=True)
+        # every replica starts from rank 0's state
+        pdist.broadcast_state(self.state)
 
         # Lazy: sampling from a checkpoint must not require the dataset.
         self._source = source
@@ -90,9 +111,10 @@ class Trainer:
     @property
     def source(self):
         if self._source is None:
-            self._source = make_source(self.cfg.data,
-                                       self.cfg.model.resolution,
-                                       seed=self.cfg.run.seed)
+            # each rank draws its own stream for its shard of the batch
+            self._source = make_source(
+                self.cfg.data, self.cfg.model.resolution,
+                seed=self.cfg.run.seed + 7919 * self.rank)
         return self._source
 
     # ------------------------------------------------------------------
@@ -133,14 +155,22 @@ class Trainer:
                 reset_moments(state)
             last_phase_index = phase.index
             step_fn = self._step_fn(phase)
-            batch = phase.batch_size
-            print(f"phase {phase.index}: res {phase.resolution} {phase.kind} "
-                  f"[{phase.start_img}, {phase.end_img}) batch {batch} on "
-                  f"{self.device}", flush=True)
+            # this rank feeds grad_accum microbatches a step; shown_imgs
+            # advances by the global batch
+            accum = cfg.optim.grad_accum
+            feed_batch = phase.batch_size * accum
+            global_batch = feed_batch * self.world
+            if self.is_main:
+                print(f"phase {phase.index}: res {phase.resolution} "
+                      f"{phase.kind} [{phase.start_img}, {phase.end_img}) "
+                      f"batch {phase.batch_size}"
+                      + (f" x {accum} accum" if accum > 1 else "")
+                      + (f" x {self.world} ranks" if self.world > 1
+                         else "") + f" on {self.device}", flush=True)
 
             phase_t0 = time.perf_counter()
             phase_shown0 = state.shown_imgs
-            with Prefetcher(self.source, batch, phase.resolution,
+            with Prefetcher(self.source, feed_batch, phase.resolution,
                             place=device_placer(self.device),
                             depth=cfg.data.prefetch) as pf:
                 while state.shown_imgs < phase.end_img:
@@ -154,19 +184,19 @@ class Trainer:
                     def crossed(every):
                         return every and \
                             step_i // every != (step_i - 1) // every
-                    if crossed(run.log_every):
+                    if crossed(run.log_every) and self.is_main:
                         # the only place a step waits for the device
                         m = {k: float(v) for k, v in metrics.items()}
                         m.update(res=phase.resolution, kind=phase.kind,
                                  shown_imgs=state.shown_imgs)
                         self.logger.log(step_i, m)
                     # shown-image cadence: it survives batch-size changes
-                    if run.eval_kimg:
+                    if run.eval_kimg and self.is_main:
                         per = run.eval_kimg * 1000.0
-                        if int(state.shown_imgs // per) != \
-                                int((state.shown_imgs - batch) // per):
+                        if int(state.shown_imgs // per) != int(
+                                (state.shown_imgs - global_batch) // per):
                             self.run_eval(phase, state.shown_imgs, step_i)
-                    if crossed(run.sample_every):
+                    if crossed(run.sample_every) and self.is_main:
                         self.save_samples(phase.res_log2,
                                           tag=f"step{step_i:08d}")
                     if crossed(run.checkpoint_every):
@@ -177,7 +207,7 @@ class Trainer:
             self._synchronize()
             dt = time.perf_counter() - phase_t0
             shown = state.shown_imgs - phase_shown0
-            if dt > 0 and shown > 0:
+            if dt > 0 and shown > 0 and self.is_main:
                 print(f"phase {phase.index} ({phase.resolution} "
                       f"{phase.kind}): {shown / dt:.1f} img/s over {shown} "
                       f"imgs", flush=True)
@@ -269,10 +299,13 @@ class Trainer:
     def _finish(self) -> None:
         self.save_checkpoint()
         self.ckpt.wait()
+        pdist.barrier()          # the checkpoint exists for every rank
 
     # ------------------------------------------------------------------
     def save_checkpoint(self) -> None:
-        self.ckpt.save(self.state.step, self.state)
+        """Rank 0 writes the (replica-identical) state; the others skip."""
+        if self.is_main:
+            self.ckpt.save(self.state.step, self.state)
 
     def save_samples(self, res_log2: int | None = None, tag: str = "final",
                      psi: float | None = None, out: str | None = None) -> str:

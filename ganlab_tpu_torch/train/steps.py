@@ -40,17 +40,45 @@ interpolation, the path-length batch) comes from the state's generator, or
 is injected through ``draws=`` (``StepDraws``), which the parity tests
 use.
 
+Gradient accumulation (``optim.grad_accum`` = A > 1; the JAX package's
+``step_accum``): the step takes A microbatches of the phase's batch, one
+after the other, and makes one update. Each microbatch is what one device
+of a data-parallel run sees: its own flips, latents, noise, minibatch
+stddev and penalties. D's gradients are summed over A backward passes
+(one microbatch's activations live at a time) and divided by A, then the
+same for G against the updated D; the metrics and the batch mean of w are
+averaged over the microbatches; on a path-length step ``pl_mean`` is
+moved once a microbatch with the decay 1 - (1 - ``pl_decay``)^(1/A), so
+that its horizon per step is the configured one.
+
+Data parallelism (``parallel/dist.py``): under a process group of N
+ranks each rank runs the step on its own shard and the step averages
+over the ranks what the JAX step ``pmean``s over its mesh: D's and G's
+gradients (one flat all-reduce a network an update), the metrics, the
+batch mean of w and the mean path length; the G-EMA's beta and the
+shown-image count take the global batch, micro x A x N. Accumulation and
+data parallelism compose.
+
+Randomness: with A = 1 and one process every draw comes from the state's
+generator, in ``draw_step``'s order. Otherwise the generator advances by
+one draw a step and microbatch j of rank r draws from a generator seeded
+from the state generator's state and the index r x A + j
+(``fork_generators``): the ranks' draws differ, the state stays the same
+on every rank, and microbatch j of an accumulating step draws what rank j
+of a data-parallel run with A = 1 draws (the JAX package folds the
+microbatch index where it folds the device's).
+
 Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
-A): the fused steps, two-phase regularization, augmentation and gradient
-accumulation. Entry:
+A.8): the fused steps, two-phase regularization and augmentation. Entry:
 ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
-``stepper(state, real_u8)``.
+``stepper(state, real_u8)``, where ``real_u8`` holds A microbatches.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import hashlib
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -59,6 +87,7 @@ from ganlab_tpu_torch.config import Config
 from ganlab_tpu_torch.models import is_style, noise_shapes
 from ganlab_tpu_torch.models.stylegan import mix_styles, num_style_layers
 from ganlab_tpu_torch.ops import losses as L
+from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.train.schedule import PhaseSpec
 from ganlab_tpu_torch.train.state import (
     TrainState,
@@ -179,6 +208,25 @@ def draw_step(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
     return StepDraws(flip, d, g, gp_eps, pl)
 
 
+def fork_generators(gen: torch.Generator, indices: Sequence[int],
+                    device) -> list[torch.Generator]:
+    """One generator on ``device`` per index, seeded from ``gen``'s state
+    and the index; ``gen`` then advances by one draw. Every rank holds the
+    same ``gen``, so each derives the same seeds and advances alike: the
+    ranks' draws differ by index while their states stay identical. Reads
+    the generator's state on the host (no device synchronization)."""
+    base = hashlib.blake2b(gen.get_state().numpy().tobytes(),
+                           digest_size=16).digest()
+    gens = []
+    for i in indices:
+        seed = int.from_bytes(hashlib.blake2b(
+            base + int(i).to_bytes(8, "little"), digest_size=8).digest(),
+            "little") & (2 ** 63 - 1)
+        gens.append(torch.Generator(device=device).manual_seed(seed))
+    torch.randint(0, 2, (1,), generator=gen, device=gen.device)
+    return gens
+
+
 def _preprocess(real_u8: torch.Tensor, hflip: bool, flip: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
     """uint8 (N, H, W, C) -> NCHW [-1, 1] in ``dtype``, each image flipped
@@ -231,14 +279,17 @@ def build_generator_forward(cfg: Config, res_log2: int) -> Callable:
 
 def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
     lc = cfg.loss
+    if lc.fused_g_step and cfg.optim.grad_accum > 1:
+        raise ValueError(
+            "optim.grad_accum > 1 requires a sequential recipe "
+            "(loss.fused_g_step=False; fused_seq is supported)")
     for what, on in (("loss.fused_g_step", lc.fused_g_step),
                      ("loss.fused_seq", lc.fused_seq),
                      ("loss.reg_separate", lc.reg_separate),
-                     ("aug.mode (ADA)", cfg.aug_active),
-                     ("optim.grad_accum > 1", cfg.optim.grad_accum > 1)):
+                     ("aug.mode (ADA)", cfg.aug_active)):
         if on:
             raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md A)")
+                f"{what} is not ported to PyTorch yet (ROADMAP.md A.8)")
     if cfg.pl_active and lc.d_steps_per_g > 1:
         # the PL cadence would be independent of the G cadence
         raise ValueError("loss.pl_weight > 0 requires d_steps_per_g == 1")
@@ -261,12 +312,15 @@ def phase_alpha(phase: PhaseSpec, shown_imgs: int,
 
 def path_length_penalty(g, pl_mean: torch.Tensor, dr: PLDraws,
                         res_log2: int, alpha, *, weight: float, decay: float,
-                        fade: bool = False):
+                        fade: bool = False, mean_over: Callable = None):
     """(penalty, new pl_mean, lengths) of path-length regularization
     (StyleGAN2 app. B): lengths |J_w^T y| of the synthesis at the mapped
     ``dr.z`` with the noise ``dr.noises`` against the projection ``dr.y``,
     the running mean moved toward their mean by ``decay`` (detached), and
-    ``weight * mean((length - new mean)^2)``.
+    ``weight * mean((length - new mean)^2)``. ``mean_over`` maps the batch
+    mean of the lengths to its mean over the data-parallel replicas
+    before the running mean takes it (``parallel.dist.mean``), so that
+    ``pl_mean`` stays the same on every replica.
 
     The gradient with respect to the per-layer styles keeps its graph, and
     the styles stay attached to the mapping network, so the penalty's
@@ -277,7 +331,10 @@ def path_length_penalty(g, pl_mean: torch.Tensor, dr: PLDraws,
     (gw,) = torch.autograd.grad((img.float() * dr.y).sum(), ws,
                                 create_graph=True)
     pl_len = gw.float().square().sum(dim=2).mean(dim=1).sqrt()
-    new_mean = (pl_mean + decay * (pl_len.mean() - pl_mean)).detach()
+    len_mean = pl_len.mean().detach()
+    if mean_over is not None:
+        len_mean = mean_over(len_mean)
+    new_mean = (pl_mean + decay * (len_mean - pl_mean)).detach()
     return weight * (pl_len - new_mean).square().mean(), new_mean, pl_len
 
 
@@ -291,7 +348,9 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
     False leaves it out. ``pl_override`` does the same for path-length
     regularization (weight x ``pl_every`` when True), which only a
     ``cfg.pl_active`` configuration has. The step runs on the state's
-    device; ``real_u8`` and injected ``draws`` are moved there. The
+    device; ``real_u8`` (``optim.grad_accum`` microbatches, one after the
+    other along the batch axis) and injected ``draws`` (a ``StepDraws``,
+    or one a microbatch) are moved there. The
     function carries its two weights as ``pen_weight`` and ``pl_weight``
     (0.0 where the term is off)."""
     _check_supported(cfg, phase)
@@ -315,8 +374,14 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
     w_beta = torch.tensor(cfg.model.w_avg_beta, dtype=torch.float32)
     with_pl = cfg.pl_active if pl_override is None else pl_override
     pl_weight = lc.pl_weight * (lc.pl_every if pl_override is True else 1)
+    accum = cfg.optim.grad_accum
+    # chained once a microbatch: (1 - decay)^A = 1 - pl_decay per step
+    pl_decay = lc.pl_decay if accum == 1 \
+        else 1.0 - (1.0 - lc.pl_decay) ** (1.0 / accum)
 
     def ema_beta(batch: int, shown: int) -> float:
+        """From the global batch: with ``ema_kimg`` the horizon is the
+        same whatever the batch, accumulation and replica count."""
         o = cfg.optim
         if o.ema_rampup is not None:
             nimg = min(o.ema_kimg * 1000.0, shown * o.ema_rampup)
@@ -342,51 +407,97 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         for group in opt.param_groups:
             group.update(hp)
 
-    def step(state: TrainState, real_u8: torch.Tensor,
-             draws: StepDraws | None = None):
+    def step_draws(state, micro, world, rank, draws):
+        """The A microbatches' draws: injected (one StepDraws, or one a
+        microbatch), or drawn (module docstring, Randomness)."""
         dev = state.device
-        batch = real_u8.shape[0]
-        if draws is None:
-            draws = draw_step(cfg, res_log2, batch, state.generator, dev)
-        else:
-            draws = draws.to(dev)
+        if draws is not None:
+            draws = [draws] if isinstance(draws, StepDraws) else list(draws)
+            if len(draws) != accum:
+                raise ValueError(f"draws: {accum} microbatches take "
+                                 f"{accum} StepDraws, got {len(draws)}")
+            return [d.to(dev) for d in draws]
+        if accum == 1 and world == 1:
+            return [draw_step(cfg, res_log2, micro, state.generator, dev)]
+        gens = fork_generators(state.generator,
+                               [rank * accum + j for j in range(accum)], dev)
+        return [draw_step(cfg, res_log2, micro, gen, dev) for gen in gens]
+
+    def averaged(values):
+        """The mean of one value per microbatch (the value itself for
+        one)."""
+        return values[0] if accum == 1 else torch.stack(values).mean(dim=0)
+
+    def finish_grads(module):
+        """Sum over microbatches -> mean, then the mean over replicas."""
+        if accum > 1:
+            torch._foreach_div_([p.grad for p in module.parameters()
+                                 if p.grad is not None], float(accum))
+        pdist.all_reduce_grads_(module)
+
+    def step(state: TrainState, real_u8: torch.Tensor, draws=None):
+        dev = state.device
+        world, rank = pdist.world_size(), pdist.rank()
+        total = real_u8.shape[0]
+        if total % accum:
+            raise ValueError(f"optim.grad_accum={accum}: a batch of {total} "
+                             "does not split into equal microbatches")
+        micro = total // accum
+        draws = step_draws(state, micro, world, rank, draws)
         g, d = state.g, state.d
         alpha = phase_alpha(phase, state.shown_imgs, dtype)
-        real = _preprocess(real_u8.to(dev), cfg.data.hflip, draws.flip,
-                           dtype)
+        real_u8 = real_u8.to(dev)
 
-        # -- D step --------------------------------------------------------
-        with torch.no_grad():
-            fake_d, _ = gen_forward(g, draws.d, alpha, fade)
-        real_s = d(real, res_log2, alpha, fade).float()
-        fake_s = d(fake_d, res_log2, alpha, fade).float()
-        d_loss = d_loss_fn(real_s, fake_s)
-        penalty = penalty_term(d, real, fake_d, draws, real_s, alpha)
+        # -- D step: A microbatches' gradients summed, then averaged -------
         state.opt_d.zero_grad(set_to_none=True)
-        (d_loss + penalty).backward()
+        parts = []
+        for j, dr in enumerate(draws):
+            real = _preprocess(real_u8[j * micro:(j + 1) * micro],
+                               cfg.data.hflip, dr.flip, dtype)
+            with torch.no_grad():
+                fake_d, _ = gen_forward(g, dr.d, alpha, fade)
+            real_s = d(real, res_log2, alpha, fade).float()
+            fake_s = d(fake_d, res_log2, alpha, fade).float()
+            d_loss = d_loss_fn(real_s, fake_s)
+            penalty = penalty_term(d, real, fake_d, dr, real_s, alpha)
+            (d_loss + penalty).backward()
+            parts.append((d_loss.detach(), penalty.detach(),
+                          real_s.detach().mean(), fake_s.detach().mean()))
+            del real, fake_d, real_s, fake_s
+        finish_grads(d)
         set_hparams(state.opt_d, hp_d)
         seed_new_moments(state.opt_d, state.step - state.opt_step0)
         state.opt_d.step()
+        d_loss, penalty, real_score, fake_score = (
+            averaged(list(v)) for v in zip(*parts))
 
         # -- G step, against the updated D (every n-th step with n-critic)
         if state.step % n_critic == n_critic - 1:
+            pl_mean, g_losses, pl_pens, w_means = state.pl_mean, [], [], []
             d.requires_grad_(False)
             try:
-                fake, w_mean = gen_forward(g, draws.g, alpha, fade)
-                g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
-                objective = g_loss
-                if with_pl:
-                    if draws.pl is None:
-                        raise ValueError("a path-length step needs "
-                                         "StepDraws.pl")
-                    pl_pen, pl_mean, _ = path_length_penalty(
-                        g, state.pl_mean, draws.pl, res_log2, alpha,
-                        weight=pl_weight, decay=lc.pl_decay, fade=fade)
-                    objective = g_loss + pl_pen
                 state.opt_g.zero_grad(set_to_none=True)
-                objective.backward()
+                for dr in draws:
+                    fake, w_mean = gen_forward(g, dr.g, alpha, fade)
+                    g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
+                    objective = g_loss
+                    if with_pl:
+                        if dr.pl is None:
+                            raise ValueError("a path-length step needs "
+                                             "StepDraws.pl")
+                        pl_pen, pl_mean, _ = path_length_penalty(
+                            g, pl_mean, dr.pl, res_log2, alpha,
+                            weight=pl_weight, decay=pl_decay, fade=fade,
+                            mean_over=pdist.mean)
+                        objective = g_loss + pl_pen
+                        pl_pens.append(pl_pen.detach())
+                    objective.backward()
+                    g_losses.append(g_loss.detach())
+                    w_means.append(w_mean)
+                    del fake, objective
             finally:
                 d.requires_grad_(True)
+            finish_grads(g)
             set_hparams(state.opt_g, hp_g)
             # G's Adam count: the G updates since the moments began
             seed_new_moments(state.opt_g, state.step // n_critic
@@ -394,26 +505,29 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             state.opt_g.step()
             if with_pl:
                 state.pl_mean = pl_mean
+            g_loss = averaged(g_losses)
 
             with torch.no_grad():
                 _ema_update(state.g_ema, g,
-                            ema_beta(batch, state.shown_imgs))
+                            ema_beta(micro * accum * world,
+                                     state.shown_imgs))
                 if style:
+                    w_mean = pdist.mean(averaged(w_means))
                     wb = w_beta.to(dev)
                     state.w_avg.copy_(state.w_avg * wb
                                       + w_mean * (1.0 - wb))
         else:
             g_loss = torch.zeros((), device=dev)
         state.step += 1
-        state.shown_imgs += batch
-        metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                   "penalty": penalty.detach(),
-                   "real_score": real_s.detach().mean(),
-                   "fake_score": fake_s.detach().mean(), "alpha": alpha}
+        state.shown_imgs += micro * accum * world
+        metrics = {"d_loss": d_loss, "g_loss": g_loss, "penalty": penalty,
+                   "real_score": real_score, "fake_score": fake_score,
+                   "alpha": alpha}
         if cfg.pl_active:
             # only path-length configurations carry the metric, as in JAX
-            metrics["pl_penalty"] = pl_pen.detach() if with_pl \
+            metrics["pl_penalty"] = averaged(pl_pens) if pl_pens \
                 else torch.zeros((), device=dev)
+        pdist.all_reduce_mean_(v for k, v in metrics.items() if k != "alpha")
         return state, metrics
 
     step.pen_weight = pen_weight if with_penalty else 0.0

@@ -1,10 +1,29 @@
 """Latent sampling and interpolation (port of
 ``ganlab_tpu/utils/latents.py``: ``gen_latents``, ``lerp``, ``slerp``,
-``interpolation_path``)."""
+``interpolation_path``), and the index-stable latent streams of serving
+(``stream_seed``, ``stream_latents``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def stream_seed(*parts: int) -> int:
+    """A 63-bit torch seed from non-negative integers, well mixed."""
+    state = np.random.SeedSequence([int(p) for p in parts]) \
+        .generate_state(1, np.uint64)[0]
+    return int(state) & (2 ** 63 - 1)
+
+
+def stream_latents(n: int, dim: int, *, seed: int = 0,
+                   start: int = 0) -> np.ndarray:
+    """z_i for i in [start, start + n) of stream ``seed``, (n, dim)
+    float32: each from its own CPU generator seeded ``stream_seed(seed,
+    i)``, so z_i does not depend on how a request is split."""
+    zs = [torch.randn(dim, generator=torch.Generator().manual_seed(
+        stream_seed(seed, i))) for i in range(start, start + n)]
+    return torch.stack(zs).numpy()
 
 
 def gen_latents(generator: torch.Generator, batch: int, dim: int,

@@ -358,12 +358,18 @@ def test_lazy_stepper_cadence_and_generator(world):
 def test_unported_options_raise(world, knob):
     """Path-length regularization is ported (tests/test_torch_stylegan2.py):
     ``loss.pl_weight`` alone builds a step that takes the term, and with
-    ``d_steps_per_g`` > 1 it raises the JAX package's ValueError. The
-    other options are not ported and raise NotImplementedError."""
+    ``d_steps_per_g`` > 1 it raises the JAX package's ValueError. Gradient
+    accumulation is ported (tests/test_torch_grad_accum.py): ``optim.
+    grad_accum`` = 2 builds a step. The other options are not ported and
+    raise NotImplementedError."""
     cfg = get_config("stylegan-256", **dict(SMALL, **knob))
     if knob == {"loss.pl_weight": 2.0}:
         step = tsteps.build_train_step(cfg, world["phase"])
         assert step.pl_weight == 2.0 and cfg.pl_active
+        return
+    if knob == {"optim.grad_accum": 2}:
+        assert callable(tsteps.build_train_step(cfg, world["phase"]))
+        assert cfg.optim.grad_accum == 2
         return
     if "loss.pl_weight" in knob:
         with pytest.raises(ValueError, match="d_steps_per_g"):
