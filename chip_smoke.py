@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training-step, progressive-trainer,
-user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel
-and export paths on one NVIDIA GPU.
+user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel,
+export, ADA and projector paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -149,7 +149,23 @@ Phases (any failure raises and the script exits non-zero):
     pixelnorm as a ``torch.library.custom_op`` beside the operator.
 12. One ``InceptionExtractor`` forward on 64 images of 1024x1024 (random
     weights), ms per 64 images.
-13. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+13. ADA (``aug.mode=ada``) at the bench.py configuration, full width: the
+    step without augmentation, with ``bc`` and with ``bcgfnu``, R1-off and
+    R1-on, read in turns (ms a step, the augmentation's own device time
+    by CUDA events, peak memory, one profiled step of each); the launches
+    of our kernels a step as without augmentation; p moving by the rule
+    from the step's rt; the augmentation on the card against the CPU on
+    one set of params at 256² (values and VJP within 1e-5 of the scale)
+    and its backward the same bits twice; a bitwise resume with
+    ``ada_p``; ``cli train --set aug.mode=ada --set aug.categories=bcgfnu``
+    through 8x8 -> 32x32; two gloo ranks with ADA against one process
+    accumulating two.
+14. The projector: ``project`` in W+ at 256² (8 restarts of a pool of 64,
+    300 steps, float32) on a target the G-EMA made: ms a step, the loss
+    falling, launch counts as derived; ``cli project --optimize-noise`` on
+    a PNG; a ``run.profile`` trainer run whose trace names the
+    ``ganlab::`` operators and our kernels.
+15. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -216,6 +232,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
 from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train import (
+    CheckpointManager,
     Trainer,
     build_phases,
     create_train_state,
@@ -742,6 +759,8 @@ PG_SERVED = "progan-128 served batch"
 SG2_SERVED = "stylegan2-256 served batch"
 SG2_STEP = "stylegan2-256 step (R1 off, PL off)"
 SG2_PL_STEP = "stylegan2-256 PL step"
+PROJ = "projection (300 W+ steps)"
+F32_UNITS = (PROJ,)            # units whose launches are float32, timed so
 SMALL_MS = 0.05                # below this a timing is read five more times
 SLOW_MS = 1.0                  # above this a library call is read fewer times
 
@@ -1023,11 +1042,11 @@ def nchw_variants(g) -> None:
                 for n, r in reads.items()))
 
 
-def time_shape(name: str, shape, g) -> dict:
+def time_shape(name: str, shape, g, dtype=torch.bfloat16) -> dict:
     """Times of the kernel, its plain version and its library call at one
-    shape in bfloat16, beside the bound."""
+    shape in ``dtype``, beside the bound."""
     k = KERNELS[name]
-    inp = k["inputs"](shape, torch.bfloat16, g)
+    inp = k["inputs"](shape, dtype, g)
 
     def kern():
         # the operator the autograd Function calls: the model's path
@@ -1059,14 +1078,15 @@ def time_shape(name: str, shape, g) -> dict:
         # read kernel and library call in turns to see by how much
         reads = [(cuda_time_ms(kern), cuda_time_ms(lib)) for _ in range(5)]
         for who, vals in zip(("kernel", "library"), zip(*reads)):
-            log(f"again {name} {shape} bf16 {who} ms, 5 readings in turns: "
+            log(f"again {name} {shape} {_dt(dtype)} {who} ms, 5 readings "
+                f"in turns: "
                 f"min {min(vals):.4f} median {statistics.median(vals):.4f} "
                 f"max {max(vals):.4f}")
-    nbytes = k["nbytes"](shape, torch.bfloat16)
+    nbytes = k["nbytes"](shape, dtype)
     t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     t["ops_ms"] = k["flops"](shape) / F32_FLOPS_PER_S * 1e3
     bound = max(t["bytes_ms"], t["ops_ms"])
-    log(f"time {name} {shape} bf16: kernel {t['ms']:.4f} ms (device "
+    log(f"time {name} {shape} {_dt(dtype)}: kernel {t['ms']:.4f} ms (device "
         f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us through the "
         f"operator, {t['wrapper_host_us']:.1f} us the wrapper alone)  plain "
         f"{t['plain_ms']:.4f} ms  library {note}  bound {bound:.4f} ms "
@@ -1171,16 +1191,22 @@ def unit_sums(times: dict, launches: dict) -> dict:
 
 def phase_kernels(units: dict) -> dict:
     """Check and time every kernel. ``units`` maps a unit of work (a served
-    batch, a training step) to kernel -> {shape: launches per unit}; every
-    shape is checked and timed once and the times are summed per unit.
-    Returns kernel -> {"max_abs_err": ..., unit: sums}."""
+    batch, a training step, a projection) to kernel -> {shape: launches per
+    unit}; every shape is checked once (float32 and bfloat16) and timed once
+    in each dtype its units launch it in (bfloat16, float32 for
+    ``F32_UNITS``), and the times are summed per unit. Returns kernel ->
+    {"max_abs_err": ..., unit: sums}."""
+    def unit_dtype(unit):
+        return torch.float32 if unit in F32_UNITS else torch.bfloat16
+
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     with torch.inference_mode():
         for name in KERNELS:
-            shapes = list(dict.fromkeys(
-                s for by_kernel in units.values()
+            keys = list(dict.fromkeys(
+                (s, unit_dtype(unit)) for unit, by_kernel in units.items()
                 for s in by_kernel.get(name, {})))
+            shapes = list(dict.fromkeys(s for s, _ in keys))
             r = {"max_abs_err": max(
                 check_shape(name, s, g)
                 for s in shapes + EXTRA_SHAPES.get(name, []))}
@@ -1188,7 +1214,7 @@ def phase_kernels(units: dict) -> dict:
                 r["max_abs_err"] = max(r["max_abs_err"],
                                        check_adain_planes(g))
                 adain_variants(g)
-            times = {s: time_shape(name, s, g) for s in shapes}
+            times = {(s, dt): time_shape(name, s, g, dt) for s, dt in keys}
             if name == "pixelnorm":
                 pixelnorm_host_parts(g)
             if name == "adain":
@@ -1199,7 +1225,10 @@ def phase_kernels(units: dict) -> dict:
                 nchw_variants(g)
             for unit, by_kernel in units.items():
                 if by_kernel.get(name):
-                    u = r[unit] = unit_sums(times, by_kernel[name])
+                    dt = unit_dtype(unit)
+                    u = r[unit] = unit_sums(
+                        {s: times[(s, dt)] for s in by_kernel[name]},
+                        by_kernel[name])
                     lib = "n/a" if u["library_ms"] is None else \
                         (f"{u['library_ms']:.4f} ms (device "
                          f"{u['library_device_ms']:.4f} ms)")
@@ -3050,15 +3079,19 @@ def _grads(state) -> dict:
             if p.grad is not None}
 
 
-def _dp_rank(rank: int, world: int, port: int, outdir: str) -> None:
-    """One rank of ``phase_dp`` (a spawned process)."""
+def _dp_rank(rank: int, world: int, port: int, outdir: str,
+             sets: dict | None = None) -> None:
+    """One rank of ``phase_dp`` (a spawned process); ``sets`` adds to the
+    configuration of both the ranks and the reference."""
     import hashlib
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     torch.backends.cudnn.deterministic = True
     pdist.initialize("gloo", device="cuda:0", rank=rank, world_size=world,
                      init_method=f"tcp://localhost:{port}")
-    cfg = training_config(**{"schedule.batch_schedule": {256: ACCUM_MICRO}})
+    sets = sets or {}
+    cfg = training_config(**{"schedule.batch_schedule": {256: ACCUM_MICRO},
+                             **sets})
     phase = build_phases(cfg.schedule, cfg.model)[-1]
     state = _dp_state(cfg)
     pdist.broadcast_state(state)
@@ -3091,7 +3124,7 @@ def _dp_rank(rank: int, world: int, port: int, outdir: str) -> None:
         # whose microbatch j draws what rank j drew
         cfg2 = training_config(**{
             "schedule.batch_schedule": {256: ACCUM_MICRO},
-            "optim.grad_accum": 2})
+            "optim.grad_accum": 2, **sets})
         ref = _dp_state(cfg2)
         ref, m = make_lazy_stepper(cfg2, phase)(ref,
                                                 torch.cat([shard, shard]))
@@ -3108,7 +3141,8 @@ def _dp_rank(rank: int, world: int, port: int, outdir: str) -> None:
         json.dump(out, f)
 
 
-def phase_dp(card: str) -> dict:
+def phase_dp(card: str, sets: dict | None = None,
+             label: str = "dp") -> dict:
     """Data parallelism on the one card: two ranks spawned over ``gloo``
     on ``cuda:0`` (NCCL refuses two ranks on one device), identical
     shards of 16 images, the fixed-256² stylegan-256 step at full width
@@ -3117,7 +3151,12 @@ def phase_dp(card: str) -> dict:
     microbatches (whose draws are the ranks'), within ``DP_GRAD_RTOL`` of
     each leaf's scale; the two ranks' states bitwise identical after
     three steps (sha256 of every state tensor, the generator included).
-    Two ranks sharing one card measure correctness, not a DP speed."""
+    Two ranks sharing one card measure correctness, not a DP speed.
+    ``sets`` (ADA's, phase 13) adds to the configuration; with
+    ``aug.mode=ada`` the first step's rt of the ranks (their mean) and of
+    the one process (the microbatches' mean) are the same bits (each a
+    mean of signs, exact in float32, of scores from the same deterministic
+    forwards), and so is the p each moved by the rule."""
     import socket
 
     with socket.socket() as sock:
@@ -3126,7 +3165,7 @@ def phase_dp(card: str) -> dict:
     outdir = tempfile.mkdtemp(prefix="ganlab_dp_")
     t0 = time.perf_counter()
     torch.multiprocessing.start_processes(
-        _dp_rank, args=(2, port, outdir), nprocs=2, join=True,
+        _dp_rank, args=(2, port, outdir, sets), nprocs=2, join=True,
         start_method="spawn")
     wall = time.perf_counter() - t0
     r = []
@@ -3145,14 +3184,28 @@ def phase_dp(card: str) -> dict:
             "minibatch_stddev")
     if any(x["launches"][n] == 0 for x in r for n in need):
         raise AssertionError(f"dp: launches {[x['launches'] for x in r]}")
-    log(f"dp: two gloo ranks on one card, {DP_STEPS} steps of 2 x "
+    if sets and sets.get("aug.mode") == "ada":
+        got, ref = r[0]["metrics0"], r[0]["ref_metrics"]
+        rate = float(np.float32(2 * ACCUM_MICRO)
+                     / np.float32(training_config(**sets).aug.kimg * 1000))
+        p0 = sets["aug.p_init"]
+        for m in (got, ref):
+            want = np.float32(p0) + np.float32(
+                np.sign(m["aug_rt"] - 0.6)) * np.float32(rate)
+            if abs(m["aug_p"] - float(want)) > 1e-7:
+                raise AssertionError(f"{label}: aug_p {m}, want {want}")
+        if got["aug_rt"] != ref["aug_rt"] or got["aug_p"] != ref["aug_p"]:
+            raise AssertionError(f"{label}: rt, p {got} vs one process "
+                                 f"{ref}")
+    log(f"{label}: two gloo ranks on one card, {DP_STEPS} steps of 2 x "
         f"{ACCUM_MICRO} images: states bitwise identical (sha256 "
         f"{r[0]['digest'][:16]}); step-0 gradients vs one process with "
         f"grad_accum 2: {r[0]['n_leaves']} leaves, worst {worst:.3e} of the "
         f"leaf scale ({leaf}; tol {DP_GRAD_RTOL:g}, bf16); metrics rank 0 "
         f"{r[0]['metrics0']} one process {r[0]['ref_metrics']}; launches a "
         f"rank {r[0]['launches']}")
-    log(f"dp: ms a step on rank 0 {[round(x, 2) for x in r[0]['ms']]}, rank "
+    log(f"{label}: ms a step on rank 0 "
+        f"{[round(x, 2) for x in r[0]['ms']]}, rank "
         f"1 {[round(x, 2) for x in r[1]['ms']]}; {wall:.1f} s for the phase "
         f"with the spawns. Two ranks share one card here: this is a check "
         f"of correctness, not a data-parallel speed [{card}]")
@@ -3284,6 +3337,487 @@ def phase_inception(card: str) -> dict:
     return dict(ms_per_64=ms)
 
 
+# -- 13. ADA augmentation ---------------------------------------------------
+# the step at the bench.py configuration without augmentation, with blit +
+# color and with all six categories; p starts at 0.5 (the work of a step
+# does not depend on p: every transform is computed and selected per sample)
+AUG_MODES = {"off": {},
+             "bc": {"aug.mode": "ada", "aug.categories": "bc",
+                    "aug.p_init": 0.5},
+             "bcgfnu": {"aug.mode": "ada", "aug.categories": "bcgfnu",
+                        "aug.p_init": 0.5}}
+AUG_ROUNDS = 3                 # timed rounds in turns, after a warm-up round
+AUG_RTOL = 1e-5                # card vs CPU augmentation, float32, of scale
+ADA_KIMG = 0.32                # p moves 0.1 a step of 32 images
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+class AugTimer:
+    """CUDA events around every ``apply_augment`` the step module calls: its
+    forward, and where the result takes a gradient its backward, from the
+    output's gradient to the input's (the autograd engine runs the
+    augmentation's nodes between the two, alone on the stream: D's
+    backward is done, G's waits for the input's gradient)."""
+
+    def __init__(self):
+        self.spans = []
+        self._fn = train_steps.apply_augment
+
+    def __enter__(self):
+        fn = self._fn
+
+        def timed(x, params):
+            s, e = _event(), _event()
+            s.record()
+            out = fn(x, params)
+            e.record()
+            self.spans.append(("fwd", s, e))
+            if out.requires_grad and x.requires_grad:
+                bs, be = _event(), _event()
+                out.register_hook(lambda g: bs.record())
+                x.register_hook(lambda g: be.record())
+                self.spans.append(("bwd", bs, be))
+            return out
+
+        train_steps.apply_augment = timed
+        return self
+
+    def __exit__(self, *exc):
+        train_steps.apply_augment = self._fn
+
+    def take_ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = {"fwd": 0.0, "bwd": 0.0}
+        for kind, s, e in self.spans:
+            out[kind] += s.elapsed_time(e)
+        self.spans.clear()
+        return out
+
+
+def _ada_p_rule(p_before: float, rt: float, rate: float, p_max=0.8) -> float:
+    """The JAX package's ``ada_update`` in float32."""
+    f = np.float32
+    p = f(p_before) + f(np.sign(f(rt) - f(0.6))) * f(rate)
+    return float(np.clip(p, f(0.0), f(p_max)))
+
+
+def _check_ada_metrics(label: str, m: dict, p_before, rate: float) -> None:
+    if p_before is None:
+        if "aug_p" in m or "aug_rt" in m:
+            raise AssertionError(f"{label}: aug metrics without ADA: {m}")
+        return
+    want = _ada_p_rule(p_before, m["aug_rt"], rate)
+    if abs(m["aug_p"] - want) > 1e-7 or not -1.0 <= m["aug_rt"] <= 1.0:
+        raise AssertionError(f"{label}: aug_p {m['aug_p']} from p "
+                             f"{p_before} and rt {m['aug_rt']}, want {want}")
+
+
+def phase_ada(card: str) -> dict:
+    """ADA at the bench.py configuration (stylegan-256, fixed 256², batch
+    32, bf16, lazy R1), full width, seeded live weights: the step without
+    augmentation, with ``bc`` and with ``bcgfnu`` (p from 0.5), R1-off and
+    R1-on, read in turns over ``AUG_ROUNDS`` rounds after a warm-up round;
+    every step's launches of our kernels equal aug-off's
+    (``step_launches``: augmentation launches none of them), p moves by the
+    rule from the step's rt, the metrics carry aug_p / aug_rt only with
+    ADA; the augmentation's own device time (forward in the D and G
+    phases, backward in the G phase) read by CUDA events around it; peak
+    memory of each step in the last round; one R1-off step of each mode
+    profiled. Then ``ada_checks``."""
+    mc = training_config().model
+    expect = {r1: launch_totals(step_launches(mc, r1)) for r1 in (False, True)}
+    gdata = torch.Generator(device="cuda").manual_seed(31)
+    real = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gdata,
+                         device="cuda", dtype=torch.uint8)
+    runs = {}
+    for mode, sets in AUG_MODES.items():
+        cfg = training_config(**sets)
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        runs[mode] = dict(
+            cfg=cfg, state=_dp_state(cfg),
+            steps={r1: train_steps.build_train_step(
+                cfg, phase, penalty_override=r1) for r1 in (False, True)},
+            rate=float(np.float32(BATCH) / np.float32(cfg.aug.kimg * 1000)),
+            ms={False: [], True: []}, aug={False: [], True: []},
+            peak={})
+    totals = {n: 0 for n in KERNELS}
+    with AugTimer() as timer:
+        for rnd in range(AUG_ROUNDS + 1):
+            for mode, run in runs.items():
+                for r1 in (False, True):
+                    st = run["state"]
+                    p_before = None if st.ada_p is None else st.ada_p.item()
+                    if rnd == AUG_ROUNDS:
+                        torch.cuda.reset_peak_memory_stats()
+                    st, m, ms, counts = _timed_step(run["steps"][r1], st,
+                                                    real)
+                    if rnd == AUG_ROUNDS:
+                        run["peak"][r1] = \
+                            torch.cuda.max_memory_allocated() / 2 ** 30
+                    run["state"] = st
+                    aug = timer.take_ms()
+                    label = f"ada {mode} R1-{'on' if r1 else 'off'} {rnd}"
+                    _check_accum_step(label, m, counts, expect[r1], r1)
+                    _check_ada_metrics(label, m, p_before, run["rate"])
+                    if (aug["fwd"] > 0) != (mode != "off") or \
+                            (aug["bwd"] > 0) != (mode != "off"):
+                        raise AssertionError(f"{label}: augment ms {aug}")
+                    for n in totals:
+                        totals[n] += counts[n]
+                    if rnd:
+                        run["ms"][r1].append(ms)
+                        run["aug"][r1].append(aug["fwd"] + aug["bwd"])
+                    log(f"ada: {mode:6s} R1-{'on ' if r1 else 'off'} round "
+                        f"{rnd}: {ms:8.2f} ms, augmentation fwd "
+                        f"{aug['fwd']:.3f} bwd {aug['bwd']:.3f} ms, "
+                        + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    out = {}
+    for mode, run in runs.items():
+        row = out[mode] = {
+            "ms_r1_off": statistics.median(run["ms"][False]),
+            "ms_r1_on": statistics.median(run["ms"][True]),
+            "aug_ms_r1_off": statistics.median(run["aug"][False]),
+            "aug_ms_r1_on": statistics.median(run["aug"][True]),
+            "peak_gib": run["peak"]}
+        log(f"ada: {mode:6s}: {row['ms_r1_off']:.2f} ms an R1-off step, "
+            f"{row['ms_r1_on']:.2f} ms an R1-on step (medians of "
+            f"{AUG_ROUNDS}, in turns), augmentation "
+            f"{row['aug_ms_r1_off']:.3f} / {row['aug_ms_r1_on']:.3f} ms of "
+            f"device time, peak memory {row['peak_gib'][False]:.2f} / "
+            f"{row['peak_gib'][True]:.2f} GiB (three full-width states "
+            f"held) [{card}]")
+    for mode in ("bc", "bcgfnu"):
+        log(f"ada: {mode} against off: R1-off "
+            f"{out[mode]['ms_r1_off'] - out['off']['ms_r1_off']:+.2f} ms "
+            f"({out[mode]['ms_r1_off'] / out['off']['ms_r1_off'] - 1:+.3f}), "
+            f"R1-on {out[mode]['ms_r1_on'] - out['off']['ms_r1_on']:+.2f} "
+            f"ms ({out[mode]['ms_r1_on'] / out['off']['ms_r1_on'] - 1:+.3f})"
+            f" [{card}]")
+    with AugTimer() as timer:
+        for mode, run in runs.items():
+            timer.take_ms()
+
+            def one():
+                run["state"] = run["steps"][False](run["state"], real)[0]
+
+            prof = profile_call(f"one ADA {mode} R1-off step", one, card,
+                                top=10)
+            aug = timer.take_ms()
+            share = (aug["fwd"] + aug["bwd"]) / prof["busy_ms"]
+            out[mode]["profile"] = dict(busy_ms=prof["busy_ms"],
+                                        idle_share=prof["idle_share"],
+                                        aug_ms=aug["fwd"] + aug["bwd"],
+                                        aug_share=share)
+            log(f"ada: {mode}: augmentation {aug['fwd']:.3f} ms forward + "
+                f"{aug['bwd']:.3f} ms backward of the profiled step's "
+                f"{prof['busy_ms']:.2f} ms device busy time: share "
+                f"{share:.4f} [{card}]")
+    runs.clear()
+    torch.cuda.empty_cache()
+    ada_checks(card)
+    return dict(out, launches=totals)
+
+
+def ada_checks(card: str) -> None:
+    """The augmentation on the card against its plain run on the CPU (all
+    six categories, one set of params at 256², batch 32, float32: values
+    and the VJP within ``AUG_RTOL`` of their scale), its backward the same
+    bits twice; p moving by the rule at ``aug.kimg`` 0.32 (0.1 a step)
+    and a bitwise resume with ``ada_p`` under cuDNN's deterministic
+    algorithms at full width; a short progressive ``cli train --set
+    aug.mode=ada``; two gloo ranks with ADA against one process
+    accumulating two (``phase_dp``)."""
+    from ganlab_tpu_torch.ops.augment import apply_augment, sample_params
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    params = sample_params(gen, BATCH, 256, 0.5, "bcgfnu")
+    x = torch.rand(BATCH, 3, 256, 256, generator=gen, device="cuda") * 2 - 1
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_(True)
+        y = apply_augment(xx, params)
+        (y * cot).sum().backward()
+        grads.append(xx.grad)
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError("ada: the augmentation's backward differs "
+                             "between two calls")
+    moved = (y.detach() - x).abs().max().item()
+    xc = x.cpu().requires_grad_(True)
+    yc = apply_augment(xc, params.to("cpu"))
+    (yc * cot.cpu()).sum().backward()
+    errs = []
+    for what, a, b in (("value", y.detach().cpu(), yc.detach()),
+                       ("vjp", grads[0].cpu(), xc.grad)):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        errs.append(err)
+        if not err <= AUG_RTOL:
+            raise AssertionError(f"ada: card vs CPU {what} {err:.3e}")
+    with torch.no_grad():
+        bf = apply_augment(x.bfloat16(), params)
+    if not bool(bf.isfinite().all()):
+        raise AssertionError("ada: bf16 augmentation not finite")
+    fwd = cuda_time_ms(lambda: apply_augment(x.bfloat16(), params),
+                       iters=10, warmup=3)
+    xb = x.bfloat16().requires_grad_(True)
+    cb = cot.bfloat16()
+
+    def fwd_bwd():
+        (apply_augment(xb, params) * cb).sum().backward()
+
+    both = cuda_time_ms(fwd_bwd, iters=10, warmup=3)
+    log(f"ada: augmentation bcgfnu at ({BATCH}, 3, 256, 256) card vs CPU, "
+        f"float32: value {errs[0]:.3e}, VJP {errs[1]:.3e} of the scale "
+        f"(tol {AUG_RTOL:g}; the augmentation moved values by up to "
+        f"{moved:.3f}); backward bitwise equal on two calls; bf16 "
+        f"forward {fwd:.3f} ms, forward + backward {both:.3f} ms [{card}]")
+    del xb, grads, y, yc, xc
+
+    # p by the rule, and bitwise resume with ada_p
+    cfg = training_config(**{**AUG_MODES["bcgfnu"], "aug.kimg": ADA_KIMG})
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    rate = float(np.float32(BATCH) / np.float32(ADA_KIMG * 1000))
+    gdata = torch.Generator(device="cuda").manual_seed(33)
+    reals = [torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gdata,
+                           device="cuda", dtype=torch.uint8)
+             for _ in range(4)]
+    chain = []
+
+    def run(state, first, n):
+        stepper = make_lazy_stepper(cfg, phase, initial_step=state.step)
+        for i in range(first, first + n):
+            p0 = state.ada_p.item()
+            state, m = stepper(state, reals[i])
+            m = {k: float(v) for k, v in m.items()}
+            _check_ada_metrics(f"ada resume step {i}", m, p0, rate)
+            chain.append((i, p0, m["aug_rt"], m["aug_p"]))
+        return state
+
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix="ganlab_ada_")
+    try:
+        whole = run(_dp_state(cfg), 0, 4)
+        part = run(_dp_state(cfg), 0, 2)
+        mgr = CheckpointManager(root)
+        mgr.save(part.step, part)
+        del part
+        resumed = mgr.restore(create_train_state(cfg, seed=1))
+        resumed = run(resumed, 2, 2)
+        n = _assert_states_equal("ada resume", whole, resumed)
+        if "ada_p" not in state_tensors(resumed):
+            raise AssertionError("ada resume: no ada_p in the state")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"ada: p by the rule at aug.kimg {ADA_KIMG} ({rate:g} a step): "
+        + ", ".join(f"step {i} {p0:.4f} -> {p:.4f} (rt {rt:+.4f})"
+                    for i, p0, rt, p in chain[:4])
+        + f"; 2 steps + checkpoint + 2 resumed steps equal 4 steps on all "
+        f"{n} leaves, ada_p {whole.ada_p.item():.6f} (cudnn deterministic)")
+    del whole, resumed
+    torch.cuda.empty_cache()
+    ada_progressive(card)
+    phase_dp(card, AUG_MODES["bcgfnu"], "dp ada")
+
+
+def ada_progressive(card: str) -> None:
+    """``cli train --preset stylegan-256 --set aug.mode=ada --set
+    aug.categories=bcgfnu`` at full width, batch 32, two steps a phase
+    through 8x8 stabilize, the 16x16 and 32x32 fade and stabilize phases
+    (the filter's 21-pixel reflection wraps at 8x8 and 16x16): the launch
+    counts of each step as without augmentation, and the logged aug_p
+    moving by the rule from the logged aug_rt."""
+    kimg = 2 * BATCH / 1000.0
+    sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
+            "schedule.stabilize_kimg": kimg,
+            "schedule.batch_schedule": {2 ** lg: BATCH for lg in range(2, 9)},
+            "run.log_every": 1, "aug.mode": "ada",
+            "aug.categories": "bcgfnu", "aug.p_init": 0.3,
+            "aug.kimg": ADA_KIMG}
+    cfg = get_config("stylegan-256", **sets)
+    phases = build_phases(cfg.schedule, cfg.model)[:5]
+    rate = float(np.float32(BATCH) / np.float32(ADA_KIMG * 1000))
+    workdir = tempfile.mkdtemp(prefix="ganlab_ada_cli_")
+    try:
+        run = run_cli_train("stylegan-256", sets, workdir, max_steps=10)
+        with open(os.path.join(workdir, "train.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        saved = torch.load(os.path.join(
+            workdir, cfg.run.checkpoint_dir, "ckpt_00000010.pt"),
+            weights_only=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    recs = run["records"]
+    want_res = [ph.resolution for ph in phases for _ in range(2)]
+    if [r["shape"][1] for r in recs] != want_res or len(rows) != 10:
+        raise AssertionError(f"ada cli: ran {[r['shape'] for r in recs]}")
+    p = 0.3
+    for rec, row in zip(recs, rows):
+        lg = int(math.log2(rec["shape"][1]))
+        want = launch_totals(step_launches(cfg.model, rec["r1"], lg, BATCH))
+        if rec["counts"] != want:
+            raise AssertionError(f"ada cli step {rec['step']}: launches "
+                                 f"{rec['counts']}, derived {want}")
+        _check_ada_metrics(f"ada cli step {rec['step']}", row, p, rate)
+        p = row["aug_p"]
+    if abs(float(saved["ada_p"]) - p) > 1e-7:
+        raise AssertionError(f"ada cli: checkpoint ada_p {saved['ada_p']}")
+    log(f"ada: cli train --set aug.mode=ada aug.categories=bcgfnu, 10 "
+        f"steps 8x8 -> 32x32 at batch {BATCH}: launches as derived, aug_p "
+        + " ".join(f"{r['aug_p']:.2f}" for r in rows)
+        + f", checkpoint ada_p {float(saved['ada_p']):.4f}; ms a step "
+        + " ".join(f"{r['ms']:.1f}" for r in recs) + f" [{card}]")
+
+
+# -- 14. the projector, cli project, run.profile ---------------------------
+PROJ_STEPS = 300
+PROJ_RESTARTS = 8
+PROJ_POOL = 64
+
+
+def projector_shapes(mc, steps: int, batch: int = 1,
+                     restarts: int = PROJ_RESTARTS,
+                     pool: int = PROJ_POOL) -> dict:
+    """kernel -> {shape: launches} of ``project`` in W+ at full resolution
+    (float32): one pixelnorm over the pool's max(256, pool - 1) z rows, a
+    synthesis of the pool, one of the restarts a step with its backward,
+    and the final one of the restarts (each synthesis 14 AdaIN and 6
+    up+blur at 256²; each backward 6 blur+down with gain 4 at the up+blur
+    outputs' shapes)."""
+    assert not mc.remat          # remat would recompute blocks
+    n = restarts * batch
+    total = {"pixelnorm": {(max(256, pool - 1), mc.latent_dim): 1}}
+    for served, times in ((serving_shapes(mc, batch=pool), 1),
+                          (serving_shapes(mc, batch=n), steps + 1)):
+        _add(total, {name: {s: c * times for s, c in by_shape.items()}
+                     for name, by_shape in served.items()
+                     if name != "pixelnorm"})
+    _add(total, {"blur_downsample_2x": {
+        (n, mc.nf(lg - 2), 2 ** lg, 2 ** lg): steps
+        for lg in range(3, mc.res_log2 + 1)}})
+    return total
+
+
+def phase_projector(card: str) -> dict:
+    """``project`` at full width (stylegan-256, float32 as the JAX package
+    projects, TF32 off) in W+ at 256²: 8 restarts from a pool of 64, 300
+    steps, on a target the G-EMA made (seeded live weights, as phase 5):
+    ms a step (300 steps against 10, by the host clock with a synchronize),
+    the loss falling, finite images of the target's shape, the launch
+    counts; ``cli project`` on a PNG written here; a ``run.profile``
+    trainer run whose trace names the ``ganlab::`` operators and their
+    kernels."""
+    from ganlab_tpu_torch.utils.image import save_image_grid
+    from ganlab_tpu_torch.utils.projector import project
+
+    cfg = get_config("stylegan-256")
+    mc = cfg.model
+    sampler = make_sampler(cfg)
+    g = sampler.g
+    nl = 2 * (mc.res_log2 - 1)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    with torch.no_grad():
+        w = g.map_latents(torch.randn(1, mc.latent_dim, generator=gen,
+                                      device="cuda"))
+        target = g.synthesize(w[:, None].repeat(1, nl, 1), mc.res_log2, 1.0,
+                              generator=gen).float()
+    times, results = {}, {}
+    totals = {n: 0 for n in KERNELS}
+    for steps in (10, PROJ_STEPS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = project(cfg, g, sampler.w_avg, target, num_steps=steps, seed=0,
+                      num_restarts=PROJ_RESTARTS, num_candidates=PROJ_POOL)
+        torch.cuda.synchronize()
+        times[steps] = time.perf_counter() - t0
+        counts = _launch_counts()
+        want = launch_totals(projector_shapes(mc, steps))
+        if counts != want:
+            raise AssertionError(f"projector: {steps} steps launched "
+                                 f"{counts}, derived {want}")
+        for n in totals:
+            totals[n] += counts[n]
+        results[steps] = res
+    res = results[PROJ_STEPS]
+    losses = res.losses.cpu().numpy()
+    mse0 = float((results[10].images - target).square().mean())
+    mse = float((res.images - target).square().mean())
+    if res.latents.shape != (1, nl, mc.latent_dim) or \
+            res.images.shape != target.shape or \
+            not bool(res.images.isfinite().all()) or \
+            not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"projector: latents {tuple(res.latents.shape)}"
+                             f" losses {losses[0]} -> {losses[-1]}")
+    ms_step = (times[PROJ_STEPS] - times[10]) / (PROJ_STEPS - 10) * 1e3
+    log(f"projector: stylegan-256 W+ at 256², 8 restarts of a pool of 64, "
+        f"float32: {times[PROJ_STEPS]:.2f} s for {PROJ_STEPS} steps, "
+        f"{times[10]:.2f} s for 10: {ms_step:.2f} ms a step; loss "
+        f"{losses[0]:.4f} -> {losses[PROJ_STEPS // 2]:.4f} -> "
+        f"{losses[-1]:.4f}; image MSE to the target {mse0:.4f} after 10 "
+        f"steps, {mse:.4f} after {PROJ_STEPS}; launches {totals} [{card}]")
+
+    root = tempfile.mkdtemp(prefix="ganlab_project_")
+    try:
+        png = os.path.join(root, "target.png")
+        save_image_grid(target.permute(0, 2, 3, 1).cpu().numpy(), png)
+        out = os.path.join(root, "proj")
+        t0 = time.perf_counter()
+        rc = port_cli.main(["project", "--preset", "stylegan-256",
+                            "--workdir", os.path.join(root, "run"),
+                            "--images", png, "--steps", "50",
+                            "--optimize-noise", "--out", out])
+        cli_s = time.perf_counter() - t0
+        names = sorted(os.listdir(out)) if rc == 0 else []
+        if names != ["latents.npy", "noises.npz", "pairs.png"]:
+            raise AssertionError(f"cli project: rc {rc}, wrote {names}")
+        check_png(os.path.join(out, "pairs.png"), "cli project")
+        lat = np.load(os.path.join(out, "latents.npy"))
+        if lat.shape != (1, nl, mc.latent_dim) or not np.isfinite(lat).all():
+            raise AssertionError(f"cli project: latents {lat.shape}")
+        log(f"projector: cli project --optimize-noise --steps 50 on a PNG "
+            f"in {cli_s:.1f} s (a fresh full-width state): {names}")
+        profile_run(card, os.path.join(root, "profiled"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del sampler, results
+    torch.cuda.empty_cache()
+    return dict(ms_step=ms_step, launches=totals)
+
+
+def profile_run(card: str, workdir: str) -> None:
+    """``cli train --set run.profile=True`` at full width, batch 32, four
+    steps a phase from 8x8, 21 steps: rank 0 writes the trace of steps
+    10-19 at step 20 under ``<workdir>/profile``; it must name the
+    ``ganlab::`` operators and hold our kernels' device events."""
+    kimg = 4 * BATCH / 1000.0
+    sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
+            "schedule.stabilize_kimg": kimg,
+            "schedule.batch_schedule": {2 ** lg: BATCH for lg in range(2, 9)},
+            "run.profile": True}
+    run_cli_train("stylegan-256", sets, workdir, max_steps=21)
+    traces = sorted(os.listdir(os.path.join(workdir, "profile")))
+    if traces != ["trace_step00000020.json"]:
+        raise AssertionError(f"run.profile: wrote {traces}")
+    path = os.path.join(workdir, "profile", traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e["name"] for e in events if e.get("name", "").startswith(
+        "ganlab::")}
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ours = {k for k in kernels if any(n in k for n in PORT_KERNELS)}
+    if not {"ganlab::adain", "ganlab::pixel_norm"} <= ops or not ours:
+        raise AssertionError(f"run.profile: operators {sorted(ops)}, "
+                             f"kernels of ours {sorted(ours)[:4]}")
+    log(f"run.profile: trace of steps 10-19 (16x16 and 32x32), "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, {len(events)} events, "
+        f"operators {sorted(ops)}, {len(kernels)} kernel names, "
+        f"{len(ours)} of ours [{card}]")
+
+
 # -- 3b. offsets beyond 2^31 elements ------------------------------------------------
 LARGE = {"upsample_blur_2x": (64, 32, 512, 512),      # out: 2^31 elements
          "blur_downsample_2x": (128, 16, 1024, 1024),  # in: 2^31 elements
@@ -3347,7 +3881,8 @@ def main(kernels_only: bool = False) -> None:
         STEP_1K: step_launches(mk, r1=False, batch=b1k),
         PG_STEP_64: kernel_units(step_launches(mp, True, 6, 16)),
         PG_STEP_128: kernel_units(step_launches(mp, True, 7, 8)),
-        PG_SERVED: kernel_units(progan_g_launches(mp))})
+        PG_SERVED: kernel_units(progan_g_launches(mp)),
+        PROJ: projector_shapes(mc, PROJ_STEPS)})
     large_err = check_large_offsets()
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")
@@ -3365,6 +3900,8 @@ def main(kernels_only: bool = False) -> None:
     accum_1k = phase_1024_accum(card)
     exported = phase_export(card)
     phase_inception(card)
+    ada = phase_ada(card)
+    proj = phase_projector(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
@@ -3385,7 +3922,9 @@ def main(kernels_only: bool = False) -> None:
                     "pl_accum": pl_accum["launches"][name],
                     "dp_rank0": dp["launches"][name],
                     "accum_1024": accum_1k["launches"][name],
-                    "export": exported["launches"][name]}
+                    "export": exported["launches"][name],
+                    "ada": ada["launches"][name],
+                    "projector": proj["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -3424,7 +3963,8 @@ def main(kernels_only: bool = False) -> None:
                              (PG_SERVED, "per_progan128_served"),
                              (SG2_STEP, "per_stylegan2_step"),
                              (SG2_PL_STEP, "per_stylegan2_pl_step"),
-                             (SG2_SERVED, "per_stylegan2_served")):
+                             (SG2_SERVED, "per_stylegan2_served"),
+                             (PROJ, "per_projection")):
             for key in ("ms", "bound_ms", "device_ms", "plain_ms",
                         "library_ms"):
                 row[f"{key}_{suffix}"] = of(unit, key)
@@ -3443,7 +3983,10 @@ def main(kernels_only: bool = False) -> None:
         f"neither R1 nor path length at batch {SG2_BATCH}, "
         f"*_per_stylegan2_pl_step over a path-length step (PL batch "
         f"{SG2_BATCH // 2}), *_per_stylegan2_served over one served "
-        f"stylegan2-256 batch of {BATCH}, bf16; host_us is per call "
+        f"stylegan2-256 batch of {BATCH}, bf16; *_per_projection over "
+        f"one {PROJ_STEPS}-step W+ projection of stylegan-256 ("
+        f"{PROJ_RESTARTS} restarts, a pool of {PROJ_POOL}), float32; "
+        f"host_us is per call "
         f"through the torch.ops.ganlab operator (what the autograd "
         f"Functions call), wrapper_host_us per call of the launching "
         f"wrapper alone [{card}]")

@@ -6,13 +6,14 @@ on a ported path rewritten by hand for the H100 (CUDA C++ under ``csrc``,
 wrapped in ``ops/kernels``). It imports ``torch`` and numpy, never
 ``jax``/``flax`` and nothing of ``ganlab_tpu``.
 
-Ported so far: G-EMA serving (``BatchSampler``), the training step
-(``create_train_state`` -> ``make_lazy_stepper``) and the progressive
-trainer with its checkpoints, data sources, evaluation (FID / KID / PR,
-PPL) and command line (``Trainer``, the three learners, ``python -m
-ganlab_tpu_torch.cli
-train|prepare-data|sample|interpolate|mixgrid|eval-fid|eval-ppl``) for
-StyleGAN, ProGAN and ResNet-GAN (five of the six presets). Entry points run
+Ported so far: G-EMA serving (``BatchSampler``, the exported sampler),
+the training step (``create_train_state`` -> ``make_lazy_stepper``, with
+ADA augmentation, gradient accumulation and data parallelism) and the
+progressive trainer with its checkpoints, data sources, evaluation (FID /
+KID / PR, PPL), profiling and command line (``Trainer``, the three
+learners, ``python -m ganlab_tpu_torch.cli train|prepare-data|sample|
+interpolate|mixgrid|eval-fid|eval-ppl|export|project``) for StyleGAN,
+StyleGAN2, ProGAN and ResNet-GAN (all six presets). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel wrapper computes its plain PyTorch version, on a CUDA tensor it
 launches the kernel or raises.

@@ -12,9 +12,10 @@
 
 * ``export``        the G-EMA sampler as a ``torch.export`` artifact
                     (``export.py``)
+* ``project``       invert images into the latent space of a checkpoint's
+                    G-EMA (``utils/projector.py``)
 
-The JAX package's ``project`` is not ported yet (ROADMAP.md A.8). Commands
-run on the GPU unless ``--device cpu`` is given (the JAX CLI's
+Commands run on the GPU unless ``--device cpu`` is given (the JAX CLI's
 ``--platform``).
 
 ``train`` is data-parallel when started by ``torchrun``: one process a
@@ -31,6 +32,8 @@ Example:
         --set data.data_dir=/data/ffhq_npy --workdir runs/ffhq
     python -m ganlab_tpu_torch.cli sample --workdir runs/ffhq --psi 0.7
     python -m ganlab_tpu_torch.cli export --workdir runs/ffhq --batch 16
+    python -m ganlab_tpu_torch.cli project --workdir runs/ffhq \
+        --images face.png --steps 300
 """
 
 from __future__ import annotations
@@ -173,6 +176,22 @@ def main(argv=None) -> int:
     p_exp.add_argument("--psi", type=float, default=None,
                        help="default truncation psi of the artifact")
 
+    p_proj = sub.add_parser("project",
+                            help="invert images into the latent space")
+    _add_common(p_proj)
+    p_proj.add_argument("--images", nargs="+", required=True,
+                        metavar="FILE", help="target image file(s)")
+    p_proj.add_argument("--steps", type=int, default=300)
+    p_proj.add_argument("--lr", type=float, default=0.1)
+    p_proj.add_argument("--w-space", action="store_true",
+                        help="optimize one shared w (default: W+ per layer)")
+    p_proj.add_argument("--optimize-noise", action="store_true",
+                        help="also optimize per-layer noise buffers "
+                             "(official StyleGAN2 projector; style "
+                             "families only)")
+    p_proj.add_argument("--out", default=None,
+                        help="output dir (default WORKDIR/projections)")
+
     args = parser.parse_args(argv)
     if args.cmd == "prepare-data":
         from ganlab_tpu_torch.data import prepare_dataset
@@ -186,7 +205,8 @@ def main(argv=None) -> int:
     cfg = _load_config(args)
     handler = {"eval-fid": _eval_fid, "eval-ppl": _eval_ppl,
                "interpolate": _interpolate, "mixgrid": _mixgrid,
-               "export": _export, "train": _train}.get(args.cmd)
+               "export": _export, "train": _train,
+               "project": _project}.get(args.cmd)
     if handler is not None:
         return handler(cfg, args)
 
@@ -249,6 +269,46 @@ def _export(cfg, args) -> int:
     return 0
 
 
+def _project(cfg, args) -> int:
+    import numpy as np
+    import torch
+
+    from ganlab_tpu_torch.utils.image import save_image_grid
+    from ganlab_tpu_torch.utils.projector import load_image, project
+
+    trainer = _sampling_trainer(cfg, args)
+    try:
+        res = cfg.model.resolution
+        target = np.stack([load_image(p, res) for p in args.images])
+        state = trainer.state
+        result = project(cfg, state.g_ema, state.w_avg,
+                         torch.from_numpy(target).permute(0, 3, 1, 2),
+                         num_steps=args.steps, lr=args.lr,
+                         w_plus=not args.w_space, seed=cfg.run.seed,
+                         optimize_noise=args.optimize_noise)
+        out_dir = args.out or os.path.join(args.workdir, "projections")
+        os.makedirs(out_dir, exist_ok=True)
+        recon = result.images.permute(0, 2, 3, 1).cpu().numpy()
+        pairs = np.stack([target, recon], 1).reshape(
+            2 * len(target), res, res, 3)
+        grid = save_image_grid(pairs, os.path.join(out_dir, "pairs.png"),
+                               ncol=2)
+        lat_path = os.path.join(out_dir, "latents.npy")
+        np.save(lat_path, result.latents.cpu().numpy())
+        if result.noises is not None:
+            # (N, H, W, 1) maps, as the JAX package writes them
+            np.savez(os.path.join(out_dir, "noises.npz"),
+                     **{f"noise{i}": n.permute(0, 2, 3, 1).cpu().numpy()
+                        for i, n in enumerate(result.noises)})
+        losses = result.losses.cpu().numpy()
+        print(f"projection: {grid} ({'W' if result.is_w_space else 'z'}"
+              f" space; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"latents {lat_path})")
+    finally:
+        trainer.close()
+    return 0
+
+
 def _eval_fid(cfg, args) -> int:
     from ganlab_tpu_torch.eval.fid import evaluate_checkpoint_metrics
 
@@ -295,7 +355,8 @@ def _sampling_trainer(cfg, args):
 
     trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
     if trainer.ckpt.latest_step() is None:
-        what = "exporting" if args.cmd == "export" else "sampling from"
+        what = {"export": "exporting",
+                "project": "projecting into"}.get(args.cmd, "sampling from")
         print(f"WARNING: no checkpoint found; {what} a freshly "
               "initialized generator", flush=True)
     return trainer

@@ -19,11 +19,13 @@ Values are float32 (parameters stay float32 in both packages).
 
 ``load_jax_train_state(state, arrays)`` carries a whole JAX ``TrainState``
 (parameters of G, D and G-EMA, both Adam states, w-average, counters) into
-the port's ``TrainState``.
+the port's ``TrainState``. ``aug_params_from_arrays(arrays)`` turns the JAX
+``sample_params`` output into the port's ``AugParams``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -64,13 +66,16 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
     ``arrays`` holds ``params_g`` / ``params_d`` / ``params_ema`` (flax
     trees), ``opt_g`` / ``opt_d`` (each ``{"count", "mu", "nu"}``: optax's
     Adam step count and its two moment trees, shaped like the parameters),
-    ``w_avg``, ``step`` and ``shown_imgs``, and ``pl_mean`` where the JAX
-    state has one (path-length regularization). optax keeps one count and a
+    ``w_avg``, ``step`` and ``shown_imgs``, and ``pl_mean`` / ``ada_p``
+    where the JAX state has them (path-length regularization, adaptive
+    augmentation). optax keeps one count and a
     moment for every leaf; the same is written for every parameter here,
     so the next Adam update of the two packages agrees. The JAX PRNG key is
     not carried: torch's streams are not JAX's. A port state with a
     ``pl_mean`` takes the JAX one, or a fresh 0 where the JAX state has
-    none, as the JAX package's checkpoint migration does.
+    none, as the JAX package's checkpoint migration does; one with an
+    ``ada_p`` takes the JAX one, or keeps its own where the JAX state has
+    none.
     """
     for module, key in ((state.g, "params_g"), (state.d, "params_d"),
                         (state.g_ema, "params_ema")):
@@ -92,12 +97,37 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
             saved = arrays.get("pl_mean")
             state.pl_mean.fill_(0.0 if saved is None else float(
                 np.asarray(saved, dtype=np.float32)))
+        if state.ada_p is not None and arrays.get("ada_p") is not None:
+            state.ada_p.fill_(float(np.asarray(arrays["ada_p"],
+                                               dtype=np.float32)))
     state.step = int(arrays["step"])
     state.shown_imgs = int(arrays["shown_imgs"])
     # the moments' count and the step counter start together in a JAX
     # run; D's Adam steps every step (G's only every n-th with n-critic)
     state.opt_step0 = state.step - int(arrays["opt_d"]["count"])
     return state
+
+
+def aug_params_from_arrays(arrays: Mapping[str, Any]):
+    """The port's ``AugParams`` of the JAX ``sample_params`` output given as
+    a mapping of numpy arrays (``params._asdict()``): the same transforms,
+    integers as int64, the noise field from NHWC to NCHW. jax.random and
+    torch streams cannot match, so this is how both packages are fed the
+    same augmentation."""
+    from ganlab_tpu_torch.ops.augment import AugParams
+
+    out = {}
+    for f in dataclasses.fields(AugParams):
+        v = arrays.get(f.name)
+        if v is not None:
+            a = np.asarray(v)
+            if f.name == "noise":
+                a = a.transpose(0, 3, 1, 2)           # NHWC -> NCHW
+            if a.dtype.kind in "iu":
+                a = a.astype(np.int64)
+            v = torch.from_numpy(np.array(a))
+        out[f.name] = v
+    return AugParams(**out)
 
 
 def is_flax_tree(params: Mapping[str, Any]) -> bool:

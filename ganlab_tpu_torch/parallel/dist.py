@@ -10,7 +10,8 @@ own shard of the batch, and the step (``train/steps.py``) averages across
 the processes exactly what the JAX step averages across the mesh: D's and
 G's gradients after their backward passes (one flat all-reduce a network
 an update, not one a parameter), the metrics, the batch mean of w that
-moves the w-average, and the mean path length that moves ``pl_mean``. So
+moves the w-average, the mean path length that moves ``pl_mean`` and the
+mean sign of D's scores that moves ADA's ``ada_p``. So
 every replica makes the same update and the states stay identical, the
 step's random generator included (each rank's draws come from the state's
 generator and its rank: ``train/steps.py::fork_generators``).
@@ -161,8 +162,8 @@ def broadcast_(tensors, src: int = 0) -> None:
 
 def broadcast_state(state, src: int = 0) -> None:
     """Make every replica's ``TrainState`` rank ``src``'s: the parameters
-    of G, D and G-EMA, both Adams' states, the w-average, ``pl_mean``, the
-    generator's state and the counters. Run once after the state is made
+    of G, D and G-EMA, both Adams' states, the w-average, ``pl_mean`` and
+    ``ada_p``, the generator's state and the counters. Run once after the state is made
     or restored, so that every replica starts identical."""
     if world_size() == 1:
         return

@@ -3,12 +3,13 @@
 Port of ``ganlab_tpu/train/checkpoint.py`` (orbax there) on ``torch.save``.
 One file per step, ``<directory>/ckpt_<step:08d>.pt``, holds plain tensors
 and numbers only: the state dicts of G, D and G-EMA, both Adam states, the
-w-average, the path-length mean where the state has one (``pl_mean``), the
-counters (``step``, ``shown_imgs``, ``opt_step0``) and the state of the
-generator that makes a step's random draws. The schedule
-position is not stored: phase and fade-in alpha derive from ``shown_imgs``
-and the lazy-regularization cadence from ``step``, so a restored state
-continues bit for bit (``tests/test_torch_checkpoint.py``).
+w-average, the path-length mean and the augmentation strength where the
+state has them (``pl_mean``, ``ada_p``), the counters (``step``,
+``shown_imgs``, ``opt_step0``) and the state of the generator that makes
+a step's random draws. The schedule position is not stored: phase and
+fade-in alpha derive from ``shown_imgs`` and the lazy-regularization
+cadence from ``step``, so a restored state continues bit for bit
+(``tests/test_torch_checkpoint.py``).
 
 A save is synchronous (``wait`` is a no-op: when ``save`` returns the file
 is complete): the payload is written to a temporary name in the same
@@ -22,10 +23,12 @@ counts stay host scalars, as the optimizer wants them). A
 other type, the draws continue from a generator seeded from the saved seed
 and step instead (deterministic, but another stream).
 
-``pl_mean`` migrates as in the JAX package: a checkpoint without it
-resumes into a path-length configuration with a fresh 0, and one with it
-resumes into a configuration without path-length regularization by
-dropping it.
+``pl_mean`` and ``ada_p`` migrate as in the JAX package: a checkpoint
+without ``pl_mean`` resumes into a path-length configuration with a fresh
+0, one without ``ada_p`` into an ADA configuration with the state's own
+value (``aug.p_init`` in a state fresh from ``create_train_state``, the
+JAX package's template value), and a checkpoint with either resumes into a
+configuration without the feature by dropping it.
 """
 
 from __future__ import annotations
@@ -47,13 +50,15 @@ def state_payload(state: TrainState) -> dict:
     """The checkpoint's content: plain tensors (on the state's device: they
     are not copied) and numbers."""
     gen = state.generator
-    # pl_mean only where the state has one, as the JAX package's None leaf
-    pl = {} if state.pl_mean is None else {"pl_mean": state.pl_mean}
+    # pl_mean and ada_p only where the state has them, as the JAX
+    # package's None leaves
+    optional = {k: getattr(state, k) for k in ("pl_mean", "ada_p")
+                if getattr(state, k) is not None}
     return {
         "format": _FORMAT,
         **{k: getattr(state, k).state_dict() for k in _MODULES + _OPTIMIZERS},
         "w_avg": state.w_avg,
-        **pl,
+        **optional,
         "step": int(state.step),
         "shown_imgs": int(state.shown_imgs),
         "opt_step0": int(state.opt_step0),
@@ -81,6 +86,8 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
             state.pl_mean.zero_()
         elif state.pl_mean is not None:
             state.pl_mean.copy_(saved_pl)
+        if state.ada_p is not None and payload.get("ada_p") is not None:
+            state.ada_p.copy_(payload["ada_p"])
     state.step = int(payload["step"])
     state.shown_imgs = int(payload["shown_imgs"])
     state.opt_step0 = int(payload["opt_step0"])

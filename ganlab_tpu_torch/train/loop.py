@@ -35,10 +35,12 @@ rows and the sample grids, and runs the in-training evaluation. With
 ``optim.grad_accum`` = A each step takes A microbatches of the phase's
 batch (``train/steps.py``).
 
-Not ported (ROADMAP.md A.8): ``run.profile`` raises
-``NotImplementedError``. ``run.chunk_steps`` is a dispatch knob of the JAX
-package (scan-chunked stepping) with nothing to switch here: it is
-ignored.
+Profiling (``run.profile``): rank 0 traces the run's steps 10 to 19 (of
+this process's run) with ``torch.profiler``, CPU and, on a card, CUDA
+activities, and writes the Chrome trace to
+``<workdir>/profile/trace_step<N>.json`` at step 20, or when the run ends
+first. ``run.chunk_steps`` is a dispatch knob of the JAX package
+(scan-chunked stepping) with nothing to switch here: it is ignored.
 """
 
 from __future__ import annotations
@@ -69,9 +71,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, workdir: str = ".", source=None,
                  device: str | torch.device = "cuda"):
-        if cfg.run.profile:
-            raise NotImplementedError(
-                "run.profile is not ported to PyTorch yet (ROADMAP.md A.8)")
         self.cfg = cfg
         self.workdir = workdir
         self.phases = build_phases(cfg.schedule, cfg.model)
@@ -103,6 +102,9 @@ class Trainer:
         # the real features per resolution (the data side never changes)
         self._eval_extractor = None
         self._eval_real: dict[int, np.ndarray] = {}
+        # run.profile: the open trace, and whether one was written
+        self._trace = None
+        self._trace_done = False
 
     @property
     def device(self) -> torch.device:
@@ -177,8 +179,13 @@ class Trainer:
                     if max_steps is not None and steps_done >= max_steps:
                         self._finish()
                         return metrics
+                    if run.profile and self.is_main and steps_done >= 10 \
+                            and self._trace is None and not self._trace_done:
+                        self._start_trace()
                     state, metrics = step_fn(state, pf.next())
                     steps_done += 1
+                    if self._trace is not None and steps_done >= 20:
+                        self._stop_trace()
                     step_i = start_step + steps_done
 
                     def crossed(every):
@@ -296,7 +303,30 @@ class Trainer:
         self.logger.log(step_i, row)
         return row
 
+    def _start_trace(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._trace = profile(activities=activities)
+        self._trace.start()
+
+    def _stop_trace(self) -> None:
+        """Close an open trace (after its last step has run on the device)
+        and write it under ``<workdir>/profile``."""
+        if self._trace is None:
+            return
+        self._synchronize()
+        self._trace.stop()
+        out = os.path.join(self.workdir, "profile")
+        os.makedirs(out, exist_ok=True)
+        self._trace.export_chrome_trace(
+            os.path.join(out, f"trace_step{self.state.step:08d}.json"))
+        self._trace, self._trace_done = None, True
+
     def _finish(self) -> None:
+        self._stop_trace()          # a run that ended before step 20
         self.save_checkpoint()
         self.ckpt.wait()
         pdist.barrier()          # the checkpoint exists for every rank

@@ -36,6 +36,8 @@ class TrainState:
                                     # last (re)initialized
     pl_mean: torch.Tensor | None = None  # () float32 running mean of the
                                     # path lengths when ``cfg.pl_active``
+    ada_p: torch.Tensor | None = None  # () float32 augmentation strength
+                                    # when ``cfg.ada_active``
 
     @property
     def device(self) -> torch.device:
@@ -45,7 +47,8 @@ class TrainState:
 def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
     """Every tensor and counter of the state, by name: the parameters of G,
     D and G-EMA, each parameter's Adam state, the w-average, the path-length
-    mean (when the state has one), the generator's state and the counters.
+    mean and the augmentation strength (when the state has them), the
+    generator's state and the counters.
     Two states are the same training run at the same point exactly when
     these agree."""
     out = {"w_avg": state.w_avg, "generator": state.generator.get_state(),
@@ -53,6 +56,8 @@ def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
                                      state.opt_step0])}
     if state.pl_mean is not None:
         out["pl_mean"] = state.pl_mean
+    if state.ada_p is not None:
+        out["ada_p"] = state.ada_p
     for net in ("g", "d", "g_ema"):
         for k, v in getattr(state, net).state_dict().items():
             out[f"{net}.{k}"] = v
@@ -139,7 +144,9 @@ def create_train_state(cfg: Config, seed: int = 0,
     (on the CPU, so a seed gives the same weights on every device), then
     moved to ``device``; the step's generator is seeded from ``seed`` too.
     ``pl_mean`` is a float32 zero where path-length regularization is
-    configured (``cfg.pl_active``), else None, as in the JAX package."""
+    configured (``cfg.pl_active``), and ``ada_p`` a float32 ``aug.p_init``
+    where adaptive augmentation is (``cfg.ada_active``), else None, as in
+    the JAX package."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("create_train_state: device 'cuda' requested but "
@@ -155,4 +162,6 @@ def create_train_state(cfg: Config, seed: int = 0,
         g=g, d=d, g_ema=g_ema, opt_g=opt_g, opt_d=opt_d,
         w_avg=torch.zeros(cfg.model.latent_dim, device=device),
         generator=torch.Generator(device=device).manual_seed(seed + 1),
-        pl_mean=torch.zeros((), device=device) if cfg.pl_active else None)
+        pl_mean=torch.zeros((), device=device) if cfg.pl_active else None,
+        ada_p=torch.tensor(cfg.aug.p_init, dtype=torch.float32,
+                           device=device) if cfg.ada_active else None)

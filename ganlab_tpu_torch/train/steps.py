@@ -68,8 +68,23 @@ on every rank, and microbatch j of an accumulating step draws what rank j
 of a data-parallel run with A = 1 draws (the JAX package folds the
 microbatch index where it folds the device's).
 
+Discriminator augmentation (``aug.mode`` ``fixed`` / ``ada``;
+``ops/augment.py``): D sees only augmented images. Each microbatch draws
+three ``AugParams`` at the step's strength p, last in ``draw_step``: its
+reals and D's fakes are augmented before the D loss and the penalty (R1,
+WGAN-GP and drift read the augmented reals), and G's fakes before D in the
+G loss, the gradient flowing through the augmentation into G. With
+``aug.mode=ada`` p is the state's ``ada_p`` (a 0-d float32 tensor on the
+device): the D step measures rt = mean(sign(D(augmented reals))), averaged
+over the microbatches and then over the replicas, and after the D update p
+moves by sign(rt - ``aug.target``) x global batch / (``aug.kimg`` x 1000),
+clipped to [0, ``aug.p_max``], on the device with no host read; the step's
+metrics gain ``aug_p`` (the new p) and ``aug_rt``. ``fixed`` gates at
+``aug.p_init`` and keeps no state. Every draw of a step, G's included, is
+gated with the p the step starts from.
+
 Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
-A.8): the fused steps, two-phase regularization and augmentation. Entry:
+A.8): the fused steps and two-phase regularization. Entry:
 ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
 ``stepper(state, real_u8)``, where ``real_u8`` holds A microbatches.
 """
@@ -87,6 +102,11 @@ from ganlab_tpu_torch.config import Config
 from ganlab_tpu_torch.models import is_style, noise_shapes
 from ganlab_tpu_torch.models.stylegan import mix_styles, num_style_layers
 from ganlab_tpu_torch.ops import losses as L
+from ganlab_tpu_torch.ops.augment import (
+    AugParams,
+    apply_augment,
+    sample_params,
+)
 from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.train.schedule import PhaseSpec
 from ganlab_tpu_torch.train.state import (
@@ -105,10 +125,10 @@ def _moved(obj, device):
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, (torch.Tensor, AugParams)):
             v = v.to(device)
-        elif isinstance(v, list):
-            v = [t.to(device) for t in v]
+        elif isinstance(v, (list, tuple)):
+            v = type(v)(t.to(device) for t in v)
         elif dataclasses.is_dataclass(v):
             v = _moved(v, device)
         out[f.name] = v
@@ -147,6 +167,8 @@ class StepDraws:
     g: GenDraws                     # the G phase's fake batch
     gp_eps: torch.Tensor            # (N, 1, 1, 1) WGAN-GP interpolation
     pl: PLDraws | None = None       # when ``cfg.pl_active``
+    # when ``cfg.aug_active``: the reals', D's fakes' and G's fakes'
+    aug: tuple[AugParams, AugParams, AugParams] | None = None
 
     def to(self, device) -> "StepDraws":
         return _moved(self, device)
@@ -193,11 +215,13 @@ def draw_pl(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
 
 
 def draw_step(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
-              device) -> StepDraws:
+              device, aug_p=None) -> StepDraws:
     """All draws of one step, in a fixed order, from ``gen``. The
-    path-length draws come last and only where ``cfg.pl_active`` (on every
-    step, whether or not the term fires), so the streams of the other
-    configurations stay as they were."""
+    path-length draws come next and only where ``cfg.pl_active`` (on every
+    step, whether or not the term fires), then the three augmentations at
+    strength ``aug_p`` (default ``aug.p_init``) only where
+    ``cfg.aug_active``, so the streams of the other configurations stay as
+    they were."""
     flip = torch.rand((batch,), generator=gen, device=device) < 0.5
     d = draw_generator(cfg, res_log2, batch, gen, device)
     gp_eps = torch.rand((batch, 1, 1, 1), generator=gen, device=device,
@@ -205,7 +229,13 @@ def draw_step(cfg: Config, res_log2: int, batch: int, gen: torch.Generator,
     g = draw_generator(cfg, res_log2, batch, gen, device)
     pl = draw_pl(cfg, res_log2, batch, gen, device) if cfg.pl_active \
         else None
-    return StepDraws(flip, d, g, gp_eps, pl)
+    aug = None
+    if cfg.aug_active:
+        p = cfg.aug.p_init if aug_p is None else aug_p
+        aug = tuple(sample_params(gen, batch, 2 ** res_log2, p,
+                                  cfg.aug.categories, cfg.model.img_channels)
+                    for _ in range(3))
+    return StepDraws(flip, d, g, gp_eps, pl, aug)
 
 
 def fork_generators(gen: torch.Generator, indices: Sequence[int],
@@ -285,8 +315,7 @@ def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
             "(loss.fused_g_step=False; fused_seq is supported)")
     for what, on in (("loss.fused_g_step", lc.fused_g_step),
                      ("loss.fused_seq", lc.fused_seq),
-                     ("loss.reg_separate", lc.reg_separate),
-                     ("aug.mode (ADA)", cfg.aug_active)):
+                     ("loss.reg_separate", lc.reg_separate)):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP.md A.8)")
@@ -375,6 +404,7 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
     with_pl = cfg.pl_active if pl_override is None else pl_override
     pl_weight = lc.pl_weight * (lc.pl_every if pl_override is True else 1)
     accum = cfg.optim.grad_accum
+    aug_active, ada_active, ac = cfg.aug_active, cfg.ada_active, cfg.aug
     # chained once a microbatch: (1 - decay)^A = 1 - pl_decay per step
     pl_decay = lc.pl_decay if accum == 1 \
         else 1.0 - (1.0 - lc.pl_decay) ** (1.0 / accum)
@@ -416,12 +446,22 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             if len(draws) != accum:
                 raise ValueError(f"draws: {accum} microbatches take "
                                  f"{accum} StepDraws, got {len(draws)}")
+            if aug_active and any(d.aug is None for d in draws):
+                raise ValueError("aug.mode: the step needs StepDraws.aug")
             return [d.to(dev) for d in draws]
+        p = state.ada_p if ada_active else None     # None: aug.p_init
         if accum == 1 and world == 1:
-            return [draw_step(cfg, res_log2, micro, state.generator, dev)]
+            return [draw_step(cfg, res_log2, micro, state.generator, dev, p)]
         gens = fork_generators(state.generator,
                                [rank * accum + j for j in range(accum)], dev)
-        return [draw_step(cfg, res_log2, micro, gen, dev) for gen in gens]
+        return [draw_step(cfg, res_log2, micro, gen, dev, p) for gen in gens]
+
+    def ada_p_after(state, rt, batch: int) -> torch.Tensor:
+        """p moved toward the target by the global batch's step, clipped
+        (float32 throughout, as the JAX package's ``ada_update``)."""
+        rate = float(np.float32(batch) / np.float32(ac.kimg * 1000.0))
+        return (state.ada_p + torch.sign(rt - ac.target) * rate).clamp(
+            0.0, ac.p_max)
 
     def averaged(values):
         """The mean of one value per microbatch (the value itself for
@@ -450,12 +490,17 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
 
         # -- D step: A microbatches' gradients summed, then averaged -------
         state.opt_d.zero_grad(set_to_none=True)
-        parts = []
+        parts, rts = [], []
         for j, dr in enumerate(draws):
             real = _preprocess(real_u8[j * micro:(j + 1) * micro],
                                cfg.data.hflip, dr.flip, dtype)
             with torch.no_grad():
                 fake_d, _ = gen_forward(g, dr.d, alpha, fade)
+                if aug_active:
+                    # D sees only augmented images, in the loss and the
+                    # penalty
+                    real = apply_augment(real, dr.aug[0])
+                    fake_d = apply_augment(fake_d, dr.aug[1])
             real_s = d(real, res_log2, alpha, fade).float()
             fake_s = d(fake_d, res_log2, alpha, fade).float()
             d_loss = d_loss_fn(real_s, fake_s)
@@ -463,6 +508,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             (d_loss + penalty).backward()
             parts.append((d_loss.detach(), penalty.detach(),
                           real_s.detach().mean(), fake_s.detach().mean()))
+            if ada_active:
+                rts.append(torch.sign(real_s.detach()).mean())
             del real, fake_d, real_s, fake_s
         finish_grads(d)
         set_hparams(state.opt_d, hp_d)
@@ -470,6 +517,9 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         state.opt_d.step()
         d_loss, penalty, real_score, fake_score = (
             averaged(list(v)) for v in zip(*parts))
+        if ada_active:
+            rt = pdist.mean(averaged(rts))
+            new_p = ada_p_after(state, rt, micro * accum * world)
 
         # -- G step, against the updated D (every n-th step with n-critic)
         if state.step % n_critic == n_critic - 1:
@@ -479,6 +529,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                 state.opt_g.zero_grad(set_to_none=True)
                 for dr in draws:
                     fake, w_mean = gen_forward(g, dr.g, alpha, fade)
+                    if aug_active:      # the gradient flows through into G
+                        fake = apply_augment(fake, dr.aug[2])
                     g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
                     objective = g_loss
                     if with_pl:
@@ -528,6 +580,10 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             metrics["pl_penalty"] = averaged(pl_pens) if pl_pens \
                 else torch.zeros((), device=dev)
         pdist.all_reduce_mean_(v for k, v in metrics.items() if k != "alpha")
+        if ada_active:
+            # only ADA configurations; both are the same on every replica
+            state.ada_p = new_p
+            metrics["aug_p"], metrics["aug_rt"] = new_p, rt
         return state, metrics
 
     step.pen_weight = pen_weight if with_penalty else 0.0

@@ -1,1 +1,2 @@
-"""Small host-side utilities: latent sampling, image grids, metric logging."""
+"""Host-side utilities: latent sampling, image grids, metric logging, and
+the latent projector."""

@@ -19,6 +19,9 @@ process, fed both shards one after the other, is the reference. Held:
   images does not depend on the replica count (``optim.ema_kimg``);
 * path length: ``pl_mean`` moves by the mean of both ranks' mean lengths
   and stays the same on both;
+* ADA (``aug.mode=ada``, ``bcgfnu``): the ranks' states, ``ada_p``
+  included, bit-equal to each other and to one process accumulating the
+  two shards, metrics (``aug_p``, ``aug_rt``) too;
 * a two-process ``Trainer``: each rank's data source is seeded
   ``run.seed + 7919 * rank``, rank 0 alone writes the log, the config and
   the checkpoint, a second ``Trainer`` on the workdir restores the state
@@ -150,6 +153,21 @@ def test_pl_mean_moves_by_the_mean_over_ranks(ranks):
         assert n0 == pytest.approx(m0 + decay * ((l0 + l1) / 2 - m0),
                                    rel=1e-6)
     assert r0["pl"]["tensors"]["pl_mean"].item() == n0 > 0
+
+
+def test_ada_dp_equals_accumulation_over_the_same_shards(ranks):
+    """Each rank augments its shard with its own draws; rt is averaged over
+    the ranks as over the microbatches, so ``ada_p`` moves alike."""
+    (r0, r1), _ = ranks
+    _assert_same(r0["ada"]["tensors"], r1["ada"]["tensors"], "ada ranks")
+    want = W.part_steps(0, 1, W.ada_cfg(**{"optim.grad_accum": 2}))
+    _assert_same(r0["ada"]["tensors"], want["tensors"], "ada DP vs accum")
+    assert r0["ada"]["metrics"] == r1["ada"]["metrics"] == want["metrics"]
+    ps = [m["aug_p"] for m in want["metrics"]]
+    rate = 2 * W.MICRO / (W.ada_cfg().aug.kimg * 1000)
+    assert all(abs(abs(b - a) - rate) < 1e-6
+               for a, b in zip([0.5] + ps, ps))
+    assert r0["ada"]["tensors"]["ada_p"].item() == ps[-1]
 
 
 def test_trainer_resumes_bit_for_bit_on_both_ranks(ranks):

@@ -50,7 +50,9 @@ def test_package_imports_no_jax():
             "ganlab_tpu_torch.models.resnetgan",
             "ganlab_tpu_torch.eval.lpips",
             "ganlab_tpu_torch.eval.ppl", "ganlab_tpu_torch.export",
-            "ganlab_tpu_torch.parallel.dist"} <= set(res["imported"])
+            "ganlab_tpu_torch.parallel.dist",
+            "ganlab_tpu_torch.ops.augment",
+            "ganlab_tpu_torch.utils.projector"} <= set(res["imported"])
     bad = [m for m in res["modules"] if FORBIDDEN.match(m)]
     assert bad == [], bad
 

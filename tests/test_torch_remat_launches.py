@@ -1,11 +1,14 @@
-"""The launch counts ``chip_smoke.py`` derives per training step hold.
+"""The launch counts ``chip_smoke.py`` derives per training step and per
+projection hold.
 
 On the card every call of a kernel's autograd Function launches the
 kernel once; on the CPU the same call runs the plain version. So counting
 the plain versions' calls in one step of a small model on the CPU counts
 the launches the same step makes on the card, recomputes of
 ``model.remat`` included. ``chip_smoke.step_launches`` must derive those
-counts from the config alone, with and without remat, R1 on and off.
+counts from the config alone, with and without remat, R1 on and off;
+``chip_smoke.projector_shapes`` the shapes and counts of a W+ projection,
+which its kernel phase checks and times.
 """
 
 import collections
@@ -15,9 +18,11 @@ import torch
 
 import chip_smoke
 from ganlab_tpu_torch.config import get_config
+from ganlab_tpu_torch.models import build_generator
 from ganlab_tpu_torch.ops.kernels import adain, mbstd, pixelnorm, resample
 from ganlab_tpu_torch.train import build_phases, create_train_state
 from ganlab_tpu_torch.train import steps as tsteps
+from ganlab_tpu_torch.utils.projector import project
 
 torch.set_num_threads(1)
 
@@ -55,3 +60,30 @@ def test_step_launches_match_a_counted_step(counts, remat, r1):
     want = {n: sum(v.values()) for n, v in chip_smoke.step_launches(
         cfg.model, r1, batch=2).items()}
     assert dict(counts) == want
+
+
+@pytest.fixture
+def shapes(monkeypatch):
+    seen = collections.Counter()
+    for name, (mod, attr) in PLAIN.items():
+        def counted(x, *a, _f=getattr(mod, attr), _n=name, **k):
+            seen[_n, tuple(x.shape)] += 1
+            return _f(x, *a, **k)
+        monkeypatch.setattr(mod, attr, counted)
+    return seen
+
+
+def test_projector_shapes_match_a_counted_projection(shapes):
+    cfg = get_config("stylegan-256", **{
+        "model.resolution": 32, "model.fmap_base": 64, "model.fmap_max": 8,
+        "model.latent_dim": 8, "model.mapping_layers": 1,
+        "run.compute_dtype": "float32"})
+    g = build_generator(cfg.model).requires_grad_(False)
+    target = torch.zeros(1, 3, 32, 32)
+    shapes.clear()
+    project(cfg, g, torch.zeros(8), target, num_steps=3, num_restarts=2,
+            num_candidates=5)
+    want = {(n, s): c for n, by_shape in chip_smoke.projector_shapes(
+        cfg.model, 3, restarts=2, pool=5).items()
+        for s, c in by_shape.items()}
+    assert dict(shapes) == want

@@ -360,9 +360,16 @@ def test_unported_options_raise(world, knob):
     ``loss.pl_weight`` alone builds a step that takes the term, and with
     ``d_steps_per_g`` > 1 it raises the JAX package's ValueError. Gradient
     accumulation is ported (tests/test_torch_grad_accum.py): ``optim.
-    grad_accum`` = 2 builds a step. The other options are not ported and
-    raise NotImplementedError."""
+    grad_accum`` = 2 builds a step. ADA is ported (tests/
+    test_torch_augment.py): ``aug.mode`` = ada builds a step whose draws
+    carry three augmentations. The other options are not ported and raise
+    NotImplementedError."""
     cfg = get_config("stylegan-256", **dict(SMALL, **knob))
+    if knob == {"aug.mode": "ada"}:
+        assert callable(tsteps.build_train_step(cfg, world["phase"]))
+        assert cfg.ada_active and len(tsteps.draw_step(
+            cfg, LG, B, torch.Generator(), "cpu").aug) == 3
+        return
     if knob == {"loss.pl_weight": 2.0}:
         step = tsteps.build_train_step(cfg, world["phase"])
         assert step.pl_weight == 2.0 and cfg.pl_active

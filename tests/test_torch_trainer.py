@@ -234,12 +234,24 @@ def test_reset_moments_on_phase(tmp_path):
                                   {"run.tensorboard": True}],
                          ids=lambda k: next(iter(k)))
 def test_unported_trainer_options_raise(tmp_path, knob):
-    """run.profile is not ported; run.eval_kimg and run.tensorboard are
+    """Every option is ported now. run.eval_kimg and run.tensorboard
     (tests/test_torch_eval.py, tests/test_torch_cli_latents.py): a Trainer
-    with them builds and closes."""
+    with them builds and closes. run.profile: a run of 21 steps writes the
+    trace of its steps 10-19 under <workdir>/profile at step 20, and a run
+    that ends at step 12 closes its open trace and writes it."""
     if "run.profile" in knob:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(tiny_config(**knob), str(tmp_path), device="cpu")
+        for steps, name in ((21, "trace_step00000020.json"),
+                            (12, "trace_step00000012.json")):
+            wd = tmp_path / str(steps)
+            cfg = tiny_config(**knob, **{"schedule.total_kimg": 1.0})
+            trainer = Trainer(cfg, str(wd), device="cpu")
+            trainer.train(max_steps=steps)
+            trainer.close()
+            assert trainer._trace is None and trainer.state.step == steps
+            assert [p.name for p in (wd / "profile").iterdir()] == [name]
+            trace = json.loads((wd / "profile" / name).read_text())
+            ops = {e.get("name") for e in trace["traceEvents"]}
+            assert "ganlab::adain" in ops and "aten::conv2d" in ops
         return
     trainer = Trainer(tiny_config(**knob), str(tmp_path), device="cpu")
     trainer.close()

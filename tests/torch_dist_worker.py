@@ -11,7 +11,9 @@ runs, as this rank of the world:
 2. ``pl``: two path-length steps of a small ``stylegan2-256``; writes the
    state and each step's local mean length and new ``pl_mean``;
    ``composed``: one step of the first configuration with
-   ``optim.grad_accum`` = 2 on each rank, its gradients;
+   ``optim.grad_accum`` = 2 on each rank, its gradients; ``ada``: three
+   steps of the first configuration with ``aug.mode=ada`` and all six
+   categories (each rank's draws, rt averaged over the ranks, ``ada_p``);
 3. ``trainer``: a ``Trainer`` on one shared workdir for three steps, then
    a second ``Trainer`` restored from that workdir: whether it holds the
    live state bit for bit and whether both stay equal over two more steps
@@ -53,6 +55,13 @@ def pl_cfg(**over):
 
     return get_config("stylegan2-256", **dict(
         SMALL, **{"loss.penalty_every": 2, "loss.pl_every": 1}, **over))
+
+
+def ada_cfg(**over):
+    """``steps_cfg`` with adaptive augmentation of every category, p
+    starting at 0.5 and moving 0.04 a step of the global batch of 4."""
+    return steps_cfg(**{"aug.mode": "ada", "aug.categories": "bcgfnu",
+                        "aug.p_init": 0.5, "aug.kimg": 0.1}, **over)
 
 
 def trainer_cfg():
@@ -233,6 +242,7 @@ def main(rank: int, world: int, port: int, outdir: str) -> None:
         result = {"steps": part_steps(rank, world),
                   "pl": part_pl(rank, world),
                   "composed": part_composed(rank, world, 2),
+                  "ada": part_steps(rank, world, ada_cfg()),
                   "trainer": part_trainer(rank, outdir),
                   "world": pdist.world_size(), "rank": pdist.rank()}
     finally:
