@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training-step, progressive-trainer,
 user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel,
-export, ADA and projector paths on one NVIDIA GPU.
+export, ADA, projector and step-recipe paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -165,7 +165,19 @@ Phases (any failure raises and the script exits non-zero):
     falling, launch counts as derived; ``cli project --optimize-noise`` on
     a PNG; a ``run.profile`` trainer run whose trace names the
     ``ganlab::`` operators and our kernels.
-15. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+15. The opt-in step recipes at the bench.py configuration, full width:
+    the sequential step, ``loss.reg_separate``, ``loss.fused_seq`` and
+    ``loss.fused_g_step``, R1-off and R1-on, read in turns (ms a step,
+    the launches of our kernels a step against ``step_launches(...,
+    recipe=)``, D's Adam count +2 on a ``reg_separate`` R1 step, peak
+    memory, one profiled step of each: device busy, idle share); one
+    float32 step of each recipe card vs CPU (stylegan-256 and
+    stylegan2-256 with path length, 32²); ``reg_separate`` on progan-128
+    at 128² (WGAN-GP and drift every step: two D updates a step);
+    ``fused_seq`` against the sequential R1-on step at 1024² (remat, batch
+    4: peak memory); ``cli train --set loss.<recipe>=true`` 8² -> 32²; two
+    gloo ranks under ``fused_seq`` against one process accumulating two.
+16. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -374,16 +386,21 @@ def _add(total: dict, part: dict) -> None:
             d[shape] = d.get(shape, 0) + n
 
 
-def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
+RECIPES = ("sequential", "reg_separate", "fused_seq", "fused_g_step")
+
+
+def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
+                  recipe: str = "sequential") -> dict:
     """kernel -> {shape: launches} of one training step at 2^res_log2 (the
     model's full resolution when None) and ``batch``, derived from the
-    model's structure (``mc``, ``mc.remat``) and the step's code. ProGAN's
-    step is ``progan_step_launches`` (its penalty runs every step, ``r1``
-    is not read); ResNet-GAN launches none of these kernels. A fade
-    phase adds no launch: its extra toRGB / fromRGB, nearest upsample,
-    average pool and blend are plain PyTorch. At one batch throughout,
-    every shape of a lower resolution's step is one of the full
-    resolution's.
+    model's structure (``mc``, ``mc.remat``), the step's code and the
+    step recipe (``RECIPES``: the sequential step or ``loss.<recipe>``).
+    ProGAN's step is ``progan_step_launches`` (its penalty runs every
+    step, ``r1`` is not read); ResNet-GAN launches none of these kernels.
+    A fade phase adds no launch: its extra toRGB / fromRGB, nearest
+    upsample, average pool and blend are plain PyTorch. At one batch
+    throughout, every shape of a lower resolution's step is one of the
+    full resolution's.
 
     * G forward: one pixelnorm over the 2B rows of concat([z1, z2]), two
       AdaIN per resolution, one up+blur per block from 8x8 up;
@@ -394,22 +411,35 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
     * G backward: each up+blur's backward is BlurDownsample2x with gain 4
       at the block's upsampled shape; AdaIN's and pixelnorm's are plain.
 
-    D phase: G forward (no grad), D on real and on fake, one backward of
-    both. G phase: G forward, D forward, backward through D into G. An R1
-    step adds D on real once more and its create-graph backward; the
-    double backward then runs the backward of every first-order
-    UpsampleBlur2x node (blur+down at the block shapes) and of every
-    blur+down node of that D forward (up+blur).
+    Sequential: the D phase runs a G forward (no grad), D on real and on
+    fake and one backward of both; the G phase a G forward, a D forward
+    and the backward through D into G. An R1 step adds D on real once
+    more and its create-graph backward; the double backward then runs the
+    backward of every first-order UpsampleBlur2x node (blur+down at the
+    block shapes) and of every blur+down node of that D forward (up+blur).
+
+    * ``reg_separate``: the sequential step's launches. Its second D
+      update is R1 alone, which runs the same D forward and backwards as
+      R1 inside the first; off a penalty step it is the sequential step.
+    * ``fused_seq``: one G forward fewer: the D phase's G forward (with
+      autograd) is the G phase's too.
+    * ``fused_g_step``: one G forward; D on real and on the fakes once
+      (both losses read its scores); D's backward to its parameters over
+      both forwards, then G's backward through the fakes' D forward to the
+      images and through G; R1 as above.
 
     With ``model.remat`` each block is recomputed in the backward, up to
     its last tensor the backward needs (``torch.utils.checkpoint`` stops
-    there): a synthesis block's up+blur and its two AdaIN run again in the
-    G phase's backward; a D block ends in blur+down, which saves nothing,
-    so its recompute launches no kernel of ours (the CPU tests count this
-    on a small model: tests/test_torch_remat_launches.py).
+    there): a synthesis block's up+blur and its two AdaIN run again in
+    G's backward (once under every recipe); a D block ends in blur+down,
+    which saves nothing, so its recompute launches no kernel of ours (the
+    CPU tests count this on a small model, every recipe:
+    tests/test_torch_remat_launches.py).
     """
+    if recipe not in RECIPES:
+        raise ValueError(f"recipe {recipe!r}: one of {RECIPES}")
     if mc.model == "progan":
-        return progan_step_launches(mc, res_log2, batch)
+        return progan_step_launches(mc, res_log2, batch, recipe)
     if mc.model == "resnetgan":
         return {}
     lg = mc.res_log2 if res_log2 is None else res_log2
@@ -423,9 +453,15 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH) -> dict:
              "minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
     d_bwd = {"upsample_blur_2x": up}
     g_bwd = {"blur_downsample_2x": down}
-    parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,      # D phase
-             g_fwd, d_fwd, d_bwd, g_bwd]             # G phase
-    if mc.remat:                                     # G phase's recompute
+    if recipe == "fused_g_step":
+        parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,  # D's loss
+                 d_bwd, g_bwd]                       # G's, through D
+    else:
+        parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,  # D phase
+                 d_fwd, d_bwd, g_bwd]                # G phase
+        if recipe != "fused_seq":
+            parts.append(g_fwd)                      # G phase's forward
+    if mc.remat:                                     # G backward's recompute
         parts.append({"adain": {s: n for s, n in serve["adain"].items()
                                 if s[2] > 4},
                       "upsample_blur_2x": up})
@@ -450,7 +486,8 @@ def progan_g_launches(mc, res_log2=None, batch=BATCH) -> dict:
             "pixelnorm_nchw": dict(nchw)}
 
 
-def progan_step_launches(mc, res_log2=None, batch=16) -> dict:
+def progan_step_launches(mc, res_log2=None, batch=16,
+                         recipe: str = "sequential") -> dict:
     """kernel -> {shape: launches} of one ProGAN training step at
     2^res_log2 and ``batch`` with its penalty (WGAN-GP or R1) on, as both
     ProGAN presets run it every step.
@@ -465,12 +502,19 @@ def progan_step_launches(mc, res_log2=None, batch=16) -> dict:
     * Every backward (pixelnorm's, mbstd's, and the penalty's double
       backward through them) is plain PyTorch: no launch.
 
-    D phase: G forward (no grad), D on real, on fake and on the penalty's
-    input (WGAN-GP's interpolates, R1's real batch). G phase: G forward, D
-    on the fakes."""
+    Sequential (and ``reg_separate``, whose second D update runs the
+    penalty's D forward that the first left out): the D phase runs a G
+    forward (no grad), D on real, on fake and on the penalty's input
+    (WGAN-GP's interpolates, R1's real batch); the G phase a G forward
+    and D on the fakes. ``fused_seq``: one G forward fewer.
+    ``fused_g_step``: one G forward, D on real, on the fakes (both losses)
+    and on the penalty's input."""
     g_fwd = progan_g_launches(mc, res_log2, batch)
     d_fwd = {"minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
-    parts = [g_fwd, d_fwd, d_fwd, d_fwd, g_fwd, d_fwd]
+    parts = {"sequential": [g_fwd, d_fwd, d_fwd, d_fwd, g_fwd, d_fwd],
+             "reg_separate": [g_fwd, d_fwd, d_fwd, d_fwd, g_fwd, d_fwd],
+             "fused_seq": [g_fwd, d_fwd, d_fwd, d_fwd, d_fwd],
+             "fused_g_step": [g_fwd, d_fwd, d_fwd, d_fwd]}[recipe]
     total: dict = {}
     for part in parts:
         _add(total, part)
@@ -1743,11 +1787,14 @@ def probe_cudnn_benchmark(cfg, phase, state, real, card) -> dict:
 
 
 def phase_train_card_vs_cpu(preset: str = "stylegan-256",
-                            rtol: float = STEP_GRAD_RTOL) -> None:
+                            rtol: float = STEP_GRAD_RTOL,
+                            sets: dict | None = None) -> None:
     """One penalty step (R1 for stylegan-256, WGAN-GP and drift for
     progan-128, R1 and path length for stylegan2-256) of a narrow 32²
     model in float32 (TF32 off), on the card and on the CPU from the same
-    initial state and draws. D's lr is 0 here: Adam's first update is
+    initial state and draws; ``sets`` adds to the configuration (a step
+    recipe: under ``loss.reg_separate`` D's gradients are the second
+    update's, R1's alone). D's lr is 0 here: Adam's first update is
     about lr * sign(g), so where D's gradient is ~0 the two devices'
     updated D's would differ by up to 2 lr, and G's gradients, taken
     against the updated D, with them. Every gradient leaf within ``rtol``
@@ -1758,7 +1805,8 @@ def phase_train_card_vs_cpu(preset: str = "stylegan-256",
         "model.fmap_max": 64, "model.latent_dim": 128,
         "run.compute_dtype": "float32", "schedule.progressive": False,
         "schedule.start_res": 32,
-        "schedule.batch_schedule": {32: 8}, "optim.lr_d": 0.0})
+        "schedule.batch_schedule": {32: 8}, "optim.lr_d": 0.0,
+        **(sets or {})})
     phase = build_phases(cfg.schedule, cfg.model)[-1]
     draws = train_steps.draw_step(cfg, phase.res_log2, 8,
                                   torch.Generator().manual_seed(4), "cpu")
@@ -1808,7 +1856,8 @@ def phase_train_card_vs_cpu(preset: str = "stylegan-256",
             not g_cpu[k].abs().max().item() > 0 for k in mapping)):
         raise AssertionError("f32 PL step: the mapping layers have no "
                              "gradient")
-    what = cfg.loss.penalty + (" + path length" if cfg.pl_active else "")
+    what = cfg.loss.penalty + (" + path length" if cfg.pl_active else "") \
+        + "".join(f" {k}={v}" for k, v in (sets or {}).items())
     log(f"train: {preset} f32 {what} step at 32² card vs CPU: "
         f"losses {m_cpu} agree "
         f"within {STEP_LOSS_RTOL:g} rel; {len(g_cpu)} gradient leaves agree "
@@ -3818,6 +3867,234 @@ def profile_run(card: str, workdir: str) -> None:
         f"{len(ours)} of ours [{card}]")
 
 
+# -- 15. the opt-in step recipes -------------------------------------------
+RECIPE_ROUNDS = 3              # timed rounds in turns, after a warm-up round
+PG_RECIPE_STEPS = 3            # progan-128 reg_separate steps at 128²
+
+
+def recipe_sets(recipe: str) -> dict:
+    return {} if recipe == "sequential" else {f"loss.{recipe}": True}
+
+
+def _d_adam_counts(state) -> set:
+    return {int(s["step"]) for s in state.opt_d.state.values()}
+
+
+def phase_recipes(card: str) -> dict:
+    """The opt-in step recipes at the bench.py configuration (stylegan-256,
+    fixed 256², batch 32, bf16, full width, seeded live weights): the
+    sequential step, ``loss.reg_separate``, ``loss.fused_seq`` and
+    ``loss.fused_g_step``, R1-off and R1-on, read in turns over
+    ``RECIPE_ROUNDS`` rounds after a warm-up round: ms a step, the launches
+    of our kernels a step equal to ``step_launches(..., recipe=)``, D's
+    Adam count +2 on a ``reg_separate`` R1 step (+1 otherwise), peak
+    memory of each step in the last round, one R1-off and one R1-on step
+    of each profiled (device busy, idle share). Then ``recipe_checks``."""
+    mc = training_config().model
+    gdata = torch.Generator(device="cuda").manual_seed(41)
+    real = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gdata,
+                         device="cuda", dtype=torch.uint8)
+    runs = {}
+    for recipe in RECIPES:
+        cfg = training_config(**recipe_sets(recipe))
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        runs[recipe] = dict(
+            state=_dp_state(cfg),
+            steps={r1: train_steps.build_train_step(
+                cfg, phase, penalty_override=r1) for r1 in (False, True)},
+            expect={r1: launch_totals(step_launches(mc, r1, recipe=recipe))
+                    for r1 in (False, True)},
+            ms={False: [], True: []}, peak={})
+    totals = {n: 0 for n in KERNELS}
+    for rnd in range(RECIPE_ROUNDS + 1):
+        for recipe, run in runs.items():
+            for r1 in (False, True):
+                before = _d_adam_counts(run["state"])
+                if rnd == RECIPE_ROUNDS:
+                    torch.cuda.reset_peak_memory_stats()
+                st, m, ms, counts = _timed_step(run["steps"][r1],
+                                                run["state"], real)
+                if rnd == RECIPE_ROUNDS:
+                    run["peak"][r1] = \
+                        torch.cuda.max_memory_allocated() / 2 ** 30
+                run["state"] = st
+                label = f"recipe {recipe} R1-{'on' if r1 else 'off'} {rnd}"
+                _check_accum_step(label, m, counts, run["expect"][r1], r1)
+                adds = 2 if recipe == "reg_separate" and r1 else 1
+                if _d_adam_counts(st) != {c + adds for c in before or {0}}:
+                    raise AssertionError(f"{label}: D's Adam counts "
+                                         f"{before} -> {_d_adam_counts(st)}")
+                for n in totals:
+                    totals[n] += counts[n]
+                if rnd:
+                    run["ms"][r1].append(ms)
+                log(f"recipe: {recipe:12s} R1-{'on ' if r1 else 'off'} round "
+                    f"{rnd}: {ms:8.2f} ms, launches {counts}, "
+                    + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    out = {}
+    for recipe, run in runs.items():
+        row = out[recipe] = {
+            "ms_r1_off": statistics.median(run["ms"][False]),
+            "ms_r1_on": statistics.median(run["ms"][True]),
+            "peak_gib": run["peak"], "launches": run["expect"]}
+        for r1 in (False, True):
+            def one(run=run, r1=r1):
+                run["state"] = run["steps"][r1](run["state"], real)[0]
+
+            prof = profile_call(f"one {recipe} R1-{'on' if r1 else 'off'} "
+                                f"step", one, card, top=8)
+            row["busy_ms_r1_on" if r1 else "busy_ms_r1_off"] = \
+                prof["busy_ms"]
+            row["idle_r1_on" if r1 else "idle_r1_off"] = prof["idle_share"]
+        log(f"recipe: {recipe:12s}: {row['ms_r1_off']:.2f} ms an R1-off "
+            f"step, {row['ms_r1_on']:.2f} ms an R1-on step (medians of "
+            f"{RECIPE_ROUNDS}, in turns); device busy "
+            f"{row['busy_ms_r1_off']:.2f} / {row['busy_ms_r1_on']:.2f} ms, "
+            f"idle share {row['idle_r1_off']:.3f} / {row['idle_r1_on']:.3f}; "
+            f"peak memory {row['peak_gib'][False]:.2f} / "
+            f"{row['peak_gib'][True]:.2f} GiB (four full-width states "
+            f"held); launches a step {row['launches'][False]} / "
+            f"{row['launches'][True]} [{card}]")
+    seq = out["sequential"]
+    for recipe in RECIPES[1:]:
+        r = out[recipe]
+        log(f"recipe: {recipe} against sequential: R1-off "
+            f"{r['ms_r1_off'] - seq['ms_r1_off']:+.2f} ms "
+            f"({r['ms_r1_off'] / seq['ms_r1_off'] - 1:+.3f}), R1-on "
+            f"{r['ms_r1_on'] - seq['ms_r1_on']:+.2f} ms "
+            f"({r['ms_r1_on'] / seq['ms_r1_on'] - 1:+.3f}); busy "
+            f"{r['busy_ms_r1_off'] - seq['busy_ms_r1_off']:+.2f} / "
+            f"{r['busy_ms_r1_on'] - seq['busy_ms_r1_on']:+.2f} ms; peak "
+            f"{r['peak_gib'][False] - seq['peak_gib'][False]:+.2f} / "
+            f"{r['peak_gib'][True] - seq['peak_gib'][True]:+.2f} GiB "
+            f"[{card}]")
+    runs.clear()
+    torch.cuda.empty_cache()
+    for recipe in RECIPES[1:]:
+        for preset, rtol in (("stylegan-256", STEP_GRAD_RTOL),
+                             ("stylegan2-256", 1e-3)):
+            phase_train_card_vs_cpu(preset, rtol, recipe_sets(recipe))
+    extra = recipe_checks(card)
+    for n in totals:
+        totals[n] += extra[n]
+    return dict(out, launches=totals)
+
+
+def recipe_checks(card: str) -> dict:
+    """``reg_separate`` on progan-128 (WGAN-GP and drift every step: two D
+    updates a step, the NCHW pixelnorm launched), ``fused_seq`` against
+    the sequential step at 1024² (stylegan-1024, remat, batch 4, R1 on:
+    peak memory), ``cli train`` with each recipe 8² -> 32², and two gloo
+    ranks under ``fused_seq`` against one process accumulating two
+    (``phase_dp``). Returns the launches of our kernels in all."""
+    totals = {n: 0 for n in KERNELS}
+
+    def count(counts):
+        for n in totals:
+            totals[n] += counts[n]
+
+    # progan-128 at 128², WGAN-GP every step: each step two D updates
+    cfg = get_config("progan-128", **{
+        "schedule.progressive": False, "schedule.batch_schedule": {128: 8},
+        "loss.reg_separate": True})
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    state = _dp_state(cfg)
+    stepper = make_lazy_stepper(cfg, phase)
+    gdata = torch.Generator(device="cuda").manual_seed(42)
+    real = torch.randint(0, 256, (8, 128, 128, 3), generator=gdata,
+                         device="cuda", dtype=torch.uint8)
+    expect = launch_totals(step_launches(cfg.model, True, batch=8,
+                                         recipe="reg_separate"))
+    pg_ms = []
+    for i in range(PG_RECIPE_STEPS):
+        state, m, ms, counts = _timed_step(stepper, state, real)
+        _check_accum_step(f"progan reg_separate step {i}", m, counts, expect,
+                          True)
+        if _d_adam_counts(state) != {2 * (i + 1)} or \
+                counts["pixelnorm_nchw"] == 0:
+            raise AssertionError(f"progan reg_separate step {i}: D's Adam "
+                                 f"counts {_d_adam_counts(state)}, launches "
+                                 f"{counts}")
+        count(counts)
+        pg_ms.append(ms)
+    log(f"recipe: progan-128 reg_separate at 128² batch 8, {PG_RECIPE_STEPS} "
+        f"steps: every D parameter's Adam count {_d_adam_counts(state)} "
+        f"(two updates a step), launches a step {counts} as derived, penalty "
+        f"{m['penalty']:.4f}, ms {[round(x, 2) for x in pg_ms]} [{card}]")
+    del state
+    torch.cuda.empty_cache()
+
+    # fused_seq at 1024²: the shared graph lives through R1's backward
+    peaks, ms_1k = {}, {}
+    cfg = get_config("stylegan-1024")
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    micro = phase.batch_size
+    assert cfg.model.remat and phase.resolution == 1024 and micro == 4
+    state = create_train_state(cfg, seed=0)
+    state.shown_imgs = phase.start_img
+    gdata = torch.Generator(device="cuda").manual_seed(43)
+    real = torch.randint(0, 256, (micro, 1024, 1024, 3), generator=gdata,
+                         device="cuda", dtype=torch.uint8)
+    for recipe in ("sequential", "fused_seq", "fused_seq", "sequential"):
+        c = get_config("stylegan-1024", **recipe_sets(recipe))
+        step = train_steps.build_train_step(c, phase, penalty_override=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m, ms, counts = _timed_step(step, state, real)
+        _check_accum_step(f"1024 {recipe}", m, counts, launch_totals(
+            step_launches(c.model, True, batch=micro, recipe=recipe)), True)
+        peaks[recipe] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms_1k.setdefault(recipe, []).append(ms)
+        count(counts)
+    log(f"recipe: stylegan-1024 R1-on step at 1024² (remat, batch {micro}): "
+        f"peak memory sequential {peaks['sequential']:.2f} GiB, fused_seq "
+        f"{peaks['fused_seq']:.2f} GiB; ms {ms_1k} (first of each warms "
+        f"up); launches as derived [{card}]")
+    del state
+    torch.cuda.empty_cache()
+
+    # cli train with each recipe through a fade phase
+    kimg = 2 * BATCH / 1000.0
+    for recipe in RECIPES[1:]:
+        sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
+                "schedule.stabilize_kimg": kimg,
+                "schedule.batch_schedule": {2 ** lg: BATCH
+                                            for lg in range(2, 9)},
+                "run.log_every": 1, **recipe_sets(recipe)}
+        cfg = get_config("stylegan-256", **sets)
+        workdir = tempfile.mkdtemp(prefix=f"ganlab_{recipe}_")
+        try:
+            run = run_cli_train("stylegan-256", sets, workdir, max_steps=10)
+            with open(os.path.join(workdir, "train.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        recs = run["records"]
+        if len(rows) != 10 or len(recs) != 10 or not all(
+                math.isfinite(v) for r in rows for k, v in r.items()
+                if isinstance(v, float)):
+            raise AssertionError(f"{recipe} cli: {len(rows)} rows, "
+                                 f"{len(recs)} steps: {rows[-1:]}")
+        for rec in recs:
+            lg = int(math.log2(rec["shape"][1]))
+            want = launch_totals(step_launches(cfg.model, rec["r1"], lg,
+                                               BATCH, recipe))
+            if rec["counts"] != want:
+                raise AssertionError(f"{recipe} cli step {rec['step']}: "
+                                     f"launches {rec['counts']}, derived "
+                                     f"{want}")
+            count(rec["counts"])
+        alphas = [r["alpha"] for r in rows]
+        log(f"recipe: cli train --set loss.{recipe}=true, 10 steps 8x8 -> "
+            f"32x32 at batch {BATCH}: exit 0, train.jsonl finite, launches "
+            f"as derived, alpha {alphas}, ms a step "
+            + " ".join(f"{r['ms']:.1f}" for r in recs) + f" [{card}]")
+
+    dp = phase_dp(card, recipe_sets("fused_seq"), "dp fused_seq")
+    count(dp["launches"])
+    return totals
+
+
 # -- 3b. offsets beyond 2^31 elements ------------------------------------------------
 LARGE = {"upsample_blur_2x": (64, 32, 512, 512),      # out: 2^31 elements
          "blur_downsample_2x": (128, 16, 1024, 1024),  # in: 2^31 elements
@@ -3902,6 +4179,7 @@ def main(kernels_only: bool = False) -> None:
     phase_inception(card)
     ada = phase_ada(card)
     proj = phase_projector(card)
+    recipes = phase_recipes(card)
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
@@ -3924,7 +4202,8 @@ def main(kernels_only: bool = False) -> None:
                     "accum_1024": accum_1k["launches"][name],
                     "export": exported["launches"][name],
                     "ada": ada["launches"][name],
-                    "projector": proj["launches"][name]}
+                    "projector": proj["launches"][name],
+                    "recipes": recipes["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -3932,6 +4211,10 @@ def main(kernels_only: bool = False) -> None:
             **{f"launches_{n}": v for n, v in launches.items()},
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
+            "launches_per_recipe_step": {
+                recipe: {"r1_off": recipes[recipe]["launches"][False][name],
+                         "r1_on": recipes[recipe]["launches"][True][name]}
+                for recipe in RECIPES},
             "launches_per_progan128_step_128": launch_totals(
                 step_launches(mp, True, 7, 8))[name],
             "launches_per_stylegan2_step": {

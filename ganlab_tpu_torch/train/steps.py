@@ -1,8 +1,7 @@
-"""The sequential G/D training step with lazy regularization, on PyTorch.
+"""The G/D training step with lazy regularization, on PyTorch.
 
-Port of the sequential branch of ``ganlab_tpu/train/steps.py``
-(``build_train_step`` with ``make_lazy_stepper``), for every ported family.
-One step:
+Port of ``ganlab_tpu/train/steps.py`` (``build_train_step`` with
+``make_lazy_stepper``), for every family. One sequential step:
 
 1. real uint8 NHWC batch -> NCHW [-1, 1] in the compute dtype, with a
    per-sample horizontal flip (``_preprocess``);
@@ -83,8 +82,37 @@ metrics gain ``aug_p`` (the new p) and ``aug_rt``. ``fixed`` gates at
 ``aug.p_init`` and keeps no state. Every draw of a step, G's included, is
 gated with the p the step starts from.
 
-Options this port does not run raise ``NotImplementedError`` (ROADMAP.md
-A.8): the fused steps and two-phase regularization. Entry:
+The opt-in step recipes (all off in every preset):
+
+* ``loss.reg_separate`` (the official StyleGAN2-ADA Dmain / Dreg
+  structure): on a penalty step D takes two Adam steps, first the main
+  loss (plus drift) at the step's weights, then R1 or WGAN-GP alone at the
+  post-main weights on the same augmented reals, fakes and ``gp_eps``;
+  the ``penalty`` metric is the second pass's value. Every D parameter's
+  Adam count then advances by two on such a step, so a head seeded late
+  takes the steps since the moments began plus the penalty steps among
+  them (``penalty_ticks``). Off a penalty step it is the sequential step
+  bit for bit. Refused with accumulation (by the config).
+* ``loss.fused_seq``: G's update scores the D step's fake batch, drawn
+  from ``StepDraws.d``, against the updated D (G's augmentation stays
+  ``aug[2]``); D's update is the sequential one bit for bit. On a step
+  that updates G with one microbatch the D phase runs that G forward with
+  autograd on, gives D the detached images and hands the graph to the G
+  phase, which runs no G forward of its own; with accumulation each
+  microbatch's G phase recomputes it from ``StepDraws.d``.
+* ``loss.fused_g_step`` (the JAX package's ``step_fused``): one objective
+  d_loss + penalty + g_loss (+ path length) gives both networks'
+  gradients, G scored against the pre-update D; then both Adam steps,
+  the G-EMA and the w-average. The fakes come from ``StepDraws.d`` and
+  under augmentation take ``aug[1]`` once for both losses (the reals
+  ``aug[0]``); ``StepDraws.g`` and ``aug[2]`` are drawn and not read. One
+  D forward of the attached fakes serves both losses: D's gradient is
+  taken over D's parameters with the graph kept, then G's over G's, so
+  neither loss reaches the other network. Refused with accumulation and
+  with n-critic.
+
+``draw_step`` draws every field under every recipe, in the same order, so
+one seed gives one stream whatever the recipe. Entry:
 ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
 ``stepper(state, real_u8)``, where ``real_u8`` holds A microbatches.
 """
@@ -313,12 +341,8 @@ def _check_supported(cfg: Config, phase: PhaseSpec) -> None:
         raise ValueError(
             "optim.grad_accum > 1 requires a sequential recipe "
             "(loss.fused_g_step=False; fused_seq is supported)")
-    for what, on in (("loss.fused_g_step", lc.fused_g_step),
-                     ("loss.fused_seq", lc.fused_seq),
-                     ("loss.reg_separate", lc.reg_separate)):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md A.8)")
+    if lc.fused_g_step and lc.d_steps_per_g > 1:
+        raise ValueError("loss.fused_g_step requires d_steps_per_g == 1")
     if cfg.pl_active and lc.d_steps_per_g > 1:
         # the PL cadence would be independent of the G cadence
         raise ValueError("loss.pl_weight > 0 requires d_steps_per_g == 1")
@@ -395,6 +419,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
     has_penalty = lc.penalty in ("wgan-gp", "r1")
     with_penalty = has_penalty if penalty_override is None \
         else penalty_override
+    # two D updates on a penalty step: the main loss, then the penalty
+    reg_separate = lc.reg_separate and has_penalty
     pen_weight = lc.penalty_weight * (
         lc.penalty_every if penalty_override is True else 1)
     fade = phase.kind == "fade"
@@ -418,9 +444,11 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             return 0.5 ** (batch / max(nimg, 1.0))
         return o.ema_beta_for(batch)
 
-    def penalty_term(d, real, fake, draws, real_s, alpha):
+    def penalty_term(d, real, fake, draws, real_s, alpha, reg=True):
+        """R1 or WGAN-GP at ``pen_weight`` where ``reg``, plus drift
+        where ``real_s`` (the real scores) is given."""
         penalty = torch.zeros((), device=real.device)
-        if with_penalty:
+        if reg:
             def critic(x):
                 return d(x, res_log2, alpha, fade).float()
 
@@ -429,7 +457,7 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                                     eps=draws.gp_eps)
             else:
                 penalty = L.r1_penalty(critic, real, pen_weight)
-        if lc.drift_weight:
+        if lc.drift_weight and real_s is not None:
             penalty = penalty + L.drift_penalty(real_s, lc.drift_weight)
         return penalty
 
@@ -475,6 +503,55 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                                  if p.grad is not None], float(accum))
         pdist.all_reduce_grads_(module)
 
+    def update_d(state, count: int) -> None:
+        """One Adam step of D on its summed gradients; ``count`` is the
+        Adam count of a parameter that has no moments yet (D's updates
+        since the moments began)."""
+        finish_grads(state.d)
+        set_hparams(state.opt_d, hp_d)
+        seed_new_moments(state.opt_d, count)
+        state.opt_d.step()
+
+    def update_g(state) -> None:
+        finish_grads(state.g)
+        set_hparams(state.opt_g, hp_g)
+        # G's Adam count: the G updates since the moments began
+        seed_new_moments(state.opt_g, state.step // n_critic
+                         - state.opt_step0 // n_critic)
+        state.opt_g.step()
+
+    @torch.no_grad()
+    def ema_and_w_avg(state, w_means, batch: int) -> None:
+        _ema_update(state.g_ema, state.g, ema_beta(batch, state.shown_imgs))
+        if style:
+            w_mean = pdist.mean(averaged(w_means))
+            wb = w_beta.to(state.device)
+            state.w_avg.copy_(state.w_avg * wb + w_mean * (1.0 - wb))
+
+    def finish(state, batch: int, alpha, d_parts, g_loss, pl_pens, ada):
+        """Counters, the metrics (averaged over the replicas) and ADA's
+        p; ``d_parts`` is (d_loss, penalty, real score, fake score),
+        ``ada`` (new p, rt) under ``aug.mode=ada``."""
+        dev = state.device
+        state.step += 1
+        state.shown_imgs += batch
+        d_loss, penalty, real_score, fake_score = d_parts
+        metrics = {"d_loss": d_loss,
+                   "g_loss": torch.zeros((), device=dev) if g_loss is None
+                   else g_loss,
+                   "penalty": penalty, "real_score": real_score,
+                   "fake_score": fake_score, "alpha": alpha}
+        if cfg.pl_active:
+            # only path-length configurations carry the metric, as in JAX
+            metrics["pl_penalty"] = averaged(pl_pens) if pl_pens \
+                else torch.zeros((), device=dev)
+        pdist.all_reduce_mean_(v for k, v in metrics.items() if k != "alpha")
+        if ada_active:
+            # only ADA configurations; both are the same on every replica
+            state.ada_p, metrics["aug_rt"] = ada
+            metrics["aug_p"] = state.ada_p
+        return state, metrics
+
     def step(state: TrainState, real_u8: torch.Tensor, draws=None):
         dev = state.device
         world, rank = pdist.world_size(), pdist.rank()
@@ -484,9 +561,16 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                              "does not split into equal microbatches")
         micro = total // accum
         draws = step_draws(state, micro, world, rank, draws)
-        g, d = state.g, state.d
         alpha = phase_alpha(phase, state.shown_imgs, dtype)
         real_u8 = real_u8.to(dev)
+        if lc.fused_g_step:
+            return fused_step(state, real_u8, draws[0], alpha, micro * world)
+        g, d = state.g, state.d
+        do_g = state.step % n_critic == n_critic - 1
+        # loss.fused_seq on a step that updates G with one microbatch: the
+        # D phase's G forward keeps its graph and is the G phase's too
+        share = lc.fused_seq and do_g and accum == 1
+        shared, reg_inputs = None, None
 
         # -- D step: A microbatches' gradients summed, then averaged -------
         state.opt_d.zero_grad(set_to_none=True)
@@ -494,8 +578,12 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         for j, dr in enumerate(draws):
             real = _preprocess(real_u8[j * micro:(j + 1) * micro],
                                cfg.data.hflip, dr.flip, dtype)
+            with torch.set_grad_enabled(share):
+                fake, w_mean = gen_forward(g, dr.d, alpha, fade)
+            if share:
+                shared = (fake, w_mean)
             with torch.no_grad():
-                fake_d, _ = gen_forward(g, dr.d, alpha, fade)
+                fake_d = fake.detach()
                 if aug_active:
                     # D sees only augmented images, in the loss and the
                     # penalty
@@ -504,31 +592,53 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             real_s = d(real, res_log2, alpha, fade).float()
             fake_s = d(fake_d, res_log2, alpha, fade).float()
             d_loss = d_loss_fn(real_s, fake_s)
-            penalty = penalty_term(d, real, fake_d, dr, real_s, alpha)
+            penalty = penalty_term(d, real, fake_d, dr, real_s, alpha,
+                                   reg=with_penalty and not reg_separate)
             (d_loss + penalty).backward()
             parts.append((d_loss.detach(), penalty.detach(),
                           real_s.detach().mean(), fake_s.detach().mean()))
             if ada_active:
                 rts.append(torch.sign(real_s.detach()).mean())
-            del real, fake_d, real_s, fake_s
-        finish_grads(d)
-        set_hparams(state.opt_d, hp_d)
-        seed_new_moments(state.opt_d, state.step - state.opt_step0)
-        state.opt_d.step()
-        d_loss, penalty, real_score, fake_score = (
-            averaged(list(v)) for v in zip(*parts))
+            if reg_separate and with_penalty:     # one microbatch
+                reg_inputs = (real, fake_d, dr)
+            del real, fake, fake_d, real_s, fake_s
+        count = state.step - state.opt_step0
+        if reg_separate:
+            count += penalty_ticks(cfg, state.opt_step0, state.step)
+        update_d(state, count)
+        d_parts = [averaged(list(v)) for v in zip(*parts)]
+        if reg_inputs is not None:
+            # Dreg: the penalty alone, at the post-main weights, on the
+            # main pass's reals, fakes and interpolation draws, through
+            # the same Adam (a second count on this step). Gradients are
+            # zeroed, not dropped: a parameter the penalty does not reach
+            # (D's output bias) takes a zero gradient and its Adam step,
+            # as optax steps every leaf of the tree
+            real, fake_d, dr = reg_inputs
+            state.opt_d.zero_grad(set_to_none=False)
+            penalty = penalty_term(d, real, fake_d, dr, None, alpha)
+            penalty.backward()
+            update_d(state, count + 1)
+            d_parts[1] = penalty.detach()
+            del reg_inputs, real, fake_d, penalty
+        ada = None
         if ada_active:
             rt = pdist.mean(averaged(rts))
-            new_p = ada_p_after(state, rt, micro * accum * world)
+            ada = (ada_p_after(state, rt, micro * accum * world), rt)
 
         # -- G step, against the updated D (every n-th step with n-critic)
-        if state.step % n_critic == n_critic - 1:
-            pl_mean, g_losses, pl_pens, w_means = state.pl_mean, [], [], []
+        g_loss, pl_pens = None, []
+        if do_g:
+            pl_mean, g_losses, w_means = state.pl_mean, [], []
             d.requires_grad_(False)
             try:
                 state.opt_g.zero_grad(set_to_none=True)
                 for dr in draws:
-                    fake, w_mean = gen_forward(g, dr.g, alpha, fade)
+                    if shared is not None:
+                        (fake, w_mean), shared = shared, None
+                    else:
+                        fake, w_mean = gen_forward(
+                            g, dr.d if lc.fused_seq else dr.g, alpha, fade)
                     if aug_active:      # the gradient flows through into G
                         fake = apply_augment(fake, dr.aug[2])
                     g_loss = g_loss_fn(d(fake, res_log2, alpha, fade).float())
@@ -549,42 +659,64 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                     del fake, objective
             finally:
                 d.requires_grad_(True)
-            finish_grads(g)
-            set_hparams(state.opt_g, hp_g)
-            # G's Adam count: the G updates since the moments began
-            seed_new_moments(state.opt_g, state.step // n_critic
-                             - state.opt_step0 // n_critic)
-            state.opt_g.step()
+            update_g(state)
             if with_pl:
                 state.pl_mean = pl_mean
             g_loss = averaged(g_losses)
+            ema_and_w_avg(state, w_means, micro * accum * world)
+        return finish(state, micro * accum * world, alpha, d_parts, g_loss,
+                      pl_pens, ada)
 
+    def fused_step(state, real_u8, dr: StepDraws, alpha, batch: int):
+        """``loss.fused_g_step`` (the JAX package's ``step_fused``): one
+        objective d_loss + penalty + g_loss (+ path length) gives both
+        networks' gradients, G scored against the pre-update D; then both
+        Adam steps, the G-EMA and the w-average."""
+        g, d = state.g, state.d
+        state.opt_d.zero_grad(set_to_none=True)
+        state.opt_g.zero_grad(set_to_none=True)
+        real = _preprocess(real_u8, cfg.data.hflip, dr.flip, dtype)
+        fake, w_mean = gen_forward(g, dr.d, alpha, fade)
+        if aug_active:
             with torch.no_grad():
-                _ema_update(state.g_ema, g,
-                            ema_beta(micro * accum * world,
-                                     state.shown_imgs))
-                if style:
-                    w_mean = pdist.mean(averaged(w_means))
-                    wb = w_beta.to(dev)
-                    state.w_avg.copy_(state.w_avg * wb
-                                      + w_mean * (1.0 - wb))
-        else:
-            g_loss = torch.zeros((), device=dev)
-        state.step += 1
-        state.shown_imgs += micro * accum * world
-        metrics = {"d_loss": d_loss, "g_loss": g_loss, "penalty": penalty,
-                   "real_score": real_score, "fake_score": fake_score,
-                   "alpha": alpha}
-        if cfg.pl_active:
-            # only path-length configurations carry the metric, as in JAX
-            metrics["pl_penalty"] = averaged(pl_pens) if pl_pens \
-                else torch.zeros((), device=dev)
-        pdist.all_reduce_mean_(v for k, v in metrics.items() if k != "alpha")
+                real = apply_augment(real, dr.aug[0])
+            # one draw for the fakes, shared by D's loss and G's
+            fake = apply_augment(fake, dr.aug[1])
+        real_s = d(real, res_log2, alpha, fade).float()
+        # one D forward of the fakes serves both losses: D's gradient and
+        # G's are taken over disjoint parameter sets, so the D loss puts
+        # nothing into G and the G loss nothing into D
+        fake_s = d(fake, res_log2, alpha, fade).float()
+        d_loss = d_loss_fn(real_s, fake_s)
+        penalty = penalty_term(d, real, fake.detach(), dr, real_s, alpha,
+                               reg=with_penalty)
+        g_loss = g_loss_fn(fake_s)
+        g_objective, pl_pens = g_loss, []
+        if with_pl:
+            if dr.pl is None:
+                raise ValueError("a path-length step needs StepDraws.pl")
+            pl_pen, pl_mean, _ = path_length_penalty(
+                g, state.pl_mean, dr.pl, res_log2, alpha, weight=pl_weight,
+                decay=pl_decay, fade=fade, mean_over=pdist.mean)
+            g_objective = g_loss + pl_pen
+            pl_pens.append(pl_pen.detach())
+        torch.autograd.backward(d_loss + penalty, inputs=list(d.parameters()),
+                                retain_graph=True)
+        g_objective.backward(inputs=list(g.parameters()))
+        d_parts = (d_loss.detach(), penalty.detach(),
+                   real_s.detach().mean(), fake_s.detach().mean())
+        ada = None
         if ada_active:
-            # only ADA configurations; both are the same on every replica
-            state.ada_p = new_p
-            metrics["aug_p"], metrics["aug_rt"] = new_p, rt
-        return state, metrics
+            rt = pdist.mean(torch.sign(real_s.detach()).mean())
+            ada = (ada_p_after(state, rt, batch), rt)
+        del real, fake, real_s, fake_s, g_objective
+        update_d(state, state.step - state.opt_step0)
+        update_g(state)
+        if with_pl:
+            state.pl_mean = pl_mean
+        ema_and_w_avg(state, [w_mean], batch)
+        return finish(state, batch, alpha, d_parts, g_loss.detach(), pl_pens,
+                      ada)
 
     step.pen_weight = pen_weight if with_penalty else 0.0
     step.pl_weight = pl_weight if with_pl else 0.0
@@ -620,6 +752,19 @@ def _lazy_combos(cfg: Config):
 
     lazy = (has_pen and k > 1) or (pl_active and pe > 1)
     return combo_at, lazy
+
+
+def penalty_ticks(cfg: Config, start: int, stop: int) -> int:
+    """How many of the step indices [start, stop) the lazy dispatch runs
+    with the D penalty on (``_lazy_combos``: every step with
+    ``penalty_every`` <= 1, every k-th from 0 otherwise)."""
+    lc = cfg.loss
+    if lc.penalty not in ("wgan-gp", "r1") or stop <= start:
+        return 0
+    k = lc.penalty_every
+    if k <= 1:
+        return stop - start
+    return -(-stop // k) + (-start // k)     # ceil(stop/k) - ceil(start/k)
 
 
 def make_lazy_stepper(cfg: Config, phase: PhaseSpec,

@@ -22,6 +22,11 @@ process, fed both shards one after the other, is the reference. Held:
 * ADA (``aug.mode=ada``, ``bcgfnu``): the ranks' states, ``ada_p``
   included, bit-equal to each other and to one process accumulating the
   two shards, metrics (``aug_p``, ``aug_rt``) too;
+* ``loss.fused_seq`` (G's forward shared with the D phase) equal to the
+  accumulating step (which recomputes it) bit for bit; ``loss.
+  fused_g_step`` and ``loss.reg_separate`` (which refuse accumulation):
+  two ranks fed the same shard and draws equal to one process bit for
+  bit, the reg pass's gradients all-reduced like the main ones;
 * a two-process ``Trainer``: each rank's data source is seeded
   ``run.seed + 7919 * rank``, rank 0 alone writes the log, the config and
   the checkpoint, a second ``Trainer`` on the workdir restores the state
@@ -168,6 +173,40 @@ def test_ada_dp_equals_accumulation_over_the_same_shards(ranks):
     assert all(abs(abs(b - a) - rate) < 1e-6
                for a, b in zip([0.5] + ps, ps))
     assert r0["ada"]["tensors"]["ada_p"].item() == ps[-1]
+
+
+def test_fused_seq_dp_equals_accumulation_over_the_same_shards(ranks):
+    """``loss.fused_seq``: each rank's G phase takes the D phase's graph
+    (one microbatch), the accumulating process recomputes each
+    microbatch's forward from its D draws: the same bits."""
+    (r0, r1), _ = ranks
+    _assert_same(r0["fused_seq"]["tensors"], r1["fused_seq"]["tensors"],
+                 "fused_seq ranks")
+    want = W.part_steps(0, 1, W.steps_cfg(**{"loss.fused_seq": True,
+                                             "optim.grad_accum": 2}))
+    _assert_same(r0["fused_seq"]["tensors"], want["tensors"],
+                 "fused_seq DP vs accum")
+    assert r0["fused_seq"]["metrics"] == want["metrics"]
+
+
+@pytest.mark.parametrize("recipe", ["fused_g_step", "reg_separate"])
+def test_recipe_ranks_on_one_shard_equal_one_process(ranks, recipe):
+    """The JAX package's DP guarantee for the steps that refuse
+    accumulation: two ranks fed the same shard and draws hold the
+    one-process step's state bit for bit (the shown-image count is the
+    global batch's)."""
+    (r0, r1), _ = ranks
+    got = [r[f"same_{recipe}"] for r in (r0, r1)]
+    want = W.part_same(0, 1, recipe)
+    for g in got:
+        _assert_same({k: v for k, v in g["tensors"].items()
+                      if k != "counters"},
+                     {k: v for k, v in want["tensors"].items()
+                      if k != "counters"}, f"{recipe} DP vs one process")
+        assert g["metrics"] == want["metrics"]
+        assert g["counters"] == (3, 3 * 2 * W.MICRO)
+    assert want["counters"] == (3, 3 * W.MICRO)
+    assert [m["penalty"] > 0 for m in want["metrics"]] == [True, False, True]
 
 
 def test_trainer_resumes_bit_for_bit_on_both_ranks(ranks):

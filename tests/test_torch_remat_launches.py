@@ -8,7 +8,9 @@ the launches the same step makes on the card, recomputes of
 ``model.remat`` included. ``chip_smoke.step_launches`` must derive those
 counts from the config alone, with and without remat, R1 on and off;
 ``chip_smoke.projector_shapes`` the shapes and counts of a W+ projection,
-which its kernel phase checks and times.
+which its kernel phase checks and times. The same for each opt-in step
+recipe (``loss.reg_separate``, ``loss.fused_seq``, ``loss.fused_g_step``)
+of stylegan-256 and progan-128.
 """
 
 import collections
@@ -60,6 +62,56 @@ def test_step_launches_match_a_counted_step(counts, remat, r1):
     want = {n: sum(v.values()) for n, v in chip_smoke.step_launches(
         cfg.model, r1, batch=2).items()}
     assert dict(counts) == want
+
+
+@pytest.mark.parametrize("recipe", ["reg_separate", "fused_seq",
+                                    "fused_g_step"])
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("r1", [False, True], ids=["r1_off", "r1_on"])
+def test_recipe_step_launches_match_a_counted_step(counts, remat, r1,
+                                                   recipe):
+    """Each opt-in recipe's step, counted as the sequential one, against
+    ``step_launches(..., recipe=)``; ``fused_seq`` one G forward below the
+    sequential step's count."""
+    cfg = get_config("stylegan-256", **{
+        "model.resolution": 32, "model.fmap_base": 64, "model.fmap_max": 8,
+        "model.latent_dim": 8, "model.mapping_layers": 1,
+        "run.compute_dtype": "float32", "model.remat": remat,
+        "schedule.progressive": False, "schedule.batch_schedule": {32: 2},
+        f"loss.{recipe}": True})
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    state = create_train_state(cfg, seed=0, device="cpu")
+    step = tsteps.build_train_step(cfg, phase, penalty_override=r1)
+    counts.clear()
+    step(state, torch.zeros(2, 32, 32, 3, dtype=torch.uint8))
+    want = {n: sum(v.values()) for n, v in chip_smoke.step_launches(
+        cfg.model, r1, batch=2, recipe=recipe).items()}
+    assert dict(counts) == want
+    if recipe == "fused_seq":
+        seq = chip_smoke.step_launches(cfg.model, r1, batch=2)
+        g_fwd = {"pixelnorm": 1, "adain": 2 * 4, "upsample_blur_2x": 3}
+        assert {n: sum(v.values()) - want.get(n, 0) for n, v in
+                seq.items()} == dict(g_fwd, blur_downsample_2x=0,
+                                     minibatch_stddev=0)
+
+
+@pytest.mark.parametrize("recipe", chip_smoke.RECIPES)
+def test_progan_recipe_step_launches_match_a_counted_step(counts, recipe):
+    """progan-128's WGAN-GP step (every step) under each recipe against
+    ``progan_step_launches``: pixelnorm (rows and over NCHW) and mbstd."""
+    cfg = get_config("progan-128", **{
+        "model.resolution": 16, "model.fmap_base": 64,
+        "model.latent_dim": 16, "run.compute_dtype": "float32",
+        "schedule.progressive": False, "schedule.batch_schedule": {16: 2},
+        **({} if recipe == "sequential" else {f"loss.{recipe}": True})})
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    state = create_train_state(cfg, seed=0, device="cpu")
+    step = tsteps.build_train_step(cfg, phase)
+    counts.clear()
+    step(state, torch.zeros(2, 16, 16, 3, dtype=torch.uint8))
+    want = chip_smoke.step_launches(cfg.model, True, batch=2, recipe=recipe)
+    assert dict(counts) == {n: sum(v.values()) for n, v in want.items()
+                            if n != "pixelnorm_nchw"}
 
 
 @pytest.fixture

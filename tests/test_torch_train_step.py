@@ -355,15 +355,16 @@ def test_lazy_stepper_cadence_and_generator(world):
     {"loss.reg_separate": True}, {"loss.pl_weight": 2.0},
     {"aug.mode": "ada"}, {"optim.grad_accum": 2},
     {"loss.pl_weight": 2.0, "loss.d_steps_per_g": 2}])
-def test_unported_options_raise(world, knob):
-    """Path-length regularization is ported (tests/test_torch_stylegan2.py):
-    ``loss.pl_weight`` alone builds a step that takes the term, and with
-    ``d_steps_per_g`` > 1 it raises the JAX package's ValueError. Gradient
-    accumulation is ported (tests/test_torch_grad_accum.py): ``optim.
-    grad_accum`` = 2 builds a step. ADA is ported (tests/
-    test_torch_augment.py): ``aug.mode`` = ada builds a step whose draws
-    carry three augmentations. The other options are not ported and raise
-    NotImplementedError."""
+def test_options_build_or_raise_as_in_jax(world, knob):
+    """Every option of the JAX step is ported. Path-length regularization
+    (tests/test_torch_stylegan2.py): ``loss.pl_weight`` alone builds a step
+    that takes the term, and with ``d_steps_per_g`` > 1 it raises the JAX
+    package's ValueError. Gradient accumulation
+    (tests/test_torch_grad_accum.py): ``optim.grad_accum`` = 2 builds a
+    step. ADA (tests/test_torch_augment.py): ``aug.mode`` = ada builds a
+    step whose draws carry three augmentations. The opt-in recipes
+    ``loss.fused_seq``, ``loss.fused_g_step`` and ``loss.reg_separate``
+    (tests/test_torch_recipes.py) each build a step that runs."""
     cfg = get_config("stylegan-256", **dict(SMALL, **knob))
     if knob == {"aug.mode": "ada"}:
         assert callable(tsteps.build_train_step(cfg, world["phase"]))
@@ -382,20 +383,32 @@ def test_unported_options_raise(world, knob):
         with pytest.raises(ValueError, match="d_steps_per_g"):
             tsteps.build_train_step(cfg, world["phase"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.build_train_step(cfg, world["phase"])
+    step = tsteps.build_train_step(cfg, world["phase"],
+                                   penalty_override=True)
+    st, m = step(port_state(world), torch.from_numpy(world["real"]),
+                 to_port_draws(world["flip"], world["dd"], world["dg"]))
+    assert (st.step, st.shown_imgs) == (1, B)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert float(m["penalty"]) > 0
 
 
-def test_fade_phase_raises():
-    """A fade phase builds and steps (it no longer raises); an option that
-    is not ported still raises in a fade phase."""
-    cfg = get_config("stylegan-256", **FADE)
+def test_fade_phase_raises(world):
+    """A fade phase builds and steps under every recipe (no longer
+    raising): here ``loss.fused_seq`` in the fade world, whose step runs
+    at the alpha of the state's shown-image counter (0.4) and moves the
+    8x8 heads of G and D as the fade branch does."""
+    cfg = get_config("stylegan-256", **dict(FADE, **{"loss.fused_seq": True}))
     fade = [p for p in build_phases(cfg.schedule, cfg.model)
             if p.kind == "fade"][0]
-    assert callable(tsteps.build_train_step(cfg, fade))
-    bad = get_config("stylegan-256", **dict(FADE, **{"loss.fused_seq": True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.build_train_step(bad, fade)
+    st = port_state(world, fade=True)
+    torgb8 = st.g.synthesis.torgb8.w.detach().clone()
+    step = tsteps.build_train_step(cfg, fade, penalty_override=False)
+    st, m = step(st, torch.from_numpy(world["real"]),
+                 to_port_draws(world["flip"], world["dd"], world["dg"]))
+    assert m["alpha"] == pytest.approx(0.4, abs=1e-7)
+    assert st.shown_imgs == FADE_SHOWN + B
+    assert st.d.fromrgb8.w.grad is not None
+    assert not torch.equal(st.g.synthesis.torgb8.w, torgb8)
 
 
 def test_fade_alpha_follows_the_jax_schedule(world):

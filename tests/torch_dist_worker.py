@@ -14,6 +14,9 @@ runs, as this rank of the world:
    ``optim.grad_accum`` = 2 on each rank, its gradients; ``ada``: three
    steps of the first configuration with ``aug.mode=ada`` and all six
    categories (each rank's draws, rt averaged over the ranks, ``ada_p``);
+   ``fused_seq``: the three steps under ``loss.fused_seq``; ``same_*``:
+   three steps of ``loss.fused_g_step`` and of ``loss.reg_separate`` with
+   every rank fed the same shard and the same injected draws;
 3. ``trainer``: a ``Trainer`` on one shared workdir for three steps, then
    a second ``Trainer`` restored from that workdir: whether it holds the
    live state bit for bit and whether both stay equal over two more steps
@@ -62,6 +65,16 @@ def ada_cfg(**over):
     starting at 0.5 and moving 0.04 a step of the global batch of 4."""
     return steps_cfg(**{"aug.mode": "ada", "aug.categories": "bcgfnu",
                         "aug.p_init": 0.5, "aug.kimg": 0.1}, **over)
+
+
+def same_cfg(recipe: str):
+    """``steps_cfg`` under ``loss.<recipe>`` with a G-EMA beta that does
+    not depend on the global batch (``optim.ema_kimg`` 0: ``ema_beta``)."""
+    from ganlab_tpu_torch.config import get_config
+
+    return get_config("stylegan-256", **dict(
+        SMALL, **{"loss.penalty_every": 2, "optim.ema_kimg": 0.0,
+                  f"loss.{recipe}": True}))
 
 
 def trainer_cfg():
@@ -179,6 +192,34 @@ def part_composed(rank: int, world: int, accum: int) -> dict:
             "counters": (state.step, state.shown_imgs)}
 
 
+def part_same(rank: int, world: int, recipe: str) -> dict:
+    """Three steps of ``same_cfg(recipe)`` (penalty on steps 0 and 2), every
+    rank fed the first shard of ``global_batch(i)`` and the same injected
+    draws: the mean over the ranks of equal gradients is the gradient, so
+    the state is one process's step's."""
+    from ganlab_tpu_torch.parallel import dist as pdist
+    from ganlab_tpu_torch.train import (
+        build_phases,
+        create_train_state,
+        make_lazy_stepper,
+    )
+    from ganlab_tpu_torch.train import steps as tsteps
+
+    cfg = same_cfg(recipe)
+    phase = build_phases(cfg.schedule, cfg.model)[-1]
+    state = create_train_state(cfg, seed=0, device="cpu")
+    pdist.broadcast_state(state)
+    stepper = make_lazy_stepper(cfg, phase)
+    metrics = []
+    for i in range(3):
+        draws = tsteps.draw_step(cfg, phase.res_log2, MICRO,
+                                 torch.Generator().manual_seed(50 + i), "cpu")
+        state, m = stepper(state, global_batch(i)[:MICRO], draws)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"tensors": _tensors(state), "metrics": metrics,
+            "counters": (state.step, state.shown_imgs)}
+
+
 def part_pl(rank: int, world: int) -> dict:
     from ganlab_tpu_torch.train import steps as tsteps
 
@@ -243,6 +284,10 @@ def main(rank: int, world: int, port: int, outdir: str) -> None:
                   "pl": part_pl(rank, world),
                   "composed": part_composed(rank, world, 2),
                   "ada": part_steps(rank, world, ada_cfg()),
+                  "fused_seq": part_steps(rank, world, steps_cfg(
+                      **{"loss.fused_seq": True})),
+                  **{f"same_{r}": part_same(rank, world, r)
+                     for r in ("fused_g_step", "reg_separate")},
                   "trainer": part_trainer(rank, outdir),
                   "world": pdist.world_size(), "rank": pdist.rank()}
     finally:
