@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training-step, progressive-trainer,
 user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel,
-export, ADA, projector and step-recipe paths on one NVIDIA GPU.
+export, ADA, projector, step-recipe and chunked-stepping paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -175,9 +176,34 @@ Phases (any failure raises and the script exits non-zero):
     stylegan2-256 with path length, 32²); ``reg_separate`` on progan-128
     at 128² (WGAN-GP and drift every step: two D updates a step);
     ``fused_seq`` against the sequential R1-on step at 1024² (remat, batch
-    4: peak memory); ``cli train --set loss.<recipe>=true`` 8² -> 32²; two
-    gloo ranks under ``fused_seq`` against one process accumulating two.
-16. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+    4: peak memory); ``cli train --set loss.<recipe>=true`` chunked (the
+    default), three cycles at 8² (the off-run captured and replayed) and
+    two steps of the 16² fade, each stepper call's launches as derived;
+    two gloo ranks under ``fused_seq`` against one process accumulating
+    two.
+16. Chunked stepping (``run.chunk_steps``, ``make_chunked_stepper``)
+    with each cycle's off-run replayed as a CUDA graph, full width, bf16,
+    deterministic cuDNN: the eager lazy stepper and the graphed chunked
+    stepper from one seed over the same batches (cycles of 16 steps and a
+    2-step tail; the first cycle runs eagerly, the second captures), the
+    states and the stacked metrics bit for bit and the launches of our
+    kernels equal (a replay adds its captured launches to the counts), at
+    the bench.py configuration (a replayed cycle's launches read from the
+    counts and held to those derived: ``launches_per_cycle``), at the 8x8
+    and 64x64 stabilize phases of the progressive preset (batch 32), on
+    stylegan2-256 (path length every 4: the off-run in 3-step segments),
+    under ADA ``bcgfnu`` (``ada_p`` through the replays) and under
+    ``loss.fused_g_step``; ms a step over a cycle eager and graphed, the
+    host's time a cycle, the idle share of a profiled graphed cycle,
+    capture seconds, the graph pool's bytes, peak memory; ``cli train
+    --preset stylegan-256`` 8x8 -> 32x32 with ``run.chunk_steps`` at
+    its default and set to False (img/s a phase by the loop's clock;
+    chunked: each stepper call's launches as derived, a graph captured a
+    phase, ``train.jsonl`` rows at the JAX package's chunk rule); a step
+    that reads the host raises at capture; capturable Adam's update
+    against the default one's. The cli runs of phases 7-14 pin
+    ``run.chunk_steps=False``: they count launches a step.
+17. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -253,6 +279,7 @@ from ganlab_tpu_torch.train import (
 )
 from ganlab_tpu_torch.train import loop as train_loop
 from ganlab_tpu_torch.train import steps as train_steps
+from ganlab_tpu_torch.train.state import optimizer_hparams
 
 BATCH = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1303,6 +1330,15 @@ def make_sampler(cfg) -> BatchSampler:
     return BatchSampler(cfg, params=sd, w_avg=w_avg, batch_size=BATCH)
 
 
+def _counts() -> dict:
+    return {n: k["kernel"].launches for n, k in KERNELS.items()}
+
+
+def _add_counts(total: dict, part: dict) -> None:
+    for n in total:
+        total[n] += part[n]
+
+
 def reset_counts():
     for k in KERNELS.values():
         k["kernel"].launches = 0
@@ -1883,38 +1919,64 @@ def _assert_states_equal(what: str, a, b) -> int:
 
 
 def run_cli_train(preset: str, sets: dict, workdir: str,
-                  max_steps: int | None = None) -> dict:
+                  max_steps: int | None = None,
+                  chunked: bool = False) -> dict:
     """``cli train --preset <preset> --set k=v ...`` into ``workdir``
-    (``--max-steps`` when given). The
-    step functions the Trainer builds are wrapped to set the launch counts
-    to 0 before each step and to read them and the clock (after a
-    synchronize) after it."""
+    (``--max-steps`` when given), with ``run.chunk_steps=False`` unless
+    ``chunked``: one step a call. The step functions the Trainer builds
+    are wrapped to set the launch counts to 0 before each call and to read
+    them and the clock (after a synchronize) after it: a record a step,
+    or where ``chunked`` a record a call of the chunked stepper (its first
+    step, the ``n`` steps it took, the graphs its phase had captured by
+    then). What the run printed comes back as ``text``."""
+    if not chunked:
+        sets = {"run.chunk_steps": False, **sets}
     records, live = [], {}
     make = train_loop.make_lazy_stepper
+    make_chunked = train_loop.make_chunked_stepper
+
+    def timed(call, state, real, draws, **rec):
+        reset_counts()
+        start = state.step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(state, real, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = out[1]["d_loss"]
+        records.append(dict(
+            rec, step=start, n=len(loss) if loss.dim() else 1,
+            ms=ms, t0=t0, device=real.device.type,
+            counts={n: k["kernel"].launches for n, k in KERNELS.items()}))
+        live["state"] = out[0]
+        return out
 
     def instrumented(cfg_, phase, initial_step=0):
         stepper = make(cfg_, phase, initial_step=initial_step)
         count = {"i": int(initial_step)}
 
         def step(state, real, draws=None):
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = stepper(state, real, draws)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            records.append(dict(
-                phase=phase.index, step=count["i"], ms=ms, t0=t0,
-                r1=count["i"] % cfg_.loss.penalty_every == 0,
-                pl=cfg_.pl_active and count["i"] % cfg_.loss.pl_every == 0,
-                shape=tuple(real.shape), device=real.device.type,
-                counts={n: k["kernel"].launches
-                        for n, k in KERNELS.items()}))
+            i = count["i"]
             count["i"] += 1
-            live["state"] = out[0]
-            return out
+            return timed(stepper, state, real, draws, phase=phase.index,
+                         r1=i % cfg_.loss.penalty_every == 0,
+                         pl=cfg_.pl_active and i % cfg_.loss.pl_every == 0,
+                         shape=tuple(real.shape))
 
         return step
+
+    def instrumented_chunked(cfg_, phase, initial_step=0):
+        stepper, k = make_chunked(cfg_, phase, initial_step=initial_step)
+
+        def call(state, stack, draws=None):
+            out = timed(stepper, state, stack, draws, phase=phase.index,
+                        shape=tuple(stack.shape[1:]))
+            records[-1]["graphs"] = len(stepper.graphs.capture_s) \
+                if stepper.graphs is not None else 0
+            return out
+
+        call.close = stepper.close
+        return call, k
 
     args = ["--preset", preset, "--workdir", workdir]
     if max_steps is not None:
@@ -1923,16 +1985,60 @@ def run_cli_train(preset: str, sets: dict, workdir: str,
         args += ["--set", f"{k}={v}"]
     torch.cuda.reset_peak_memory_stats()
     train_loop.make_lazy_stepper = instrumented
+    train_loop.make_chunked_stepper = instrumented_chunked
+    tee = _Tee(sys.stdout)
     try:
+        sys.stdout = tee
         t0 = time.perf_counter()
         rc = port_cli.main(["train", *args])
         wall = time.perf_counter() - t0
     finally:
+        sys.stdout = tee.out
         train_loop.make_lazy_stepper = make
+        train_loop.make_chunked_stepper = make_chunked
     if rc != 0:
         raise AssertionError(f"cli train returned {rc}")
+    if chunked != any("graphs" in r for r in records):
+        raise AssertionError(f"cli train: chunked {chunked}, but the "
+                             f"Trainer called the other stepper")
     return dict(records=records, live=live["state"], wall_s=wall,
+                text="".join(tee.text),
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def chunk_launches(label: str, cfg, recs: list,
+                   recipe: str = "sequential") -> dict:
+    """Each chunked ``run_cli_train`` record's launches of our kernels
+    against those derived for the steps it took (R1 on every
+    ``loss.penalty_every``-th); returns their sum."""
+    total = {n: 0 for n in KERNELS}
+    for rec in recs:
+        batch, res = rec["shape"][0], rec["shape"][1]
+        want = {n: 0 for n in KERNELS}
+        for i in range(rec["step"], rec["step"] + rec["n"]):
+            _add_counts(want, launch_totals(step_launches(
+                cfg.model, i % cfg.loss.penalty_every == 0,
+                int(math.log2(res)), batch, recipe)))
+        if rec["counts"] != want:
+            raise AssertionError(f"{label}: steps {rec['step']}..+"
+                                 f"{rec['n']} of phase {rec['phase']}: "
+                                 f"launches {rec['counts']}, derived {want}")
+        _add_counts(total, rec["counts"])
+    return total
 
 
 def phase_steps(ph) -> int:
@@ -1949,7 +2055,9 @@ def phase_trainer(card: str) -> dict:
     sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
             "schedule.stabilize_kimg": kimg, "schedule.total_kimg": 0.001,
             "schedule.batch_schedule": {2 ** lg: BATCH for lg in range(2, 9)},
-            "run.log_every": 1, "run.checkpoint_every": CKPT_EVERY}
+            "run.log_every": 1, "run.checkpoint_every": CKPT_EVERY,
+            # a step a call: every step's launches are checked
+            "run.chunk_steps": False}
     cfg = get_config("stylegan-256", **sets)
     mc = cfg.model
     phases = build_phases(cfg.schedule, mc)
@@ -2916,7 +3024,9 @@ def phase_stylegan2(card: str) -> dict:
     mapping layers included); ``cli sample`` and ``cli eval-ppl --space
     w``."""
     serving = sg2_serving(card)
-    sets = {"run.log_every": 1, "run.checkpoint_every": 10 ** 6}
+    sets = {"run.log_every": 1, "run.checkpoint_every": 10 ** 6,
+            # a step a call: every step's launches are checked
+            "run.chunk_steps": False}
     cfg = get_config("stylegan2-256", **sets)
     lc = cfg.loss
     assert (cfg.schedule.progressive, cfg.schedule.batch_for(256),
@@ -3870,6 +3980,7 @@ def profile_run(card: str, workdir: str) -> None:
 # -- 15. the opt-in step recipes -------------------------------------------
 RECIPE_ROUNDS = 3              # timed rounds in turns, after a warm-up round
 PG_RECIPE_STEPS = 3            # progan-128 reg_separate steps at 128²
+RECIPE_CLI_STEPS = 48          # cli train at 8x8: three 16-step cycles
 
 
 def recipe_sets(recipe: str) -> dict:
@@ -3984,7 +4095,7 @@ def recipe_checks(card: str) -> dict:
     """``reg_separate`` on progan-128 (WGAN-GP and drift every step: two D
     updates a step, the NCHW pixelnorm launched), ``fused_seq`` against
     the sequential step at 1024² (stylegan-1024, remat, batch 4, R1 on:
-    peak memory), ``cli train`` with each recipe 8² -> 32², and two gloo
+    peak memory), ``recipe_cli`` (graphed off-runs), and two gloo
     ranks under ``fused_seq`` against one process accumulating two
     (``phase_dp``). Returns the launches of our kernels in all."""
     totals = {n: 0 for n in KERNELS}
@@ -4053,46 +4164,472 @@ def recipe_checks(card: str) -> dict:
     del state
     torch.cuda.empty_cache()
 
-    # cli train with each recipe through a fade phase
-    kimg = 2 * BATCH / 1000.0
+    count(recipe_cli(card))
+    dp = phase_dp(card, recipe_sets("fused_seq"), "dp fused_seq")
+    count(dp["launches"])
+    return totals
+
+
+def recipe_cli(card: str) -> dict:
+    """``cli train --set loss.<recipe>=true`` for each recipe, chunked
+    (the default): three cycles at 8x8 (eager, captured, replayed), then
+    two single steps at 16x16 fade; each call's launches as derived, the
+    rows at the JAX rule's steps. Returns the launches of our kernels."""
+    totals = {n: 0 for n in KERNELS}
     for recipe in RECIPES[1:]:
-        sets = {"data.dataset": "ellipses", "schedule.fade_kimg": kimg,
-                "schedule.stabilize_kimg": kimg,
+        sets = {"data.dataset": "ellipses",
+                "schedule.stabilize_kimg": RECIPE_CLI_STEPS * BATCH / 1000.0,
+                "schedule.fade_kimg": 2 * BATCH / 1000.0,
                 "schedule.batch_schedule": {2 ** lg: BATCH
                                             for lg in range(2, 9)},
                 "run.log_every": 1, **recipe_sets(recipe)}
         cfg = get_config("stylegan-256", **sets)
+        phases = build_phases(cfg.schedule, cfg.model)[:2]
+        max_steps = RECIPE_CLI_STEPS + 2
         workdir = tempfile.mkdtemp(prefix=f"ganlab_{recipe}_")
         try:
-            run = run_cli_train("stylegan-256", sets, workdir, max_steps=10)
+            run = run_cli_train("stylegan-256", sets, workdir,
+                                max_steps=max_steps, chunked=True)
             with open(os.path.join(workdir, "train.jsonl")) as f:
                 rows = [json.loads(line) for line in f]
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         recs = run["records"]
-        if len(rows) != 10 or len(recs) != 10 or not all(
-                math.isfinite(v) for r in rows for k, v in r.items()
-                if isinstance(v, float)):
-            raise AssertionError(f"{recipe} cli: {len(rows)} rows, "
-                                 f"{len(recs)} steps: {rows[-1:]}")
-        for rec in recs:
-            lg = int(math.log2(rec["shape"][1]))
-            want = launch_totals(step_launches(cfg.model, rec["r1"], lg,
-                                               BATCH, recipe))
-            if rec["counts"] != want:
-                raise AssertionError(f"{recipe} cli step {rec['step']}: "
-                                     f"launches {rec['counts']}, derived "
-                                     f"{want}")
-            count(rec["counts"])
-        alphas = [r["alpha"] for r in rows]
-        log(f"recipe: cli train --set loss.{recipe}=true, 10 steps 8x8 -> "
-            f"32x32 at batch {BATCH}: exit 0, train.jsonl finite, launches "
-            f"as derived, alpha {alphas}, ms a step "
+        want_rows = chunked_row_steps(phases, CHUNK, 1, max_steps)
+        if [r["step"] for r in rows] != want_rows or \
+                sum(r["n"] for r in recs) != max_steps or \
+                max(r["graphs"] for r in recs) != 1 or not all(
+                    math.isfinite(v) for r in rows for k, v in r.items()
+                    if isinstance(v, float)):
+            raise AssertionError(
+                f"{recipe} cli: rows at {[r['step'] for r in rows]} (the "
+                f"JAX rule's {want_rows}), calls "
+                f"{[(r['n'], r['graphs']) for r in recs]}: {rows[-1:]}")
+        _add_counts(totals, chunk_launches(f"{recipe} cli", cfg, recs,
+                                           recipe))
+        log(f"recipe: cli train --set loss.{recipe}=true (run.chunk_steps "
+            f"default), {max_steps} steps 8x8 -> 16x16 fade at batch "
+            f"{BATCH} in {len(recs)} calls (consumed "
+            f"{[r['n'] for r in recs]}; the 8x8 off-run captured once and "
+            f"replayed): exit 0, train.jsonl rows at the JAX rule's steps "
+            f"and finite, launches as derived, alpha "
+            f"{[r['alpha'] for r in rows]}, ms a call "
             + " ".join(f"{r['ms']:.1f}" for r in recs) + f" [{card}]")
-
-    dp = phase_dp(card, recipe_sets("fused_seq"), "dp fused_seq")
-    count(dp["launches"])
     return totals
+
+
+# -- 16. chunked stepping: the off-run as a CUDA graph -----------------------
+CHUNK = 16                     # loss.penalty_every of both presets
+CHUNK_TAIL = 2                 # a partial cycle after the last full one
+CHUNK_PHASE_STEPS = 56         # cli train: 3 cycles and 8 steps a phase
+
+
+def _device_stack(n: int, batch: int, res: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, (n, batch, res, res, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of the segments that a CUDA graph pool holds."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+def chunk_pair(label: str, cfg, phase, card: str, timed: bool) -> dict:
+    """``make_lazy_stepper`` and ``make_chunked_stepper`` from one seed over
+    the same cycles and a tail of ``CHUNK_TAIL`` (cycle 0 of the chunked
+    side runs eagerly, cycle 1 captures and replays, the rest replay):
+    the states bit for bit, the stacked metrics bit for bit, the launches
+    of our kernels the same on both sides (a replay adds its captured
+    launches). Where ``timed``, four cycles: cycle 2 (the graph's second
+    replay) gives each side's ms a step (host clock, a synchronize at each
+    end), the host's own time for the cycle (no synchronize), peak memory
+    and the launches of our kernels that the cycle added to the counts,
+    and the chunked side's cycle 3 runs under ``profile_call`` (device
+    busy, idle share; an eager cycle's profile records ~10^5 host events,
+    whose reading costs the script tens of seconds: the eager steps' idle
+    shares are those of phases 6 and 7); else two cycles. The chunked
+    side's capture seconds and graph pool bytes."""
+    batch = phase.batch_size
+    cycles = 4 if timed else 2
+    n_steps = cycles * CHUNK + CHUNK_TAIL
+    data = _device_stack(n_steps, batch, phase.resolution, seed=61)
+    bounds = [(c * CHUNK, (c + 1) * CHUNK) for c in range(cycles)] + \
+        [(cycles * CHUNK, n_steps)]
+    sides = {}
+    for side in ("eager", "graphed"):
+        t0 = time.perf_counter()
+        state = create_train_state(cfg, seed=0)
+        made_s = time.perf_counter() - t0
+        if side == "eager":
+            lazy = make_lazy_stepper(cfg, phase)
+
+            def run(lo, hi, state=state, lazy=lazy):
+                ms = []
+                for i in range(lo, hi):
+                    ms.append(lazy(state, data[i])[1])
+                return train_steps.stack_metrics(ms, state.device)
+        else:
+            stepper, k = train_steps.make_chunked_stepper(cfg, phase)
+            assert k == CHUNK
+
+            def run(lo, hi, state=state, stepper=stepper):
+                m = stepper(state, data[lo:hi])[1]
+                if len(m["d_loss"]) != hi - lo:
+                    raise AssertionError(f"{label}: the chunked stepper "
+                                         f"took {len(m['d_loss'])} of "
+                                         f"{hi - lo}")
+                return m
+        out = sides[side] = {"state": state, "parts": [], "made_s": made_s}
+        reset_counts()
+        t_side = time.perf_counter()
+        for c, (lo, hi) in enumerate(bounds):
+            if c == 2 and timed:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = _counts()
+                t0 = time.perf_counter()
+                out["parts"].append(run(lo, hi))
+                out["host_ms"] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                out["ms_step"] = (time.perf_counter() - t0) * 1e3 / CHUNK
+                out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                out["cycle_launches"] = {n: v - before[n]
+                                         for n, v in _counts().items()}
+            elif c == 3 and timed and side == "graphed":
+                prof = profile_call(f"chunk {label}: one {side} cycle",
+                                    lambda: out["parts"].append(
+                                        run(lo, hi)), card, top=6)
+                out["idle"], out["busy_ms"] = prof["idle_share"], \
+                    prof["busy_ms"]
+                out["cycle_ms"] = prof["wall_ms"]
+            else:
+                out["parts"].append(run(lo, hi))
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t_side
+        out["counts"] = _counts()
+        out["metrics"] = {key: torch.cat([p[key] for p in out["parts"]])
+                          for key in out["parts"][0]}
+        if side == "graphed":
+            graphs = stepper.graphs
+            out["capture_s"] = sum(graphs.capture_s.values())
+            out["variants"] = len(graphs.capture_s)
+            out["pool_bytes"] = _pool_bytes(graphs.pool)
+            if not out["pool_bytes"]:
+                raise AssertionError(f"{label}: the memory snapshot shows "
+                                     "no segment of the graphs' pool")
+            stepper.close()
+    eager, graphed = sides["eager"], sides["graphed"]
+    n = _assert_states_equal(f"chunk {label}", eager["state"],
+                             graphed["state"])
+    me, mg = eager["metrics"], graphed["metrics"]
+    bad = [key for key in me if not torch.equal(me[key], mg[key])]
+    if me.keys() != mg.keys() or bad:
+        raise AssertionError(f"chunk {label}: stacked metrics differ: {bad}")
+    if eager["counts"] != graphed["counts"] or not any(
+            graphed["counts"].values()):
+        raise AssertionError(f"chunk {label}: launches eager "
+                             f"{eager['counts']}, graphed "
+                             f"{graphed['counts']}")
+    if not all(torch.isfinite(v).all() for v in mg.values()):
+        raise AssertionError(f"chunk {label}: non-finite metrics")
+    speed = ""
+    if timed:
+        speed = (
+            f"; ms a step over cycle 2: eager {eager['ms_step']:.3f}, "
+            f"graphed {graphed['ms_step']:.3f} "
+            f"({eager['ms_step'] / graphed['ms_step']:.2f}x); the host's "
+            f"time for that cycle {eager['host_ms']:.2f} / "
+            f"{graphed['host_ms']:.2f} ms; peak memory "
+            f"{eager['peak_gib']:.2f} / {graphed['peak_gib']:.2f} GiB; a "
+            f"profiled graphed cycle: wall {graphed['cycle_ms']:.2f} ms, "
+            f"device busy {graphed['busy_ms']:.2f} ms, idle share "
+            f"{graphed['idle']:.3f}")
+    log(f"chunk: {label}: {n} state leaves and {len(mg)} stacked metrics "
+        f"over {n_steps} steps bit-equal, eager lazy stepper vs graphed "
+        f"chunked stepper; launches of our kernels equal "
+        f"({graphed['counts']}); capture {graphed['capture_s']:.2f} s for "
+        f"{graphed['variants']} off-run variant(s); graph pool "
+        f"{graphed['pool_bytes'] / 2 ** 20:.1f} MiB{speed}; states made "
+        f"in {eager['made_s']:.1f} / {graphed['made_s']:.1f} s, stepped "
+        f"in {eager['run_s']:.1f} / {graphed['run_s']:.1f} s [{card}]")
+    return dict(
+        launches=graphed["counts"],
+        **{f"{k}_{side}": sides[side][k] for side in sides
+           for k in ("ms_step", "host_ms", "peak_gib", "idle", "busy_ms",
+                     "cycle_launches")
+           if k in sides[side]},
+        capture_s=graphed["capture_s"], pool_bytes=graphed["pool_bytes"])
+
+
+def chunked_row_steps(phases, k: int, every: int, max_steps: int) -> list:
+    """The steps at which the JAX package's chunked trainer logs a row
+    (``ganlab_tpu/train/loop.py``): a call takes n = min(k, the phase's
+    steps left, max_steps left), of which the stepper runs only those up
+    to the next cycle head when its counter is mid-cycle; a row where
+    step // every moves over the call."""
+    step, rows = 0, []
+    for ph in phases:
+        left = phase_steps(ph)
+        while left and step < max_steps:
+            n = min(k, left, max_steps - step)
+            if step % k:
+                n = min(n, k - step % k)
+            step, left = step + n, left - n
+            if step // every != (step - n) // every:
+                rows.append(step)
+    return rows
+
+
+def chunk_cli(card: str, chunked: bool) -> dict:
+    """``cli train --preset stylegan-256`` 8x8 -> 32x32 (stabilize, fade,
+    stabilize, fade, stabilize) at the preset's batch of 16, the preset's
+    ``synthetic`` data and its ``run.chunk_steps`` (True), or with
+    ``run.chunk_steps=False``. Phases of ``CHUNK_PHASE_STEPS`` steps:
+    phases 1 and 3 start 8 steps into a cycle (8 steps to realign), then
+    each runs three cycles (eager, captured, replayed) and, where it
+    started on a cycle head, a tail of 8. Chunked: each call of the
+    stepper counted (our kernels' launches against those derived for its
+    steps), a graph captured in each phase (alpha a graph input in the
+    fades), the rows of ``train.jsonl`` at the JAX rule's steps. Returns the loop's img/s a phase (the trainer's own line) and
+    the launches."""
+    cfg0 = get_config("stylegan-256")
+    batch = cfg0.schedule.batch_for(32)
+    kimg = CHUNK_PHASE_STEPS * batch / 1000.0
+    sets = {"schedule.fade_kimg": kimg, "schedule.stabilize_kimg": kimg,
+            "run.log_every": 100, "run.checkpoint_every": 10 ** 6,
+            "run.sample_every": 0}
+    cfg = get_config("stylegan-256", **sets,
+                     **({} if chunked else {"run.chunk_steps": False}))
+    phases = build_phases(cfg.schedule, cfg.model)[:5]
+    max_steps = sum(phase_steps(ph) for ph in phases)
+    assert cfg.chunking == chunked and cfg.data.dataset == "synthetic" \
+        and all(ph.batch_size == batch for ph in phases)
+    workdir = tempfile.mkdtemp(prefix="ganlab_chunk_cli_")
+    try:
+        run = run_cli_train("stylegan-256", sets, workdir, max_steps,
+                            chunked=chunked)
+        with open(os.path.join(workdir, "train.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    img_s = {}
+    for line in run["text"].splitlines():
+        if " img/s over " in line and line.startswith("phase "):
+            img_s[int(line.split()[1])] = float(
+                line.split("): ")[1].split()[0])
+    launches = {n: 0 for n in KERNELS}
+    recs = run["records"]
+    if chunked:
+        want_rows = chunked_row_steps(phases, CHUNK, 100, max_steps)
+        if [r["step"] for r in rows] != want_rows:
+            raise AssertionError(f"chunk cli: rows at "
+                                 f"{[r['step'] for r in rows]}, the JAX "
+                                 f"rule's {want_rows}")
+        if sum(c["n"] for c in recs) != max_steps or any(
+                max(c["graphs"] for c in recs if c["phase"] == ph.index)
+                != 1 for ph in phases):
+            raise AssertionError(
+                "chunk cli: the calls took "
+                f"{[(c['phase'], c['n'], c['graphs']) for c in recs]}")
+        launches = chunk_launches("chunk cli", cfg, recs)
+        log(f"chunk: cli train (run.chunk_steps default) {max_steps} steps "
+            f"in {len(recs)} calls of the chunked stepper (consumed "
+            f"{[c['n'] for c in recs]}), one graph captured a phase: "
+            f"every call's launches as derived for its steps; train.jsonl "
+            f"rows at steps {want_rows} (log_every 100, the JAX package's "
+            f"chunk rule)")
+    elif [r["step"] for r in rows] != list(range(100, max_steps + 1, 100)):
+        raise AssertionError(f"chunk cli: unchunked rows "
+                             f"{[r['step'] for r in rows]}")
+    for r in rows:
+        ph = next(p for p in phases if p.start_img < r["shown_imgs"]
+                  <= p.end_img)
+        if (r["res"], r["kind"]) != (ph.resolution, ph.kind) or \
+                r["shown_imgs"] != r["step"] * batch or \
+                not math.isfinite(r["d_loss"]):
+            raise AssertionError(f"chunk cli: row {r}")
+    if sorted(img_s) != [ph.index for ph in phases]:
+        raise AssertionError(f"chunk cli: img/s lines {img_s}")
+    return dict(img_s=img_s, wall_s=run["wall_s"], launches=launches,
+                phases=[(ph.resolution, ph.kind) for ph in phases])
+
+
+def capture_failure_raises(card: str) -> None:
+    """An off-step that reads a loss on the host cannot be captured: the
+    chunked stepper raises at its first graphed cycle, and runs nothing
+    eagerly in its place."""
+    cfg = get_config("stylegan-256", **{
+        "schedule.batch_schedule": {2 ** lg: BATCH for lg in range(2, 9)}})
+    phase = build_phases(cfg.schedule, cfg.model)[0]
+    build = train_steps.build_train_step
+
+    def host_reading(*a, **k):
+        fn = build(*a, **k)
+
+        def step(*args, **kw):
+            state, m = fn(*args, **kw)
+            float(m["d_loss"])
+            return state, m
+
+        step.__dict__.update(fn.__dict__)
+        return step
+
+    train_steps.build_train_step = host_reading
+    try:
+        stepper, _ = train_steps.make_chunked_stepper(cfg, phase)
+        state = create_train_state(cfg, seed=0)
+        data = _device_stack(2 * CHUNK, BATCH, phase.resolution, seed=62)
+        stepper(state, data[:CHUNK])
+        step0 = state.step
+        try:
+            stepper(state, data[CHUNK:])
+        except RuntimeError as e:
+            log(f"chunk: a step that reads the host raised at capture, as "
+                f"it must: {str(e).splitlines()[0][:120]} (the counter "
+                f"stays at {state.step} after the head step {step0}) "
+                f"[{card}]")
+        else:
+            raise AssertionError("chunk: a host-reading step was captured")
+    finally:
+        train_steps.build_train_step = build
+        torch.cuda.synchronize()
+
+
+def adam_capturable_drift(card: str) -> dict:
+    """How far capturable Adam (the bias corrections in float32 on the
+    card, what a graphed off-run needs) moves an update from the default
+    Adam's (Python doubles): D's parameters of the bench configuration,
+    one update from the same random moments and gradients at D's learning
+    rate, at Adam counts 1, 16, 10^3 and 10^5; the largest |difference| of
+    the updated parameters in units of lr."""
+    cfg = training_config()
+    hp = optimizer_hparams(cfg)[1]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        shapes = [p.shape for p in
+                  port_models.build_models(cfg.model)[1].parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(71)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {}
+    for count in (1, 16, 10 ** 3, 10 ** 5):
+        params = [rand(sh) for sh in shapes]
+        grads = [rand(sh) for sh in shapes]
+        moments = [(rand(sh) * 1e-2, rand(sh).square() * 1e-4)
+                   for sh in shapes]
+        updated = []
+        for capturable in (True, False):
+            ps = [torch.nn.Parameter(p.clone()) for p in params]
+            opt = torch.optim.Adam(ps, capturable=capturable, **hp)
+            for p, g, (m, v) in zip(ps, grads, moments):
+                p.grad = g.clone()
+                opt.state[p] = {
+                    "step": torch.tensor(float(count - 1), device="cuda"
+                                         if capturable else "cpu"),
+                    "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
+            opt.step()
+            updated.append(ps)
+        with torch.no_grad():
+            out[count] = max(float((a - b).abs().max())
+                             for a, b in zip(*updated)) / hp["lr"]
+    log(f"chunk: capturable Adam against the default on D's "
+        f"{sum(math.prod(sh) for sh in shapes)} parameters (bench config, "
+        f"lr {hp['lr']:.6g}): largest |difference| of one update, in units "
+        f"of lr, at counts "
+        + ", ".join(f"{c}: {d:.3g}" for c, d in out.items()) + f" [{card}]")
+    return out
+
+
+def phase_chunked(card: str) -> dict:
+    """Chunked stepping with the off-run as a CUDA graph, at full width,
+    bf16, deterministic cuDNN: ``chunk_pair`` at the bench.py configuration
+    (stylegan-256, fixed 256², batch 32, R1 every 16; a replayed cycle's
+    launches of our kernels against those derived for a cycle), at the
+    progressive preset's 8x8 and 64x64 stabilize phases at batch 32 (the
+    host-bound ones), on stylegan2-256 (batch 8, R1 every 16, path length
+    every 4: four 3-step segments a cycle), under ``aug.mode=ada`` with
+    ``bcgfnu`` (``ada_p`` chained through the replays) and under
+    ``loss.fused_g_step`` at the bench configuration; ``cli train``
+    chunked (the default) and unchunked through 8x8 -> 32x32 (img/s a
+    phase by the loop's clock), a capture that fails, and capturable Adam
+    against the default one."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    totals = {n: 0 for n in KERNELS}
+    out, spent = {}, {}
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out[name] = fn(*args, **kw)
+        spent[name] = time.perf_counter() - t0
+        return out[name]
+
+    try:
+        cfg = training_config()
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        bench = part("bench", chunk_pair, "stylegan-256 256x256 batch 32",
+                     cfg, phase, card, timed=True)
+        want = launch_totals(step_launches(cfg.model, True))
+        for n, v in launch_totals(step_launches(cfg.model, False)).items():
+            want[n] += (CHUNK - 1) * v
+        if bench["cycle_launches_graphed"] != want or \
+                bench["cycle_launches_eager"] != want:
+            raise AssertionError(
+                f"chunk: a cycle's launches at the bench configuration: "
+                f"graphed {bench['cycle_launches_graphed']}, eager "
+                f"{bench['cycle_launches_eager']}, derived {want}")
+        log(f"chunk: launches of our kernels in cycle 2 of the bench "
+            f"configuration (an R1 head and one replay of 15 off-steps), "
+            f"as read from the counts: {bench['cycle_launches_graphed']}, "
+            f"as derived and as the eager cycle's [{card}]")
+        prog = get_config("stylegan-256", **{
+            "schedule.batch_schedule": {2 ** lg: BATCH
+                                        for lg in range(2, 9)}})
+        phases = build_phases(prog.schedule, prog.model)
+        for index in (0, 6):
+            ph = phases[index]
+            part(ph.resolution, chunk_pair,
+                 f"stylegan-256 phase {index} ({ph.resolution}x"
+                 f"{ph.resolution} {ph.kind}) batch {BATCH}", prog, ph, card,
+                 timed=True)
+        sg2 = get_config("stylegan2-256")
+        part("pl", chunk_pair,
+             f"stylegan2-256 256x256 batch {SG2_BATCH} (PL segments)", sg2,
+             build_phases(sg2.schedule, sg2.model)[-1], card, timed=False)
+        for name, sets, label in (
+                ("ada", AUG_MODES["bcgfnu"], "ADA bcgfnu"),
+                ("fused_g_step", recipe_sets("fused_g_step"),
+                 "loss.fused_g_step")):
+            c = training_config(**sets)
+            part(name, chunk_pair, f"stylegan-256 256x256 batch 32 {label}",
+                 c, build_phases(c.schedule, c.model)[-1], card, timed=False)
+        for r in list(out.values()):
+            _add_counts(totals, r["launches"])
+        torch.cuda.empty_cache()
+        cli = {mode: part(f"cli_{mode}", chunk_cli, card, mode)
+               for mode in (True, False)}
+        _add_counts(totals, cli[True]["launches"])
+        for index, (res, kind) in enumerate(cli[True]["phases"]):
+            on, off = cli[True]["img_s"][index], cli[False]["img_s"][index]
+            log(f"chunk: cli train phase {index} {res}x{res} {kind}: "
+                f"{on:.1f} img/s chunked (graphs) against {off:.1f} "
+                f"unchunked ({on / off:.2f}x), by the loop's clock "
+                f"[{card}]")
+        log(f"chunk: cli train wall {cli[True]['wall_s']:.1f} s chunked, "
+            f"{cli[False]['wall_s']:.1f} s unchunked [{card}]")
+        part("capture_failure", capture_failure_raises, card)
+        part("adam", adam_capturable_drift, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"chunk: phase 16 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f" [{card}]")
+    return dict(out, launches=totals)
 
 
 # -- 3b. offsets beyond 2^31 elements ------------------------------------------------
@@ -4164,22 +4701,33 @@ def main(kernels_only: bool = False) -> None:
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")
         return
-    phase_gradients()
-    serve_counts = phase_serving(card)
-    train = phase_training(card)
-    trainer = phase_trainer(card)
-    user = phase_user_data(card)
-    progan = phase_progan(card)
-    sg2 = phase_stylegan2(card)
-    accum = phase_accum(card)
-    pl_accum = phase_pl_accum(card)
-    dp = phase_dp(card)
-    accum_1k = phase_1024_accum(card)
-    exported = phase_export(card)
-    phase_inception(card)
-    ada = phase_ada(card)
-    proj = phase_projector(card)
-    recipes = phase_recipes(card)
+    spent = {}
+
+    def run(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    run(phase_gradients)
+    serve_counts = run(phase_serving, card)
+    train = run(phase_training, card)
+    trainer = run(phase_trainer, card)
+    user = run(phase_user_data, card)
+    progan = run(phase_progan, card)
+    sg2 = run(phase_stylegan2, card)
+    accum = run(phase_accum, card)
+    pl_accum = run(phase_pl_accum, card)
+    dp = run(phase_dp, card)
+    accum_1k = run(phase_1024_accum, card)
+    exported = run(phase_export, card)
+    run(phase_inception, card)
+    ada = run(phase_ada, card)
+    proj = run(phase_projector, card)
+    recipes = run(phase_recipes, card)
+    chunked = run(phase_chunked, card)
+    log("seconds a phase: " + ", ".join(f"{name[6:]} {s:.1f}"
+                                        for name, s in spent.items()))
     kernels = []
     for name, k in KERNELS.items():
         r = results[name]
@@ -4203,7 +4751,8 @@ def main(kernels_only: bool = False) -> None:
                     "export": exported["launches"][name],
                     "ada": ada["launches"][name],
                     "projector": proj["launches"][name],
-                    "recipes": recipes["launches"][name]}
+                    "recipes": recipes["launches"][name],
+                    "chunked": chunked["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -4211,6 +4760,11 @@ def main(kernels_only: bool = False) -> None:
             **{f"launches_{n}": v for n, v in launches.items()},
             "launches_per_step": {"r1_off": train["expect"][False][name],
                                   "r1_on": train["expect"][True][name]},
+            # a replayed 16-step lazy-R1 cycle of the bench configuration
+            # (the eager head step and one graph replay of 15 off-steps),
+            # read from the counts; equal to the derived, or phase 16 fails
+            "launches_per_cycle":
+                chunked["bench"]["cycle_launches_graphed"][name],
             "launches_per_recipe_step": {
                 recipe: {"r1_off": recipes[recipe]["launches"][False][name],
                          "r1_on": recipes[recipe]["launches"][True][name]}

@@ -280,9 +280,11 @@ class RunConfig:
     keep_checkpoints: int = 3
     num_sample_images: int = 16
     profile: bool = False              # jax.profiler trace around a few steps
-    # Scan-chunked stepping (JAX package): compile the lazy-regularization
-    # off-run as one program, so each penalty_every-cycle costs 2 host
-    # dispatches instead of k.
+    # Chunked stepping (the JAX package's scan-chunked stepping): feed a
+    # penalty_every-cycle of batches at once and run its off-run as one
+    # CUDA-graph replay on a card (train/steps.py::make_chunked_stepper),
+    # so each cycle costs a few host dispatches instead of k; host
+    # cadences are then checked once a chunk.
     chunk_steps: bool = True
     compute_dtype: str = "bfloat16"    # conv/matmul activation dtype
     data_axis: str = "data"            # mesh axis name for DP
@@ -374,10 +376,19 @@ class Config:
     @property
     def pl_chunkable(self) -> bool:
         """Lazy PL cadence nests inside the D cadence? (Required for the
-        scan-chunked stepper; Trainer falls back to per-step dispatch
+        chunked stepper; the Trainer steps one step at a time
         otherwise.)"""
         return (not self.pl_active or self.loss.pl_every <= 1
                 or self.loss.penalty_every % self.loss.pl_every == 0)
+
+    @property
+    def chunking(self) -> bool:
+        """Chunked stepping active: ``run.chunk_steps``, a lazy D penalty
+        and a nesting path-length cadence; else the Trainer steps one
+        step at a time."""
+        lc = self.loss
+        return bool(self.run.chunk_steps and lc.penalty_every > 1
+                    and lc.penalty in ("wgan-gp", "r1") and self.pl_chunkable)
 
     @property
     def aug_active(self) -> bool:

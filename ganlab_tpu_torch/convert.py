@@ -17,7 +17,7 @@ residual blocks too) and both ResNet-GAN nets. Layouts:
 
 Values are float32 (parameters stay float32 in both packages).
 
-``load_jax_train_state(state, arrays)`` carries a whole JAX ``TrainState``
+``load_jax_train_state(state, arrays, cfg)`` carries a whole JAX ``TrainState``
 (parameters of G, D and G-EMA, both Adam states, w-average, counters) into
 the port's ``TrainState``. ``aug_params_from_arrays(arrays)`` turns the JAX
 ``sample_params`` output into the port's ``AugParams``.
@@ -30,6 +30,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ganlab_tpu_torch.train.state import step_count
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -59,7 +61,7 @@ def from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_jax_train_state(state, arrays: Mapping[str, Any]):
+def load_jax_train_state(state, arrays: Mapping[str, Any], cfg):
     """Fill the port's ``TrainState`` from a JAX ``TrainState`` given as
     numpy arrays; returns ``state``.
 
@@ -76,6 +78,12 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
     none, as the JAX package's checkpoint migration does; one with an
     ``ada_p`` takes the JAX one, or keeps its own where the JAX state has
     none.
+
+    ``opt_step0`` (the step at which the moments began) follows from D's
+    Adam count and the run's ``cfg``: step - count, or under
+    ``loss.reg_separate``, whose count also holds the penalty steps since
+    then (two D updates on each), the start s0 with
+    (step - s0) + ``penalty_ticks(cfg, s0, step)`` = count.
     """
     for module, key in ((state.g, "params_g"), (state.d, "params_d"),
                         (state.g_ema, "params_ema")):
@@ -87,7 +95,7 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
         opt.state.clear()
         for name, p in module.named_parameters():
             opt.state[p] = {
-                "step": torch.tensor(float(saved["count"])),
+                "step": step_count(opt, p, int(saved["count"])),
                 "exp_avg": mu[name].to(p.device),
                 "exp_avg_sq": nu[name].to(p.device)}
     with torch.no_grad():
@@ -104,8 +112,28 @@ def load_jax_train_state(state, arrays: Mapping[str, Any]):
     state.shown_imgs = int(arrays["shown_imgs"])
     # the moments' count and the step counter start together in a JAX
     # run; D's Adam steps every step (G's only every n-th with n-critic)
-    state.opt_step0 = state.step - int(arrays["opt_d"]["count"])
+    state.opt_step0 = _moments_start(state.step,
+                                     int(arrays["opt_d"]["count"]), cfg)
     return state
+
+
+def _moments_start(step: int, count: int, cfg) -> int:
+    """The step s0 at which D's moments began, from D's Adam ``count`` at
+    ``step``. Under ``loss.reg_separate`` with penalty_every k the count is
+    (step - s0) + ceil(step/k) - ceil(s0/k), so s0 + ceil(s0/k) = T for
+    T = step + ceil(step/k) - count; s0 + ceil(s0/k) takes the value
+    q(k + 1) at s0 = qk and q(k + 1) + r + 1 at s0 = qk + r (0 < r < k),
+    and never q(k + 1) + 1."""
+    lc = cfg.loss
+    if not (lc.reg_separate and lc.penalty in ("wgan-gp", "r1")):
+        return step - count
+    k = max(lc.penalty_every, 1)
+    q, m = divmod(step - (-step // k) - count, k + 1)
+    if m == 1:
+        raise ValueError(f"load_jax_train_state: D's Adam count {count} at "
+                         f"step {step} fits no start of the moments under "
+                         f"loss.reg_separate")
+    return q * k + max(m - 1, 0)
 
 
 def aug_params_from_arrays(arrays: Mapping[str, Any]):

@@ -334,11 +334,11 @@ def _make_source(data_cfg: DataConfig, resolution: int, seed: int):
 
 
 def device_placer(device: str | torch.device) -> Callable:
-    """``place`` for :class:`Prefetcher`: a uint8 numpy batch -> a tensor on
-    ``device``. For a CUDA device the batch goes through pinned host memory
-    and a ``non_blocking`` copy on a stream of the worker's own, so that the
-    transfer overlaps the previous step; the copy is complete before the
-    tensor is handed over."""
+    """``place`` for :class:`Prefetcher`: a uint8 numpy batch (or a stack
+    of them) -> a tensor on ``device``. For a CUDA device the batch goes
+    through pinned host memory and a ``non_blocking`` copy on a stream of
+    the worker's own, so that the transfer overlaps the previous step; the
+    copy is complete before the tensor is handed over."""
     device = torch.device(device)
     if device.type != "cuda":
         return lambda batch: torch.from_numpy(np.ascontiguousarray(batch))
@@ -360,14 +360,20 @@ class Prefetcher:
     ``place`` is typically ``device_placer(device)``: running it in the
     worker thread overlaps the host-to-device transfer with the previous
     step's compute. Batches come out in the order the source made them.
+    With ``chunk`` > 1 each item is a (chunk, B, H, W, C) stack of
+    ``chunk`` consecutive batches, stacked on the host and placed at once,
+    so that the device sees one transfer a chunked stepper's cycle
+    (``train/steps.py::make_chunked_stepper``).
     """
 
     def __init__(self, source, batch_size: int, res: int,
-                 place: Callable | None = None, depth: int = 2):
+                 place: Callable | None = None, depth: int = 2,
+                 chunk: int = 1):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._error: BaseException | None = None
         self._place = place or (lambda x: x)
+        self._chunk = chunk
         self._thread = threading.Thread(
             target=self._worker, args=(source, batch_size, res), daemon=True)
         self._thread.start()
@@ -375,7 +381,12 @@ class Prefetcher:
     def _worker(self, source, batch_size, res):
         try:
             while not self._stop.is_set():
-                batch = self._place(source.batch(batch_size, res))
+                if self._chunk > 1:
+                    raw = np.stack([source.batch(batch_size, res)
+                                    for _ in range(self._chunk)])
+                else:
+                    raw = source.batch(batch_size, res)
+                batch = self._place(raw)
                 while not self._stop.is_set():
                     try:
                         self._q.put(batch, timeout=0.1)

@@ -101,3 +101,13 @@ from ganlab_tpu_torch.ops.kernels import (  # noqa: E402, F401
     pixelnorm,
     resample,
 )
+
+
+def launch_counters() -> tuple:
+    """The launching wrappers, each with its ``launches`` count (the NCHW
+    pixelnorm adds to ``pixel_norm_cuda``'s too). A CUDA graph that holds
+    launches of these adds them to the counts at each replay
+    (``train/graphs.py``)."""
+    return (pixelnorm.pixel_norm_cuda, pixelnorm.pixel_norm_nchw_cuda,
+            adain.adain_cuda, resample.upsample_blur_2x_cuda,
+            resample.blur_downsample_2x_cuda, mbstd.minibatch_stddev_cuda)

@@ -23,6 +23,14 @@ passes per update, none of which fits DDP's one-backward-one-reduction
 hooks; the all-reduce after the last backward of an update is the JAX
 step's ``pmean`` at the same place.
 
+Chunked stepping (``run.chunk_steps``; ``train/steps.py::
+make_chunked_stepper``) works the same under a process group: each rank
+stacks its own k batches (the JAX package's ``shard_stack``), every rank
+walks the same cycle from the same step counter, and the off-run's steps
+run one after another, each with its all-reduces (no CUDA graph: a
+collective of the group and ``fork_generators``' host read of the
+generator stay outside one).
+
 One process (``WORLD_SIZE`` unset or 1) initializes nothing, and every
 function here is then a no-op. A failing initialization raises: nothing
 falls back to one process or to the CPU. The backend is the caller's:

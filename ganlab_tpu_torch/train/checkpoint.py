@@ -18,7 +18,9 @@ and a leftover temporary file of a crashed save is ignored. The newest
 ``keep`` steps stay. ``restore`` loads with ``weights_only=True`` onto the
 host and copies into the state it fills, wherever that lies, so a
 checkpoint written on the card loads on the CPU and back (Adam's step
-counts stay host scalars, as the optimizer wants them). A
+counts land where the optimizer wants them: on the card where it is
+``capturable``, on the host otherwise, the flag kept as the state was
+made; ``train/state.py::fit_optimizer``). A
 ``torch.Generator``'s state belongs to its device type: restored onto the
 other type, the draws continue from a generator seeded from the saved seed
 and step instead (deterministic, but another stream).
@@ -38,7 +40,7 @@ import re
 
 import torch
 
-from ganlab_tpu_torch.train.state import TrainState
+from ganlab_tpu_torch.train.state import TrainState, fit_optimizer
 
 _NAME = re.compile(r"^ckpt_(\d{8,})\.pt$")
 _FORMAT = 1
@@ -77,8 +79,10 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
         getattr(state, k).load_state_dict(payload[k])
     for k in _OPTIMIZERS:
         opt = getattr(state, k)
+        capturable = opt.param_groups[0]["capturable"]
         opt.state.clear()       # load_state_dict keeps nothing of the old
         opt.load_state_dict(payload[k])
+        fit_optimizer(opt, capturable)
     with torch.no_grad():
         state.w_avg.copy_(payload["w_avg"])
         saved_pl = payload.get("pl_mean")

@@ -39,8 +39,28 @@ Profiling (``run.profile``): rank 0 traces the run's steps 10 to 19 (of
 this process's run) with ``torch.profiler``, CPU and, on a card, CUDA
 activities, and writes the Chrome trace to
 ``<workdir>/profile/trace_step<N>.json`` at step 20, or when the run ends
-first. ``run.chunk_steps`` is a dispatch knob of the JAX package
-(scan-chunked stepping) with nothing to switch here: it is ignored.
+first.
+
+Chunked stepping (``run.chunk_steps``, on by default; the JAX package's
+scan-chunked stepping): where the D penalty is lazy (``loss.penalty_every``
+= k > 1) and path length, where lazy, fires on a cadence that divides k
+(``cfg.pl_chunkable``), the trainer feeds k batches at once, stacked on
+the host and placed in one transfer, to ``make_chunked_stepper``: the
+cycle's head step runs as the lazy dispatcher's, the off-run after it on a
+card as a replay of a CUDA graph captured once per phase and off-run
+variant (the first aligned cycle of a phase runs eagerly), and on the CPU,
+with ``optim.grad_accum`` > 1 or under data parallelism as the same steps
+one after another. A chunk is cut at the phase's end and at ``max_steps``;
+a phase or a resume that starts mid-cycle runs single steps to the next
+cycle head first. As in the JAX package, the host's cadences are checked
+once a chunk (``crossed`` over the chunk's n steps): ``train.jsonl`` rows,
+samples and checkpoints land on the first step key at or past each
+multiple of their ``every`` that a chunk reaches, a cadence finer than the
+cycle coarsens to once a cycle (a warning says so up front), and a row's
+``penalty`` / ``pl_penalty`` is the chunk's largest (the fired, k-scaled
+value), its other metrics the chunk's last step's. ``run.chunk_steps=False``
+steps and checks one step at a time. A phase's graphs and their memory
+pool are released when the trainer moves to the next phase.
 """
 
 from __future__ import annotations
@@ -60,7 +80,10 @@ from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train.checkpoint import CheckpointManager
 from ganlab_tpu_torch.train.schedule import alpha_at, build_phases, phase_at
 from ganlab_tpu_torch.train.state import create_train_state, reset_moments
-from ganlab_tpu_torch.train.steps import make_lazy_stepper
+from ganlab_tpu_torch.train.steps import (
+    make_chunked_stepper,
+    make_lazy_stepper,
+)
 from ganlab_tpu_torch.utils.image import save_image_grid
 from ganlab_tpu_torch.utils.latents import gen_latents
 from ganlab_tpu_torch.utils.logging import MetricLogger
@@ -105,6 +128,30 @@ class Trainer:
         # run.profile: the open trace, and whether one was written
         self._trace = None
         self._trace_done = False
+        self._warn_chunk_cadences()
+
+    @property
+    def chunking(self) -> bool:
+        """Chunked stepping active (``Config.chunking``)."""
+        return self.cfg.chunking
+
+    def _warn_chunk_cadences(self) -> None:
+        """A host cadence finer than the chunk's cycle coarsens to once a
+        cycle under chunked stepping; say so once, up front."""
+        if not self.chunking or not self.is_main:
+            return
+        cycle, run = self.cfg.loss.penalty_every, self.cfg.run
+        coarsened = [f"run.{name}={val}" for name, val in (
+            ("log_every", run.log_every),
+            ("sample_every", run.sample_every),
+            ("checkpoint_every", run.checkpoint_every),
+        ) if val and val < cycle]
+        if coarsened:
+            print(f"warning: chunked stepping (run.chunk_steps) quantizes "
+                  f"{', '.join(coarsened)} to the {cycle}-step lazy-"
+                  f"regularization cycle — effective cadence is once per "
+                  f"cycle; set run.chunk_steps=False for finer cadences",
+                  flush=True)
 
     @property
     def device(self) -> torch.device:
@@ -123,9 +170,22 @@ class Trainer:
     def _step_fn(self, phase) -> Callable:
         key = (phase.res_log2, phase.kind, phase.start_img, phase.end_img)
         if key not in self._steps:
-            self._steps[key] = make_lazy_stepper(
-                self.cfg, phase, initial_step=self.state.step)
+            # the phases only move forward: the last one's graphs go
+            self._close_steps()
+            if self.chunking:
+                self._steps[key], _ = make_chunked_stepper(
+                    self.cfg, phase, initial_step=self.state.step)
+            else:
+                self._steps[key] = make_lazy_stepper(
+                    self.cfg, phase, initial_step=self.state.step)
         return self._steps[key]
+
+    def _close_steps(self) -> None:
+        """Release the chunked steppers' CUDA graphs and their memory."""
+        for stepper in self._steps.values():
+            close = getattr(stepper, "close", None)
+            if close is not None:
+                close()
 
     def _sampler(self, res_log2: int) -> Callable:
         if res_log2 not in self._samplers:
@@ -170,11 +230,12 @@ class Trainer:
                       + (f" x {self.world} ranks" if self.world > 1
                          else "") + f" on {self.device}", flush=True)
 
+            chunk = cfg.loss.penalty_every if self.chunking else 1
             phase_t0 = time.perf_counter()
             phase_shown0 = state.shown_imgs
             with Prefetcher(self.source, feed_batch, phase.resolution,
                             place=device_placer(self.device),
-                            depth=cfg.data.prefetch) as pf:
+                            depth=cfg.data.prefetch, chunk=chunk) as pf:
                 while state.shown_imgs < phase.end_img:
                     if max_steps is not None and steps_done >= max_steps:
                         self._finish()
@@ -182,15 +243,35 @@ class Trainer:
                     if run.profile and self.is_main and steps_done >= 10 \
                             and self._trace is None and not self._trace_done:
                         self._start_trace()
-                    state, metrics = step_fn(state, pf.next())
-                    steps_done += 1
+                    if chunk > 1:
+                        # at most a cycle, cut at the phase's end and at
+                        # max_steps; the stepper may take fewer (it
+                        # realigns), and says how many by the metrics'
+                        # length
+                        n = min(chunk, -(-(phase.end_img - state.shown_imgs)
+                                         // global_batch))
+                        if max_steps is not None:
+                            n = min(n, max_steps - steps_done)
+                        stack = pf.next()
+                        state, stacked = step_fn(state, stack[:n])
+                        n = len(stacked["d_loss"])
+                        metrics = {k: v[-1] for k, v in stacked.items()}
+                        # the chunk's last step never fires a lazy term:
+                        # the chunk's largest is the fired, k-scaled value
+                        for lazy in ("penalty", "pl_penalty"):
+                            if lazy in stacked:
+                                metrics[lazy] = stacked[lazy].max()
+                    else:
+                        n = 1
+                        state, metrics = step_fn(state, pf.next())
+                    steps_done += n
                     if self._trace is not None and steps_done >= 20:
                         self._stop_trace()
                     step_i = start_step + steps_done
 
                     def crossed(every):
                         return every and \
-                            step_i // every != (step_i - 1) // every
+                            step_i // every != (step_i - n) // every
                     if crossed(run.log_every) and self.is_main:
                         # the only place a step waits for the device
                         m = {k: float(v) for k, v in metrics.items()}
@@ -201,7 +282,8 @@ class Trainer:
                     if run.eval_kimg and self.is_main:
                         per = run.eval_kimg * 1000.0
                         if int(state.shown_imgs // per) != int(
-                                (state.shown_imgs - global_batch) // per):
+                                (state.shown_imgs - n * global_batch)
+                                // per):
                             self.run_eval(phase, state.shown_imgs, step_i)
                     if crossed(run.sample_every) and self.is_main:
                         self.save_samples(phase.res_log2,
@@ -327,6 +409,7 @@ class Trainer:
 
     def _finish(self) -> None:
         self._stop_trace()          # a run that ended before step 20
+        self._close_steps()
         self.save_checkpoint()
         self.ckpt.wait()
         pdist.barrier()          # the checkpoint exists for every rank

@@ -17,6 +17,7 @@ import torch
 
 from ganlab_tpu_torch.config import Config
 from ganlab_tpu_torch.models import build_models
+from ganlab_tpu_torch.parallel import dist as pdist
 
 
 @dataclasses.dataclass
@@ -105,10 +106,61 @@ def make_optimizers(cfg: Config, g: torch.nn.Module, d: torch.nn.Module,
     corrections m_hat = m / (1 - b1^t), v_hat = v / (1 - b2^t): the update
     of ``optax.adam`` term for term (tests/test_torch_train_step.py holds
     the two against each other on the same gradients).
+
+    Where the chunked stepper will replay its off-runs as CUDA graphs
+    (``graphs_capture``) both are ``capturable``, so that a graph can hold
+    their steps: the step counts then live on the card and the bias
+    corrections are computed there in float32, where the default Adam
+    takes them in Python doubles. The eager steps and the graphed ones
+    share these optimizers, so their arithmetic is the same. Everywhere
+    else (the CPU, ProGAN's and ResNet-GAN's every-step penalties,
+    ``run.chunk_steps=False``, accumulation, data parallelism) Adam stays
+    the default one, whose eager step issues fewer kernels.
     """
     hp_g, hp_d = optimizer_hparams(cfg, resolution)
-    return (torch.optim.Adam(g.parameters(), **hp_g),
+    opts = (torch.optim.Adam(g.parameters(), **hp_g),
             torch.optim.Adam(d.parameters(), **hp_d))
+    device = next(d.parameters()).device
+    for opt in opts:
+        fit_optimizer(opt, graphs_capture(cfg, device))
+    return opts
+
+
+def graphs_capture(cfg: Config, device: torch.device) -> bool:
+    """Whether the chunked stepper replays the off-runs of a state of
+    ``cfg`` on ``device`` as CUDA graphs: chunked stepping on
+    (``Config.chunking``), a card, one process and no accumulation (the
+    all-reduces and ``fork_generators`` read the host)."""
+    return (torch.device(device).type == "cuda" and cfg.chunking
+            and cfg.optim.grad_accum == 1 and pdist.world_size() == 1)
+
+
+def fit_optimizer(opt: torch.optim.Adam, capturable: bool) -> None:
+    """Set ``opt``'s ``capturable`` flag and put each parameter's step
+    count where that asks: float32 on the parameter's device when
+    capturable, on the host otherwise. Called when the optimizers are made
+    and after a state dict is loaded into them (``load_state_dict`` takes
+    the flag from the saved groups, so a checkpoint written by a graphed
+    run would otherwise carry it to the CPU, and one written on the CPU
+    would drop it on the card)."""
+    for group in opt.param_groups:
+        group["capturable"] = capturable
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st is not None and "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if capturable else "cpu",
+                    dtype=torch.float32)
+
+
+def step_count(opt: torch.optim.Adam, p: torch.nn.Parameter,
+               count: int) -> torch.Tensor:
+    """A parameter's Adam step count ``count`` as ``opt`` keeps it."""
+    group = next(g for g in opt.param_groups
+                 if any(q is p for q in g["params"]))
+    # a fill, not a copy from the host: no wait for the card's queue
+    return torch.full((), float(count), dtype=torch.float32,
+                      device=p.device if group["capturable"] else "cpu")
 
 
 def seed_new_moments(opt: torch.optim.Adam, count: int) -> None:
@@ -123,7 +175,7 @@ def seed_new_moments(opt: torch.optim.Adam, count: int) -> None:
         for p in group["params"]:
             if p.grad is not None and p not in opt.state:
                 opt.state[p] = {
-                    "step": torch.tensor(float(count)),
+                    "step": step_count(opt, p, count),
                     "exp_avg": torch.zeros_like(
                         p, memory_format=torch.preserve_format),
                     "exp_avg_sq": torch.zeros_like(

@@ -114,7 +114,14 @@ The opt-in step recipes (all off in every preset):
 ``draw_step`` draws every field under every recipe, in the same order, so
 one seed gives one stream whatever the recipe. Entry:
 ``create_train_state`` -> ``make_lazy_stepper(cfg, phase)`` ->
-``stepper(state, real_u8)``, where ``real_u8`` holds A microbatches.
+``stepper(state, real_u8)``, where ``real_u8`` holds A microbatches; or
+``make_chunked_stepper(cfg, phase)`` -> ``stepper(state, stack)`` over a
+lazy-regularization cycle of stacked batches, its off-run a CUDA graph on
+a card (``train/graphs.py``). So that a graph can hold a step, the step
+updates the state's tensors in place (``pl_mean`` and ``ada_p`` too),
+makes its float32 constants on the device at its first call, and takes
+alpha and the G-EMA's beta as tensors where they move (``step(...,
+alpha=, beta=)``; the eager default reads the host's counters).
 """
 
 from __future__ import annotations
@@ -139,6 +146,7 @@ from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.train.schedule import PhaseSpec
 from ganlab_tpu_torch.train.state import (
     TrainState,
+    graphs_capture,
     optimizer_hparams,
     seed_new_moments,
 )
@@ -298,12 +306,19 @@ def _preprocess(real_u8: torch.Tensor, hflip: bool, flip: torch.Tensor,
 
 @torch.no_grad()
 def _ema_update(ema: torch.nn.Module, model: torch.nn.Module,
-                beta: float) -> None:
+                beta) -> None:
     """ema <- ema * beta + model * (1 - beta), in place, parameter-wise,
-    with beta and 1 - beta rounded to float32 as the JAX package does."""
-    b = torch.tensor(beta, dtype=torch.float32)
+    with beta and 1 - beta rounded to float32 as the JAX package does.
+    ``beta`` is a number, or a 0-d float32 tensor on the parameters'
+    device (``optim.ema_rampup``, whose beta moves every step: a CUDA
+    graph reads it from the tensor at each replay)."""
     e = list(ema.parameters())
     p = [t.to(x.dtype) for t, x in zip(model.parameters(), e)]
+    if isinstance(beta, torch.Tensor):
+        torch._foreach_mul_(e, beta)
+        torch._foreach_add_(e, torch._foreach_mul(p, 1.0 - beta))
+        return
+    b = torch.tensor(beta, dtype=torch.float32)
     torch._foreach_mul_(e, b.item())
     torch._foreach_add_(e, p, alpha=(1.0 - b).item())
 
@@ -444,6 +459,15 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             return 0.5 ** (batch / max(nimg, 1.0))
         return o.ema_beta_for(batch)
 
+    # float32 constants on the state's device, made at a step's first
+    # call (eager: a CUDA graph captures no copy from the host)
+    on_device: dict = {}
+
+    def w_beta_on(dev) -> torch.Tensor:
+        if dev not in on_device:
+            on_device[dev] = w_beta.to(dev)
+        return on_device[dev]
+
     def penalty_term(d, real, fake, draws, real_s, alpha, reg=True):
         """R1 or WGAN-GP at ``pen_weight`` where ``reg``, plus drift
         where ``real_s`` (the real scores) is given."""
@@ -521,11 +545,19 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         state.opt_g.step()
 
     @torch.no_grad()
-    def ema_and_w_avg(state, w_means, batch: int) -> None:
-        _ema_update(state.g_ema, state.g, ema_beta(batch, state.shown_imgs))
+    def ema_and_w_avg(state, w_means, batch: int, beta=None) -> None:
+        """``beta``: the G-EMA's beta as a 0-d tensor (a CUDA graph's
+        input), or None to take it from the host's counters; under
+        ``optim.ema_rampup`` it is a tensor either way."""
+        if beta is None:
+            beta = ema_beta(batch, state.shown_imgs)
+            if cfg.optim.ema_rampup is not None:
+                beta = torch.full((), beta, dtype=torch.float32,
+                                  device=state.device)
+        _ema_update(state.g_ema, state.g, beta)
         if style:
             w_mean = pdist.mean(averaged(w_means))
-            wb = w_beta.to(state.device)
+            wb = w_beta_on(state.device)
             state.w_avg.copy_(state.w_avg * wb + w_mean * (1.0 - wb))
 
     def finish(state, batch: int, alpha, d_parts, g_loss, pl_pens, ada):
@@ -547,12 +579,19 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                 else torch.zeros((), device=dev)
         pdist.all_reduce_mean_(v for k, v in metrics.items() if k != "alpha")
         if ada_active:
-            # only ADA configurations; both are the same on every replica
-            state.ada_p, metrics["aug_rt"] = ada
-            metrics["aug_p"] = state.ada_p
+            # only ADA configurations; both are the same on every replica.
+            # p moves in place: a CUDA graph's next replay reads it there
+            new_p, metrics["aug_rt"] = ada
+            state.ada_p.copy_(new_p)
+            metrics["aug_p"] = new_p
         return state, metrics
 
-    def step(state: TrainState, real_u8: torch.Tensor, draws=None):
+    def step(state: TrainState, real_u8: torch.Tensor, draws=None,
+             alpha=None, beta=None):
+        """``alpha`` / ``beta``: the fade-in weight (compute dtype) and the
+        G-EMA's beta (float32) as 0-d tensors on the device, which a
+        CUDA graph of the step reads at each replay; None (the eager
+        default) takes them from the host's counters."""
         dev = state.device
         world, rank = pdist.world_size(), pdist.rank()
         total = real_u8.shape[0]
@@ -561,10 +600,12 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                              "does not split into equal microbatches")
         micro = total // accum
         draws = step_draws(state, micro, world, rank, draws)
-        alpha = phase_alpha(phase, state.shown_imgs, dtype)
+        if alpha is None:
+            alpha = phase_alpha(phase, state.shown_imgs, dtype)
         real_u8 = real_u8.to(dev)
         if lc.fused_g_step:
-            return fused_step(state, real_u8, draws[0], alpha, micro * world)
+            return fused_step(state, real_u8, draws[0], alpha, micro * world,
+                              beta)
         g, d = state.g, state.d
         do_g = state.step % n_critic == n_critic - 1
         # loss.fused_seq on a step that updates G with one microbatch: the
@@ -661,13 +702,15 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
                 d.requires_grad_(True)
             update_g(state)
             if with_pl:
-                state.pl_mean = pl_mean
+                # in place, as ada_p: a CUDA graph's next replay reads it
+                state.pl_mean.copy_(pl_mean)
             g_loss = averaged(g_losses)
-            ema_and_w_avg(state, w_means, micro * accum * world)
+            ema_and_w_avg(state, w_means, micro * accum * world, beta)
         return finish(state, micro * accum * world, alpha, d_parts, g_loss,
                       pl_pens, ada)
 
-    def fused_step(state, real_u8, dr: StepDraws, alpha, batch: int):
+    def fused_step(state, real_u8, dr: StepDraws, alpha, batch: int,
+                   beta):
         """``loss.fused_g_step`` (the JAX package's ``step_fused``): one
         objective d_loss + penalty + g_loss (+ path length) gives both
         networks' gradients, G scored against the pre-update D; then both
@@ -713,13 +756,21 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         update_d(state, state.step - state.opt_step0)
         update_g(state)
         if with_pl:
-            state.pl_mean = pl_mean
-        ema_and_w_avg(state, [w_mean], batch)
+            state.pl_mean.copy_(pl_mean)
+        ema_and_w_avg(state, [w_mean], batch, beta)
         return finish(state, batch, alpha, d_parts, g_loss.detach(), pl_pens,
                       ada)
 
     step.pen_weight = pen_weight if with_penalty else 0.0
     step.pl_weight = pl_weight if with_pl else 0.0
+    # what a CUDA graph of the step takes from its inputs at each replay
+    # (train/graphs.py): alpha in a fade phase, beta under ema_rampup, and
+    # the host's values of both for a step that starts at ``shown``
+    step.alpha_moves = fade
+    step.beta_moves = cfg.optim.ema_rampup is not None
+    step.compute_dtype = dtype
+    step.scalars = lambda shown, batch: (phase_alpha(phase, shown, dtype),
+                                         ema_beta(batch, shown))
     return step
 
 
@@ -767,6 +818,21 @@ def penalty_ticks(cfg: Config, start: int, stop: int) -> int:
     return -(-stop // k) + (-start // k)     # ceil(stop/k) - ceil(start/k)
 
 
+def _program_cache(cfg: Config, phase: PhaseSpec):
+    """``get(dpen, pl)``: the step function of one pair of overrides,
+    built at its first request; ``get.programs`` maps each pair built."""
+    cache: dict = {}
+
+    def get(dpen, pl):
+        if (dpen, pl) not in cache:
+            cache[(dpen, pl)] = build_train_step(
+                cfg, phase, penalty_override=dpen, pl_override=pl)
+        return cache[(dpen, pl)]
+
+    get.programs = cache
+    return get
+
+
 def make_lazy_stepper(cfg: Config, phase: PhaseSpec,
                       initial_step: int = 0) -> Callable:
     """Host-side lazy-regularization dispatcher:
@@ -778,14 +844,7 @@ def make_lazy_stepper(cfg: Config, phase: PhaseSpec,
     step function. The stepper's ``programs`` maps each pair to its step
     function."""
     combo_at, lazy = _lazy_combos(cfg)
-    cache: dict = {}
-
-    def get(dpen, pl):
-        if (dpen, pl) not in cache:
-            cache[(dpen, pl)] = build_train_step(
-                cfg, phase, penalty_override=dpen, pl_override=pl)
-        return cache[(dpen, pl)]
-
+    get = _program_cache(cfg, phase)
     if not lazy:
         return get(*combo_at(0))
 
@@ -796,5 +855,148 @@ def make_lazy_stepper(cfg: Config, phase: PhaseSpec,
         counter["i"] += 1
         return fn(state, real_u8, draws)
 
-    stepper.programs = cache
+    stepper.programs = get.programs
     return stepper
+
+
+def stack_metrics(ms: Sequence[dict], device) -> dict[str, torch.Tensor]:
+    """Per-step metrics in step order -> one (n,) float32 tensor a key on
+    ``device`` (a number, as a stabilize phase's alpha, becomes a fill)."""
+    def f32(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=torch.float32)
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+
+    return {k: torch.stack([f32(m[k]) for m in ms]) for k in ms[0]}
+
+
+def run_steps(fn: Callable, state: TrainState, stack: torch.Tensor,
+              draws=None, alphas=None, betas=None):
+    """``fn`` over the batches of ``stack`` in turn: (state, stacked
+    metrics). ``draws`` / ``alphas`` / ``betas`` hold one entry a step, or
+    are None (the step's own draws; the host's alpha and beta)."""
+    ms = []
+    for j in range(stack.shape[0]):
+        state, m = fn(state, stack[j], None if draws is None else draws[j],
+                      alpha=None if alphas is None else alphas[j],
+                      beta=None if betas is None else betas[j])
+        ms.append(m)
+    return state, stack_metrics(ms, state.device)
+
+
+def make_chunked_stepper(cfg: Config, phase: PhaseSpec,
+                         initial_step: int = 0):
+    """Chunked lazy-regularization stepper: ``(stepper, k)``, k =
+    ``loss.penalty_every``. Port of the JAX package's
+    ``make_chunked_stepper``.
+
+    ``stepper(state, stack, draws=None) -> (state, metrics)`` takes a
+    (<= k, B, H, W, C) uint8 stack (``draws``: one ``StepDraws`` a batch,
+    for parity tests) and returns each metric stacked (n_consumed,) in step
+    order as float32: the caller reads the consumed count from their
+    length. On an aligned full cycle (the step counter at a multiple of k
+    and k batches) the cycle-head step (the D penalty, and path length
+    where it fires) runs through the lazy dispatcher's step functions,
+    then the off-run: the k - 1 steps on which nothing fires, or with lazy
+    path length (``pl_every`` dividing k) a segment of ``pl_every`` - 1
+    such steps after each path-length step. At a misaligned counter
+    (a resume, or a phase that starts mid-cycle) it runs only the steps
+    that realign it and drops the rest of the stack; a partial stack runs
+    step by step.
+
+    The off-run is the step function of the lazy dispatcher's "nothing
+    fires" variant. Where ``state.graphs_capture`` holds (a CUDA state,
+    ``run.chunk_steps``, one process, ``optim.grad_accum`` = 1) and with
+    the step's own draws, each off-run
+    variant (its length and, with n-critic, its pattern of G updates) is
+    a CUDA graph of those steps (``train/graphs.py``): the first aligned
+    cycle of the phase runs eagerly (the warm-up), each later cycle
+    replays, one launch a segment; a capture that fails raises. On the
+    CPU, with ``run.chunk_steps=False``, with accumulation, under data
+    parallelism (the gloo and NCCL all-reduces, and ``fork_generators``,
+    which reads the generator on the host) and with injected draws, the
+    off-run is the same steps run one after another. ``stepper.graphs``
+    is the ``OffRunGraphs`` once made (None before); ``stepper.close()``
+    releases the graphs.
+    """
+    lc = cfg.loss
+    k = lc.penalty_every
+    if lc.penalty not in ("wgan-gp", "r1") or k <= 1:
+        raise ValueError("chunked stepping needs lazy regularization: "
+                         "loss.penalty r1 or wgan-gp with penalty_every > 1")
+    if cfg.pl_active and lc.pl_every > 1:
+        if k % lc.pl_every:
+            raise ValueError("chunked stepping with lazy path length needs "
+                             "loss.pl_every to divide loss.penalty_every")
+        seg = lc.pl_every - 1
+    else:
+        seg = k - 1
+    combo_at, _ = _lazy_combos(cfg)
+    get = _program_cache(cfg, phase)
+    # index 1 of a cycle is always an off-step (k > 1, pl_every > 1)
+    off_fn = get(*combo_at(1))
+    n_critic = max(1, lc.d_steps_per_g)
+    counter = {"i": int(initial_step)}
+    warm: set = set()       # off-run variants an eager aligned cycle ran
+
+    def graphable(state, draws) -> bool:
+        return draws is None and graphs_capture(cfg, state.device)
+
+    def off_run(state, stack, draws, seen: set):
+        if not graphable(state, draws):
+            return run_steps(off_fn, state, stack, draws)
+        if stepper.graphs is None:
+            from ganlab_tpu_torch.train.graphs import OffRunGraphs
+
+            stepper.graphs = OffRunGraphs(state.device, off_fn)
+        key = (stack.shape[0], tuple(
+            (state.step + j) % n_critic == n_critic - 1
+            for j in range(stack.shape[0])))
+        if key in warm:
+            return stepper.graphs.replay(key, state, stack)
+        seen.add(key)
+        return stepper.graphs.warm_up(state, stack)
+
+    def stepper(state, stack, draws=None):
+        n = stack.shape[0]
+        if draws is not None and len(draws) < n:
+            raise ValueError(f"draws: {n} batches take {n} StepDraws, got "
+                             f"{len(draws)}")
+        parts = []
+
+        def single(i):
+            nonlocal state
+            state, m = get(*combo_at(counter["i"]))(
+                state, stack[i], None if draws is None else draws[i])
+            counter["i"] += 1
+            parts.append(stack_metrics([m], state.device))
+
+        pos = counter["i"] % k
+        if pos == 0 and n == k:
+            seen: set = set()
+            for head in range(0, k, seg + 1):
+                single(head)
+                lo, hi = head + 1, head + 1 + seg
+                state, m = off_run(state, stack[lo:hi],
+                                   None if draws is None else draws[lo:hi],
+                                   seen)
+                counter["i"] += seg
+                parts.append(m)
+            warm.update(seen)
+        else:
+            # realign: only the steps up to the next cycle head (the
+            # stack's rest is dropped); a partial stack step by step
+            for i in range(min(n, k - pos) if pos else n):
+                single(i)
+        return state, {key: torch.cat([p[key] for p in parts])
+                       for key in parts[0]}
+
+    def close():
+        if stepper.graphs is not None:
+            stepper.graphs.close()
+            stepper.graphs = None
+            warm.clear()        # a new stream warms up again
+
+    stepper.graphs = None
+    stepper.close = close
+    return stepper, k

@@ -800,10 +800,10 @@ def test_load_jax_train_state_carries_ada_p():
     cfg = get_config("stylegan-256", **over)
     st = create_train_state(cfg, seed=0, device="cpu")
     assert float(st.ada_p) == 0.125
-    assert float(load_jax_train_state(st, arrays).ada_p) == 0.4375
+    assert float(load_jax_train_state(st, arrays, cfg).ada_p) == 0.4375
     del arrays["ada_p"]
     st = create_train_state(cfg, seed=0, device="cpu")
-    assert float(load_jax_train_state(st, arrays).ada_p) == 0.125
+    assert float(load_jax_train_state(st, arrays, cfg).ada_p) == 0.125
 
 
 # -- the command line ---------------------------------------------------------
@@ -821,7 +821,9 @@ def test_cli_train_with_ada_logs_aug_metrics(tmp_path):
             "data.dataset": "synthetic", "run.log_every": 1,
             "run.sample_every": 0, "run.num_sample_images": 4,
             "aug.mode": "ada", "aug.categories": "bcgfnu",
-            "aug.kimg": 0.1, "aug.target": -2.0}
+            "aug.kimg": 0.1, "aug.target": -2.0,
+            # a row every step (chunked stepping logs once a chunk)
+            "run.chunk_steps": False}
     args = ["train", "--preset", "stylegan-256", "--device", "cpu",
             "--workdir", str(tmp_path), "--max-steps", "5"]
     for k, v in sets.items():

@@ -209,6 +209,23 @@ def test_recipe_ranks_on_one_shard_equal_one_process(ranks, recipe):
     assert [m["penalty"] > 0 for m in want["metrics"]] == [True, False, True]
 
 
+def test_chunked_dp_equals_one_process_accumulating_two(ranks):
+    """Two ranks, each stacking its own shards, step the chunk cycle as
+    one process with ``optim.grad_accum`` = 2 stacking the whole global
+    batches: the same consumed counts, stacked metrics and state."""
+    (r0, r1), _ = ranks
+    want = W.part_chunked(0, 1, W.steps_cfg(**{"optim.grad_accum": 2}))
+    _assert_same(r0["chunked"]["tensors"], r1["chunked"]["tensors"],
+                 "chunked ranks")
+    _assert_same(r0["chunked"]["tensors"], want["tensors"],
+                 "chunked DP vs accum")
+    assert r0["chunked"]["consumed"] == want["consumed"] == [2, 2, 1]
+    assert r0["chunked"]["metrics"] == r1["chunked"]["metrics"] == \
+        want["metrics"]
+    assert [p > 0 for m in want["metrics"] for p in m["penalty"]] == \
+        [True, False, True, False, True]
+
+
 def test_trainer_resumes_bit_for_bit_on_both_ranks(ranks):
     (r0, r1), out = ranks
     for r in (r0, r1):
@@ -231,7 +248,9 @@ def test_trainer_resumes_bit_for_bit_on_both_ranks(ranks):
 def _cli_train_args(workdir):
     args = ["train", "--preset", "stylegan-256", "--device", "cpu",
             "--workdir", str(workdir), "--max-steps", "2"]
+    # a row every step (chunked stepping logs once a chunk)
     for k, v in dict(W.SMALL, **{"run.log_every": 1,
+                                 "run.chunk_steps": False,
                                  "run.num_sample_images": 4}).items():
         args += ["--set", f"{k}={v}"]
     return args

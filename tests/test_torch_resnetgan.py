@@ -207,7 +207,7 @@ def test_n_critic_two_steps_match_jax():
                                 "mu": moments(opt, module, "exp_avg"),
                                 "nu": moments(opt, module, "exp_avg_sq")}
     st2 = load_jax_train_state(create_train_state(cfg, seed=5, device="cpu"),
-                               arrays)
+                               arrays, cfg)
     assert (st2.step, st2.opt_step0) == (2, 0)
     assert {float(s["step"]) for s in st2.opt_g.state.values()} == {1.0}
     assert {float(s["step"]) for s in st2.opt_d.state.values()} == {2.0}

@@ -710,14 +710,14 @@ def test_load_jax_train_state_carries_pl_mean():
               "step": 0, "shown_imgs": 0, "pl_mean": np.asarray(js.pl_mean)}
     cfg = get_config("stylegan2-256", **SMALL)
     st = load_jax_train_state(create_train_state(cfg, seed=0, device="cpu"),
-                              arrays)
+                              arrays, cfg)
     assert float(st.pl_mean) == pytest.approx(0.37)
     for name, t in st.g.state_dict().items():
         np.testing.assert_array_equal(
             t.numpy(), from_flax(arrays["params_g"])[name].numpy())
     del arrays["pl_mean"]
     st.pl_mean.fill_(3.0)
-    assert float(load_jax_train_state(st, arrays).pl_mean) == 0.0
+    assert float(load_jax_train_state(st, arrays, cfg).pl_mean) == 0.0
 
 
 # -- PPL ----------------------------------------------------------------------
@@ -764,7 +764,8 @@ def test_cli_train_sample_eval_ppl_stylegan2(tmp_path, capsys):
     step, > 0 on steps 1 and 5 of the log (counter 0 and 4); then ``cli
     sample`` and ``cli eval-ppl --space w`` from the workdir."""
     wd = str(tmp_path / "run")
-    over = dict(SMALL, **{"run.log_every": 1})
+    # a row every step (chunked stepping logs once a chunk)
+    over = dict(SMALL, **{"run.log_every": 1, "run.chunk_steps": False})
     assert cli.main(_train_args("stylegan2-256", wd, over, 5)) == 0
     with open(os.path.join(wd, "train.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -791,7 +792,7 @@ def test_cli_train_stylegan_with_pl(tmp_path):
             "model.mapping_layers": 2, "run.compute_dtype": "float32",
             "schedule.progressive": False, "schedule.batch_schedule":
             {16: B}, "data.dataset": "synthetic", "loss.pl_weight": 2.0,
-            "run.log_every": 1}
+            "run.log_every": 1, "run.chunk_steps": False}
     assert cli.main(_train_args("stylegan-256", wd, over, 2)) == 0
     with open(os.path.join(wd, "train.jsonl")) as f:
         rows = [json.loads(line) for line in f]

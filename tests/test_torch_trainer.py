@@ -393,7 +393,7 @@ def test_jax_train_state_carries_over():
 
     cfg = tiny_config()
     st = load_jax_train_state(create_train_state(cfg, seed=9, device="cpu"),
-                              arrays)
+                              arrays, cfg)
     assert (st.step, st.shown_imgs, st.opt_step0) == (2, 2 * B, 0)
     assert torch.equal(st.w_avg, torch.full((8,), 0.5))
     assert all(float(s["step"]) == 2.0 for s in st.opt_g.state.values())

@@ -17,6 +17,8 @@ runs, as this rank of the world:
    ``fused_seq``: the three steps under ``loss.fused_seq``; ``same_*``:
    three steps of ``loss.fused_g_step`` and of ``loss.reg_separate`` with
    every rank fed the same shard and the same injected draws;
+   ``chunked``: the chunked stepper over two cycles and a tail of the
+   first configuration;
 3. ``trainer``: a ``Trainer`` on one shared workdir for three steps, then
    a second ``Trainer`` restored from that workdir: whether it holds the
    live state bit for bit and whether both stay equal over two more steps
@@ -80,8 +82,10 @@ def same_cfg(recipe: str):
 def trainer_cfg():
     from ganlab_tpu_torch.config import get_config
 
+    # a row every step (chunked stepping logs once a chunk)
     return get_config("stylegan-256", **dict(
         SMALL, **{"loss.penalty_every": 2, "run.log_every": 1,
+                  "run.chunk_steps": False,
                   "run.checkpoint_every": 0, "run.sample_every": 0,
                   "schedule.total_kimg": 1.0}))
 
@@ -172,6 +176,38 @@ def part_steps(rank: int, world: int, cfg=None) -> dict:
     return {"tensors": _tensors(state), "metrics": metrics,
             "draws": draws, "betas": betas, "shown": state.shown_imgs,
             "step": state.step}
+
+
+# the chunked stepper's calls over the batches 0..4 of ``steps_cfg`` (R1
+# every 2nd step): two cycles, then a tail of one
+CHUNKS = ((0, 2), (2, 4), (4, 5))
+
+
+def part_chunked(rank: int, world: int, cfg=None) -> dict:
+    """``make_chunked_stepper`` over ``CHUNKS`` of ``steps_cfg()`` (or
+    ``cfg``), each rank fed its shards of ``global_batch(i)`` stacked (the
+    off-run's steps run eagerly under a process group): the state, each
+    call's consumed count and the stacked metrics."""
+    from ganlab_tpu_torch.parallel import dist as pdist
+    from ganlab_tpu_torch.train import build_phases, create_train_state
+    from ganlab_tpu_torch.train.steps import make_chunked_stepper
+
+    cfg = cfg or steps_cfg()
+    state = create_train_state(cfg, seed=0, device="cpu")
+    pdist.broadcast_state(state)
+    stepper, _ = make_chunked_stepper(
+        cfg, build_phases(cfg.schedule, cfg.model)[-1])
+    feed = MICRO * cfg.optim.grad_accum
+    stack = torch.stack([
+        global_batch(i, world * cfg.optim.grad_accum)[
+            rank * feed:(rank + 1) * feed] for i in range(CHUNKS[-1][1])])
+    consumed, metrics = [], []
+    for lo, hi in CHUNKS:
+        state, m = stepper(state, stack[lo:hi])
+        consumed.append(len(m["d_loss"]))
+        metrics.append({k: v.tolist() for k, v in m.items()})
+    return {"tensors": _tensors(state), "consumed": consumed,
+            "metrics": metrics}
 
 
 def part_composed(rank: int, world: int, accum: int) -> dict:
@@ -288,6 +324,7 @@ def main(rank: int, world: int, port: int, outdir: str) -> None:
                       **{"loss.fused_seq": True})),
                   **{f"same_{r}": part_same(rank, world, r)
                      for r in ("fused_g_step", "reg_separate")},
+                  "chunked": part_chunked(rank, world),
                   "trainer": part_trainer(rank, outdir),
                   "world": pdist.world_size(), "rank": pdist.rank()}
     finally:
