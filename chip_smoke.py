@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training-step, progressive-trainer,
 user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel,
-export, ADA, projector, step-recipe and chunked-stepping paths on one
-NVIDIA GPU.
+export, ADA, projector, step-recipe, chunked-stepping and composed
+upsample + conv paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -203,7 +203,27 @@ Phases (any failure raises and the script exits non-zero):
     that reads the host raises at capture; capturable Adam's update
     against the default one's. The cli runs of phases 7-14 pin
     ``run.chunk_steps=False``: they count launches a step.
-17. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+17. The composed upsample + conv (``model.fused_up_conv``: dilated,
+    ``'poly'``, ``'hybrid'``), full width: each form of ``up2_conv2d``
+    against the two-op form (the up+blur kernel or the nearest upsample,
+    then ``F.conv2d``) at the first conv of every G block of stylegan-256
+    (batch 32), stylegan-1024's 512² and 1024² blocks (batch 4) and
+    progan-128 (batch 8), float32, TF32 off, within 1e-4 of the scale; the
+    hybrid's gradients against autograd through the two-op form; the
+    bench.py step under the two-op form and each composed form in turns
+    (ms per R1-off and R1-on step, device busy, idle share, peak memory,
+    launches a step against ``step_launches``, which reads the form);
+    ``BatchSampler`` at batch 32 under each form (img/s, latency) and its
+    bf16 images against the float32 two-op images (no more than twice the
+    bf16 two-op error); one eager lazy / graphed chunked pair at 256²
+    under the dilated form, bit for bit; stylegan-1024 at 1024², batch 4,
+    remat off and on, two-op against dilated (peak memory, ms an R1-off
+    step); progan-128 at 128², batch 8, two-op / dilated / poly (ms a
+    step; ``'hybrid'`` raises ``ValueError``); the exported sampler under
+    dilated against ``BatchSampler`` under dilated, the same bits. A
+    script may call ``phase_fused(card)`` alone after ``phase_device()``
+    and ``phase_build()``.
+18. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -235,6 +255,8 @@ from ganlab_tpu_torch import models as port_models
 from ganlab_tpu_torch import ops as port_ops
 from ganlab_tpu_torch.data import make_source
 from ganlab_tpu_torch.export import ExportedSampler, export_sampler
+from ganlab_tpu_torch.models.layers import up2_form
+from ganlab_tpu_torch.ops.equalized import HYBRID_NEAREST
 from ganlab_tpu_torch.ops.kernels import _build
 from ganlab_tpu_torch.ops.kernels.adain import (
     ADAIN,
@@ -267,6 +289,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
     upsample_blur_2x_path,
     upsample_blur_2x_ref,
 )
+from ganlab_tpu_torch.ops.upfirdn import BLUR_TAPS
 from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.sample import build_sample_fn
 from ganlab_tpu_torch.train import (
@@ -394,16 +417,20 @@ def _bsz(dtype):
 
 def serving_shapes(mc, res_log2=None, batch=BATCH):
     """shape -> launches per batch, for each kernel of a G forward at
-    2^res_log2 (the serving path runs it at the model's full resolution)."""
+    2^res_log2 (the serving path runs it at the model's full resolution).
+    Under ``model.fused_up_conv`` (any form) no block launches up+blur: the
+    upsample is composed into the block's first conv."""
     top = mc.res_log2 if res_log2 is None else res_log2
     adain = {}
     for lg in range(2, top + 1):
         s = (batch, mc.nf(lg - 1), 2 ** lg, 2 ** lg)
         adain[s] = adain.get(s, 0) + 2
-    up = {(batch, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
-          for lg in range(3, top + 1)}
-    return {"pixelnorm": {(batch, mc.latent_dim): 1},
-            "adain": adain, "upsample_blur_2x": up}
+    out = {"pixelnorm": {(batch, mc.latent_dim): 1}, "adain": adain}
+    if not mc.fused_up_conv:
+        out["upsample_blur_2x"] = {
+            (batch, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
+            for lg in range(3, top + 1)}
+    return out
 
 
 def _add(total: dict, part: dict) -> None:
@@ -462,6 +489,15 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     which saves nothing, so its recompute launches no kernel of ours (the
     CPU tests count this on a small model, every recipe:
     tests/test_torch_remat_launches.py).
+
+    ``model.fused_up_conv`` composes each synthesis block's upsample into
+    its first conv. Dilated (True) and ``'poly'``: no up+blur in G's
+    forward (nor in remat's recompute) and no blur+down in G's backward.
+    ``'hybrid'``: the forward is the dilated one, and G's backward runs
+    the two-op backward, one up+blur (the upsampled input made again) and
+    one blur+down (gain 4, to the block's input) a block; remat's
+    recompute adds the two AdaIN a block alone (tests/test_torch_up2conv.
+    py counts each form).
     """
     if recipe not in RECIPES:
         raise ValueError(f"recipe {recipe!r}: one of {RECIPES}")
@@ -474,12 +510,19 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     up = {(batch, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
           for l in range(3, lg + 1)}
     serve = serving_shapes(mc, lg, batch)
+    form = up2_form(mc.fused_up_conv)
     g_fwd = {"pixelnorm": {(2 * batch, mc.latent_dim): 1},
-             "adain": serve["adain"], "upsample_blur_2x": up}
+             "adain": serve["adain"]}
     d_fwd = {"blur_downsample_2x": down,
              "minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
     d_bwd = {"upsample_blur_2x": up}
     g_bwd = {"blur_downsample_2x": down}
+    if form is None:
+        g_fwd["upsample_blur_2x"] = up
+    elif form == "hybrid":                           # the two-op backward
+        g_bwd = {"blur_downsample_2x": down, "upsample_blur_2x": up}
+    else:
+        g_bwd = {}
     if recipe == "fused_g_step":
         parts = [g_fwd, d_fwd, d_fwd, d_bwd, d_bwd,  # D's loss
                  d_bwd, g_bwd]                       # G's, through D
@@ -491,7 +534,7 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     if mc.remat:                                     # G backward's recompute
         parts.append({"adain": {s: n for s, n in serve["adain"].items()
                                 if s[2] > 4},
-                      "upsample_blur_2x": up})
+                      **({"upsample_blur_2x": up} if form is None else {})})
     if r1:
         parts += [d_fwd, d_bwd, {"blur_downsample_2x": down}, d_bwd]
     total: dict = {}
@@ -503,7 +546,12 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
 def progan_g_launches(mc, res_log2=None, batch=BATCH) -> dict:
     """kernel -> {shape: launches} of one ProGAN G forward at 2^res_log2:
     pixelnorm of z (rows kernel), then over the channels twice in the 4x4
-    block and twice in each block from 8x8 up (channel kernel)."""
+    block and twice in each block from 8x8 up (channel kernel). Every
+    ``model.fused_up_conv`` form gives the same: the nearest upsample it
+    composes into a block's first conv is plain PyTorch either way
+    (``'hybrid'``, blur taps only, raises as the G does)."""
+    if up2_form(mc.fused_up_conv) == "hybrid":
+        raise ValueError(HYBRID_NEAREST)
     lg = mc.res_log2 if res_log2 is None else res_log2
     nchw = {}
     for l in range(2, lg + 1):
@@ -535,7 +583,8 @@ def progan_step_launches(mc, res_log2=None, batch=16,
     (WGAN-GP's interpolates, R1's real batch); the G phase a G forward
     and D on the fakes. ``fused_seq``: one G forward fewer.
     ``fused_g_step``: one G forward, D on real, on the fakes (both losses)
-    and on the penalty's input."""
+    and on the penalty's input. ``model.fused_up_conv`` changes none of
+    these (``progan_g_launches``)."""
     g_fwd = progan_g_launches(mc, res_log2, batch)
     d_fwd = {"minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
     parts = {"sequential": [g_fwd, d_fwd, d_fwd, d_fwd, g_fwd, d_fwd],
@@ -3847,6 +3896,7 @@ def projector_shapes(mc, steps: int, batch: int = 1,
     up+blur at 256²; each backward 6 blur+down with gain 4 at the up+blur
     outputs' shapes)."""
     assert not mc.remat          # remat would recompute blocks
+    assert not mc.fused_up_conv  # the composed forms launch no up+blur
     n = restarts * batch
     total = {"pixelnorm": {(max(256, pool - 1), mc.latent_dim): 1}}
     for served, times in ((serving_shapes(mc, batch=pool), 1),
@@ -4632,6 +4682,369 @@ def phase_chunked(card: str) -> dict:
     return dict(out, launches=totals)
 
 
+# -- 17. the composed upsample + conv (model.fused_up_conv) -------------------
+FUSED_FORMS = {"two_op": False, "dilated": True, "poly": "poly",
+               "hybrid": "hybrid"}
+FUSED_ROUNDS = 2               # timed rounds in turns, after a warm-up round
+FUSED_RTOL = 1e-4              # a form vs the two-op form, f32, of the scale
+FUSED_1K_STEPS = 3             # R1-off steps at 1024², the first a warm-up
+PG_FUSED_STEPS = 3             # progan-128 steps at 128² a form and round
+
+
+def _form_sets(form: str) -> dict:
+    return {"model.fused_up_conv": FUSED_FORMS[form]}
+
+
+def fused_op_shapes() -> list:
+    """(label, taps, x shape, out channels) of the first conv of every G
+    block: stylegan-256 at batch 32, stylegan-1024's 512² and 1024² blocks
+    at its batch of 4, progan-128 at batch 8 (nearest taps)."""
+    out = []
+    for preset, lgs, batch, taps in (
+            ("stylegan-256", range(3, 9), BATCH, BLUR_TAPS),
+            ("stylegan-1024", (9, 10), 4, BLUR_TAPS),
+            ("progan-128", range(3, 8), 8, None)):
+        mc = get_config(preset).model
+        for lg in lgs:
+            out.append((f"{preset} block {2 ** lg}", taps,
+                        (batch, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)),
+                        mc.nf(lg - 1)))
+    return out
+
+
+def fused_op_checks() -> dict:
+    """Each form of ``up2_conv2d`` at every G block's shape against the
+    two-op form on the card (the up+blur kernel or the nearest upsample,
+    then ``F.conv2d``), float32 with TF32 off: values within ``FUSED_RTOL``
+    of the reference's largest; the hybrid's gradients against autograd
+    through the two-op form (``GRAD_RTOL``). Returns the worst value error
+    of each form."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    worst = {}
+    for label, taps, shape, out_ch in fused_op_shapes():
+        x = torch.randn(shape, generator=g, device="cuda")
+        w = torch.randn((out_ch, shape[1], 3, 3), generator=g,
+                        device="cuda") / math.sqrt(9 * shape[1])
+        up = port_ops.upsample_nearest_2x if taps is None else \
+            port_ops.upsample_blur_2x
+        with torch.no_grad():
+            ref = F.conv2d(up(x), w, padding=1)
+            scale = ref.abs().max().item()
+            errs = {}
+            for form in ("dilated", "poly") + (("hybrid",) if taps else ()):
+                got = port_ops.up2_conv2d_hybrid(x, w) if form == "hybrid" \
+                    else port_ops.up2_conv2d(x, w, taps, form == "poly")
+                errs[form] = (got - ref).abs().max().item() / scale
+                del got
+        log(f"fused: {label} {shape} -> {out_ch}: value error of the scale "
+            + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+            + f" (tol {FUSED_RTOL:g})")
+        for form, e in errs.items():
+            worst[form] = max(worst.get(form, 0.0), e)
+            if not e <= FUSED_RTOL:
+                raise AssertionError(f"fused: {label} {form}: {e}")
+        if taps is not None:
+            xg, wg = x.requires_grad_(True), w.requires_grad_(True)
+            ct = torch.randn(ref.shape, generator=g, device="cuda")
+            del ref
+            got = torch.autograd.grad(port_ops.up2_conv2d_hybrid(xg, wg),
+                                      (xg, wg), ct)
+            want = torch.autograd.grad(F.conv2d(up(xg), wg, padding=1),
+                                       (xg, wg), ct)
+            _assert_grads_close(f"fused hybrid {label}", got, want)
+        del x, w
+        torch.cuda.empty_cache()
+    return worst
+
+
+def fused_step_turns(card: str) -> dict:
+    """The bench.py step (stylegan-256, fixed 256², batch 32, bf16, seeded
+    live weights) under the two-op form and each composed form, R1-off and
+    R1-on, read in turns over ``FUSED_ROUNDS`` rounds after a warm-up: ms
+    a step, the launches of our kernels a step equal to the derived ones,
+    peak memory in the last round (four states held), one profiled R1-off
+    and R1-on step of each (device busy, idle share)."""
+    gdata = torch.Generator(device="cuda").manual_seed(43)
+    real = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gdata,
+                         device="cuda", dtype=torch.uint8)
+    runs = {}
+    for form in FUSED_FORMS:
+        cfg = training_config(**_form_sets(form))
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        runs[form] = dict(
+            state=_dp_state(cfg),
+            steps={r1: train_steps.build_train_step(
+                cfg, phase, penalty_override=r1) for r1 in (False, True)},
+            expect={r1: launch_totals(step_launches(cfg.model, r1))
+                    for r1 in (False, True)},
+            ms={False: [], True: []}, peak={})
+    totals = {n: 0 for n in KERNELS}
+    for rnd in range(FUSED_ROUNDS + 1):
+        for form, run in runs.items():
+            for r1 in (False, True):
+                if rnd == FUSED_ROUNDS:
+                    torch.cuda.reset_peak_memory_stats()
+                st, m, ms, counts = _timed_step(run["steps"][r1],
+                                                run["state"], real)
+                if rnd == FUSED_ROUNDS:
+                    run["peak"][r1] = \
+                        torch.cuda.max_memory_allocated() / 2 ** 30
+                run["state"] = st
+                _check_accum_step(f"fused {form} R1-{'on' if r1 else 'off'} "
+                                  f"{rnd}", m, counts, run["expect"][r1], r1)
+                _add_counts(totals, counts)
+                if rnd:
+                    run["ms"][r1].append(ms)
+    out = {}
+    for form, run in runs.items():
+        row = out[form] = {
+            "ms_r1_off": statistics.median(run["ms"][False]),
+            "ms_r1_on": statistics.median(run["ms"][True]),
+            "peak_gib": run["peak"], "launches": run["expect"]}
+        for r1 in (False, True):
+            def one(run=run, r1=r1):
+                run["state"] = run["steps"][r1](run["state"], real)[0]
+
+            prof = profile_call(f"one {form} R1-{'on' if r1 else 'off'} "
+                                f"step", one, card, top=6)
+            key = "r1_on" if r1 else "r1_off"
+            row[f"busy_ms_{key}"], row[f"idle_{key}"] = \
+                prof["busy_ms"], prof["idle_share"]
+        log(f"fused: bench step {form:7s}: {row['ms_r1_off']:.2f} ms an "
+            f"R1-off step, {row['ms_r1_on']:.2f} ms an R1-on step (medians "
+            f"of {FUSED_ROUNDS}, in turns); device busy "
+            f"{row['busy_ms_r1_off']:.2f} / {row['busy_ms_r1_on']:.2f} ms, "
+            f"idle share {row['idle_r1_off']:.3f} / {row['idle_r1_on']:.3f}; "
+            f"peak memory {row['peak_gib'][False]:.2f} / "
+            f"{row['peak_gib'][True]:.2f} GiB (four states held); launches "
+            f"a step {row['launches'][False]} / {row['launches'][True]} "
+            f"[{card}]")
+    runs.clear()
+    torch.cuda.empty_cache()
+    return dict(out, launches=totals)
+
+
+def fused_images(card: str) -> dict:
+    """``BatchSampler`` at batch 32 under each form (one set of seeded
+    weights, as phase 5's): img/s and batch latency, each form's launches
+    over those 17 batches as derived; then 32 images of each form in bf16
+    against the float32 two-op images on the same z and noise maps (TF32
+    off): the largest and the mean error no more than twice the bf16
+    two-op images' (ROADMAP C, precision)."""
+    samplers = {f: make_sampler(get_config("stylegan-256", **_form_sets(f)))
+                for f in FUSED_FORMS}
+    two = samplers["two_op"]
+    lg, mc = two.res_log2, two.g.cfg
+    gz = torch.Generator(device="cuda").manual_seed(19)
+    z = torch.randn(BATCH, mc.latent_dim, generator=gz, device="cuda")
+    noises = [torch.randn(BATCH, 1, h, w, generator=gz, device="cuda")
+              for h, w in port_models.noise_shapes(mc, lg)]
+    s32 = build_sample_fn(get_config("stylegan-256", **{
+        "run.compute_dtype": "float32"}), lg)
+    sbf = build_sample_fn(get_config("stylegan-256"), lg)
+    errs = {}
+    with torch.inference_mode():
+        want = s32(two.g, two.w_avg, z, None, 0.7, 1.0, noises)
+        for form, s in samplers.items():
+            d = (sbf(s.g, s.w_avg, z, None, 0.7, 1.0, noises) - want).abs()
+            errs[form] = (d.max().item(), d.mean().item())
+    totals = {n: 0 for n in KERNELS}
+    out = {}
+    for form, s in samplers.items():
+        s.warmup()
+        reset_counts()
+        perf = serving_speed(s)
+        counts = _launch_counts()
+        _add_counts(totals, counts)
+        want_counts = {n: 16 * v for n, v in
+                       launch_totals(serving_shapes(s.g.cfg)).items()}
+        if {n: counts[n] for n in want_counts} != want_counts:
+            raise AssertionError(f"fused: served {form}: launches {counts}, "
+                                 f"derived {want_counts} for 16 batches")
+        out[form] = dict(perf, max_err=errs[form][0], mean_err=errs[form][1])
+        log(f"fused: served {form:7s}: {perf['img_per_s']:.1f} img/s, batch "
+            f"latency median {perf['batch_ms_median']:.2f} ms max "
+            f"{perf['batch_ms_max']:.2f} ms; bf16 image vs the f32 two-op "
+            f"image: max {errs[form][0]:.4e} mean {errs[form][1]:.4e}; "
+            f"launches {counts} [{card}]")
+    ref = errs["two_op"]
+    for form, (mx, mean) in errs.items():
+        if not (mx <= 2 * ref[0] and mean <= 2 * ref[1]):
+            raise AssertionError(f"fused: bf16 {form} image error {mx} / "
+                                 f"{mean} above twice the two-op's {ref}")
+    return dict(out, launches=totals)
+
+
+def fused_1024(card: str) -> dict:
+    """stylegan-1024 at 1024² and its batch of 4, remat off and on, two-op
+    and dilated: peak memory above what was held before the state, over
+    ``FUSED_1K_STEPS`` R1-off steps, and their ms (the first a warm-up);
+    each step's launches of our kernels as derived."""
+    out, totals = {}, {n: 0 for n in KERNELS}
+    for remat in (False, True):
+        for form in ("two_op", "dilated"):
+            cfg = get_config("stylegan-1024", **{
+                "model.remat": remat, **_form_sets(form)})
+            phase = build_phases(cfg.schedule, cfg.model)[-1]
+            b = phase.batch_size
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated() / 2 ** 30
+            state = create_train_state(cfg, seed=0)
+            step = train_steps.build_train_step(cfg, phase,
+                                                penalty_override=False)
+            real = _device_stack(1, b, 1024, seed=13)[0]
+            expect = launch_totals(step_launches(cfg.model, False, batch=b))
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for i in range(FUSED_1K_STEPS):
+                state, m, t, counts = _timed_step(step, state, real)
+                _check_accum_step(f"fused 1024² {form} remat {remat} {i}",
+                                  m, counts, expect, False)
+                _add_counts(totals, counts)
+                ms.append(t)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 - base
+            out[(form, remat)] = dict(peak_gib=peak,
+                                      ms=statistics.median(ms[1:]))
+            log(f"fused: stylegan-1024 1024² batch {b} {form} remat "
+                f"{remat}: R1-off {statistics.median(ms[1:]):.1f} ms "
+                f"(median of {FUSED_1K_STEPS - 1}; {ms[0]:.1f} first), peak "
+                f"{peak:.3f} GiB above the {base:.2f} GiB held before; "
+                f"launches {expect} a step [{card}]")
+            del state, step, real
+    for remat in (False, True):
+        two, dil = out[("two_op", remat)], out[("dilated", remat)]
+        log(f"fused: 1024² remat {remat}: dilated against two-op "
+            f"{dil['peak_gib'] - two['peak_gib']:+.3f} GiB peak, "
+            f"{dil['ms'] - two['ms']:+.1f} ms an R1-off step [{card}]")
+    return dict(runs=out, launches=totals)
+
+
+def fused_progan(card: str) -> dict:
+    """progan-128 at 128² and batch 8 (WGAN-GP and drift every step), the
+    two-op, dilated and poly forms in turns: ms a step (median over the
+    rounds after a warm-up), launches as derived; ``'hybrid'`` raises the
+    JAX package's ``ValueError`` when the G is built."""
+    try:
+        build_generator(get_config("progan-128", **_form_sets("hybrid"))
+                        .model)
+    except ValueError as e:
+        log(f"fused: progan-128 under 'hybrid' raises ValueError: {e}")
+    else:
+        raise AssertionError("fused: progan-128 built under 'hybrid'")
+    runs, totals = {}, {n: 0 for n in KERNELS}
+    for form in ("two_op", "dilated", "poly"):
+        cfg = get_config("progan-128", **_form_sets(form))
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        assert phase.resolution == 128, phase
+        runs[form] = dict(
+            state=create_train_state(cfg, seed=0),
+            step=train_steps.build_train_step(cfg, phase),
+            real=_device_stack(1, phase.batch_size, 128, seed=29)[0],
+            expect=launch_totals(step_launches(
+                cfg.model, True, phase.res_log2, phase.batch_size)),
+            ms=[])
+    for rnd in range(FUSED_ROUNDS + 1):
+        for form, run in runs.items():
+            for _ in range(PG_FUSED_STEPS):
+                run["state"], m, ms, counts = _timed_step(
+                    run["step"], run["state"], run["real"])
+                _check_accum_step(f"fused progan {form} {rnd}", m, counts,
+                                  run["expect"], True)
+                _add_counts(totals, counts)
+                if rnd:
+                    run["ms"].append(ms)
+    out = {form: statistics.median(run["ms"]) for form, run in runs.items()}
+    log(f"fused: progan-128 128² batch 8 (WGAN-GP every step), ms a step "
+        f"(median of {FUSED_ROUNDS * PG_FUSED_STEPS}, in turns): "
+        + ", ".join(f"{f} {v:.2f}" for f, v in out.items())
+        + f"; launches a step {runs['two_op']['expect']} [{card}]")
+    runs.clear()
+    torch.cuda.empty_cache()
+    return dict(ms=out, launches=totals)
+
+
+def fused_export(card: str) -> dict:
+    """The exported stylegan-256 sampler (cuda program, batch 32) under the
+    dilated form against ``BatchSampler`` under the same form on the same
+    weights: the same bits, and the program's launches a batch as derived
+    (no up+blur)."""
+    cfg = get_config("stylegan-256", **_form_sets("dilated"))
+    sampler = make_sampler(cfg)
+    path = os.path.join(tempfile.mkdtemp(prefix="ganlab_export_"),
+                        "sampler.ganlab.zip")
+    t0 = time.perf_counter()
+    try:
+        export_sampler(cfg, types.SimpleNamespace(g_ema=sampler.g,
+                                                  w_avg=sampler.w_avg),
+                       path, batch_size=BATCH, platforms=("cuda",))
+        export_s = time.perf_counter() - t0
+        exported = ExportedSampler(path)
+        exported.generate(1, seed=0)                    # first call
+        reset_counts()
+        a = exported.generate(BATCH, seed=3)
+        counts = _launch_counts()
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    want = launch_totals(serving_shapes(cfg.model))
+    if {n: counts[n] for n in want} != want:
+        raise AssertionError(f"fused: exported launches {counts}, derived "
+                             f"{want}")
+    b = sampler.generate(BATCH, seed=3)
+    equal = float((a == b).mean())
+    log(f"fused: exported sampler (dilated) against BatchSampler "
+        f"(dilated), {BATCH} images: equal share {equal:.6f}, max level "
+        f"difference {np.abs(a.astype(int) - b.astype(int)).max()}; "
+        f"exported in {export_s:.1f} s; launches {counts} [{card}]")
+    if not np.array_equal(a, b):
+        raise AssertionError("fused: the exported sampler's bits differ "
+                             "from BatchSampler's")
+    return dict(launches=counts, export_s=export_s)
+
+
+def phase_fused(card: str) -> dict:
+    """``model.fused_up_conv`` at full width: ``fused_op_checks`` (each form
+    against the two-op form at every block shape, the hybrid's gradients),
+    ``fused_step_turns`` (the bench.py step under each form in turns),
+    ``fused_images`` (served img/s and latency, the bf16 image rule), one
+    graphed chunked cycle pair at 256² under the dilated form (eager lazy
+    stepper against graphed chunked stepper, bit for bit, deterministic
+    cuDNN), ``fused_1024`` (peak memory and ms at 1024², remat off and on),
+    ``fused_progan`` and ``fused_export``."""
+    t_phase = time.perf_counter()
+    out, spent = {}, {}
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out[name] = fn(*args, **kw)
+        spent[name] = time.perf_counter() - t0
+        return out[name]
+
+    part("ops", fused_op_checks)
+    part("bench", fused_step_turns, card)
+    part("images", fused_images, card)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = training_config(**_form_sets("dilated"))
+        part("graphs", chunk_pair, "stylegan-256 256x256 batch 32 dilated",
+             cfg, build_phases(cfg.schedule, cfg.model)[-1], card,
+             timed=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    part("1024", fused_1024, card)
+    part("progan", fused_progan, card)
+    part("export", fused_export, card)
+    totals = {n: 0 for n in KERNELS}
+    for name in ("bench", "images", "graphs", "1024", "progan", "export"):
+        _add_counts(totals, out[name]["launches"])
+    log(f"fused: phase 17 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f" [{card}]")
+    return dict(out, launches=totals)
+
+
 # -- 3b. offsets beyond 2^31 elements ------------------------------------------------
 LARGE = {"upsample_blur_2x": (64, 32, 512, 512),      # out: 2^31 elements
          "blur_downsample_2x": (128, 16, 1024, 1024),  # in: 2^31 elements
@@ -4726,6 +5139,7 @@ def main(kernels_only: bool = False) -> None:
     proj = run(phase_projector, card)
     recipes = run(phase_recipes, card)
     chunked = run(phase_chunked, card)
+    fused = run(phase_fused, card)
     log("seconds a phase: " + ", ".join(f"{name[6:]} {s:.1f}"
                                         for name, s in spent.items()))
     kernels = []
@@ -4752,7 +5166,8 @@ def main(kernels_only: bool = False) -> None:
                     "ada": ada["launches"][name],
                     "projector": proj["launches"][name],
                     "recipes": recipes["launches"][name],
-                    "chunked": chunked["launches"][name]}
+                    "chunked": chunked["launches"][name],
+                    "fused_up_conv": fused["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -4771,6 +5186,12 @@ def main(kernels_only: bool = False) -> None:
                 for recipe in RECIPES},
             "launches_per_progan128_step_128": launch_totals(
                 step_launches(mp, True, 7, 8))[name],
+            # the bench configuration's step under each model.fused_up_conv
+            # form, read from the counts in phase 17 (equal to the derived)
+            "launches_per_step_by_form": {
+                form: {"r1_off": fused["bench"][form]["launches"][False][name],
+                       "r1_on": fused["bench"][form]["launches"][True][name]}
+                for form in FUSED_FORMS},
             "launches_per_stylegan2_step": {
                 "neither": launch_totals(stylegan2_step_launches(
                     m2, False, False, batch=SG2_BATCH,

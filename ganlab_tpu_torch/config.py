@@ -3,9 +3,10 @@
 A stdlib-only copy of ``ganlab_tpu/config.py``: the port imports nothing of
 the JAX package, so it keeps its own. Field names, defaults and presets are
 identical (``tests/test_torch_config.py`` holds every preset's
-``dataclasses.asdict`` equal between the two packages); some knobs
-(``fold_width``, ``fused_up_conv``, ``remat``, ``use_pallas``) only mean
-something to the JAX package and the port rejects or ignores them.
+``dataclasses.asdict`` equal between the two packages). Two knobs are not
+ported: the TPU layout ``fold_width``, which the port's models reject, and
+``run.use_pallas``, which the port ignores (it always runs its kernels on
+the card).
 
 A config fully determines dataset, resolution schedule, loss, penalty,
 optimizer, EMA, and sampling behavior.
@@ -70,10 +71,12 @@ class ModelConfig:
     # ResNet-GAN only:
     base_channels: int = 128
     # Rematerialize resolution blocks in backward (memory for FLOPs trade).
-    # JAX-package knob; the port's serving slice rejects it.
     remat: bool = False
     # Fuse each G block's 2x upsample (+FIR blur) into its first conv as one
-    # composed convolution (JAX package only; the port rejects it).
+    # composed convolution (exact; ops/upfirdn.py::up2_conv2d): True = one
+    # stride-2 transposed conv, 'poly' = four phase convs, 'hybrid' = the
+    # transposed-conv forward with the two-op backward (StyleGAN only).
+    # Read by the StyleGAN and ProGAN generators; StyleGAN2 ignores it.
     fused_up_conv: bool | str = False
 
     # Evaluate low-channel high-res blocks width-folded to fill the TPU's

@@ -44,22 +44,48 @@ class EqualDense(nn.Module):
             gain=self.gain, lr_mult=self.lr_mult)
 
 
+def up2_form(fused_up) -> str | None:
+    """The composed form ``model.fused_up_conv`` selects: None (the two-op
+    upsample then conv) when it is false, the string itself, or
+    ``'dilated'`` for any other true value, as the JAX package reads it."""
+    if not fused_up:
+        return None
+    return fused_up if isinstance(fused_up, str) else "dilated"
+
+
 class EqualConv(nn.Module):
-    """Equalized-LR stride-1 SAME conv; ``w`` is (out, in, k, k)."""
+    """Equalized-LR stride-1 SAME conv; ``w`` is (out, in, k, k).
+
+    ``up2`` composes a preceding 2x upsample into this conv as one
+    convolution (``ops.equalized_conv2d_up2``): ``"nearest"`` for the
+    ProGAN G, ``"blur"`` for StyleGAN's nearest + FIR; ``up2_form`` is
+    ``'dilated'``, ``'poly'`` or ``'hybrid'``. Exact to the two-op form;
+    the weight stays the ordinary (out, in, k, k) tensor, so parameters
+    and checkpoints are those of the unfused conv.
+    """
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, *,
                  gain: float = math.sqrt(2.0), lr_mult: float = 1.0,
-                 use_bias: bool = True):
+                 use_bias: bool = True, up2: str | None = None,
+                 up2_form: str = "dilated"):
         super().__init__()
+        if up2 == "nearest" and up2_form == "hybrid":
+            raise ValueError(eq.HYBRID_NEAREST)
         self.gain, self.lr_mult = gain, lr_mult
+        self.up2, self.up2_form = up2, up2_form
         self.w = _scaled_normal((features, in_ch, kernel, kernel), lr_mult)
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return eq.equalized_conv2d(
-            x, self.w.to(x.dtype),
-            None if self.b is None else self.b.to(x.dtype),
-            gain=self.gain, lr_mult=self.lr_mult)
+        w = self.w.to(x.dtype)
+        b = None if self.b is None else self.b.to(x.dtype)
+        if self.up2 is not None:
+            return eq.equalized_conv2d_up2(
+                x, w, b, taps=None if self.up2 == "nearest" else
+                (1.0, 2.0, 1.0), form=self.up2_form, gain=self.gain,
+                lr_mult=self.lr_mult)
+        return eq.equalized_conv2d(x, w, b, gain=self.gain,
+                                   lr_mult=self.lr_mult)
 
 
 class NoiseInjection(nn.Module):

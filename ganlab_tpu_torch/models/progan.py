@@ -29,8 +29,9 @@ beside the main branch, the sum scaled by 1/sqrt(2).
 ``model.remat`` recomputes each block's activations in the backward pass
 (``torch.utils.checkpoint``; R1's and WGAN-GP's double backward passes
 through it), as the JAX package wraps ``GBlock`` and ``DBlock`` in
-``nn.remat``. The JAX package's TPU knobs ``fold_width`` and
-``fused_up_conv`` are rejected.
+``nn.remat``. ``model.fused_up_conv`` composes each G block's nearest
+upsample into its first conv (``GBlock``); the JAX package's TPU layout
+knob ``fold_width`` is rejected.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ganlab_tpu_torch.config import ModelConfig
-from ganlab_tpu_torch.models.layers import EqualConv, EqualDense
+from ganlab_tpu_torch.models.layers import EqualConv, EqualDense, up2_form
 from ganlab_tpu_torch.ops import (
     blur_downsample_2x,
     downsample_avg_2x,
@@ -70,14 +71,12 @@ def takes_fade_branch(alpha, fade: bool | None) -> bool:
     return not static_stable(alpha) if fade is None else bool(fade)
 
 
-def reject_tpu_knobs(cfg: ModelConfig, knobs=("fold_width",
-                                               "fused_up_conv")) -> None:
-    """Raise on the JAX package's TPU layout knobs."""
-    for knob in knobs:
-        if getattr(cfg, knob):
-            raise NotImplementedError(
-                f"model.{knob} is a TPU-only knob of the JAX package; the "
-                "PyTorch port does not implement it")
+def reject_tpu_knobs(cfg: ModelConfig) -> None:
+    """Raise on the JAX package's TPU layout knob ``fold_width``."""
+    if cfg.fold_width:
+        raise NotImplementedError(
+            "model.fold_width is a TPU-only knob of the JAX package; the "
+            "PyTorch port does not implement it")
 
 
 def _checkpointed(block: nn.Module, x: torch.Tensor, remat: bool):
@@ -90,15 +89,24 @@ def _checkpointed(block: nn.Module, x: torch.Tensor, remat: bool):
 
 
 class GBlock(nn.Module):
-    """One generator block: nearest 2x up -> 2x (conv3x3 + lrelu + PN)."""
+    """One generator block: nearest 2x up -> 2x (conv3x3 + lrelu + PN).
 
-    def __init__(self, in_ch: int, features: int):
+    ``fused_up`` (``model.fused_up_conv``) composes the nearest upsample
+    into conv0: True is the dilated form, ``'poly'`` the polyphase one;
+    ``'hybrid'`` has no nearest variant and raises ``ValueError``."""
+
+    def __init__(self, in_ch: int, features: int,
+                 fused_up: bool | str = False):
         super().__init__()
-        self.conv0 = EqualConv(in_ch, features, 3)
+        form = up2_form(fused_up)
+        self.fused = form is not None
+        self.conv0 = EqualConv(in_ch, features, 3,
+                               up2="nearest" if self.fused else None,
+                               up2_form=form or "dilated")
         self.conv1 = EqualConv(features, features, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv0(upsample_nearest_2x(x))
+        x = self.conv0(x if self.fused else upsample_nearest_2x(x))
         x = pixel_norm(leaky_relu(x), dim=1)
         return pixel_norm(leaky_relu(self.conv1(x)), dim=1)
 
@@ -138,7 +146,8 @@ class ProGenerator(nn.Module):
         self.block4 = GInputBlock(cfg.latent_dim, cfg.nf(1))
         for lg in range(3, self.max_log2 + 1):
             self.add_module(f"block{2 ** lg}",
-                            GBlock(cfg.nf(lg - 2), cfg.nf(lg - 1)))
+                            GBlock(cfg.nf(lg - 2), cfg.nf(lg - 1),
+                                   cfg.fused_up_conv))
         for lg in range(2, self.max_log2 + 1):
             self.add_module(f"torgb{2 ** lg}", EqualConv(
                 cfg.nf(lg - 1), cfg.img_channels, 1, gain=1.0))
@@ -216,7 +225,7 @@ class ProDiscriminator(nn.Module):
 
     def __init__(self, cfg: ModelConfig, blur_resample: bool = False):
         super().__init__()
-        reject_tpu_knobs(cfg, ("fold_width",))
+        reject_tpu_knobs(cfg)
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         for lg in range(2, self.max_log2 + 1):

@@ -12,10 +12,11 @@ same module and parameter names:
 
 ``model.remat`` recomputes each resolution block's activations in the
 backward pass (``torch.utils.checkpoint``, as the JAX package wraps the
-blocks in ``nn.remat``): same values and gradients, less memory. The JAX
-package's TPU-only knobs ``fold_width`` and ``fused_up_conv`` are
-rejected. Explicit noise maps are (N, 1, H, W), one per style layer in the
-order of :func:`noise_shapes`.
+blocks in ``nn.remat``): same values and gradients, less memory.
+``model.fused_up_conv`` composes each block's upsample into its first
+conv (``SynthesisBlock``); the JAX package's TPU layout knob
+``fold_width`` is rejected. Explicit noise maps are (N, 1, H, W), one per
+style layer in the order of :func:`noise_shapes`.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ganlab_tpu_torch.models.layers import (
     EqualDense,
     NoiseInjection,
     StyleAffine,
+    up2_form,
 )
 from ganlab_tpu_torch.models.progan import (
     reject_tpu_knobs,
@@ -95,20 +97,30 @@ class StyleLayer(nn.Module):
 
 
 class SynthesisBlock(nn.Module):
-    """One synthesis resolution block: up(+blur) -> conv/epilogue x2."""
+    """One synthesis resolution block: up(+blur) -> conv/epilogue x2.
+
+    ``fused_up`` (``model.fused_up_conv``) composes the upsample into
+    conv0 (``layers.EqualConv``'s ``up2``): True is the dilated form,
+    ``'poly'`` / ``'hybrid'`` the others, False the two-op form."""
 
     def __init__(self, in_ch: int, features: int, w_dim: int,
-                 blur: bool = True):
+                 blur: bool = True, fused_up: bool | str = False):
         super().__init__()
         self.blur = blur
-        self.conv0 = EqualConv(in_ch, features, 3, use_bias=False)
+        form = up2_form(fused_up)
+        self.fused = form is not None
+        self.conv0 = EqualConv(
+            in_ch, features, 3, use_bias=False,
+            up2=("blur" if blur else "nearest") if self.fused else None,
+            up2_form=form or "dilated")
         self.style0 = StyleLayer(features, w_dim)
         self.conv1 = EqualConv(features, features, 3, use_bias=False)
         self.style1 = StyleLayer(features, w_dim)
 
     def forward(self, x, w_a, w_b, noise_a=None, noise_b=None,
                 generator=None):
-        x = upsample_blur_2x(x) if self.blur else upsample_nearest_2x(x)
+        if not self.fused:
+            x = upsample_blur_2x(x) if self.blur else upsample_nearest_2x(x)
         x = self.conv0(x)
         x = self.style0(x, w_a, noise_a, generator)
         x = self.conv1(x)
@@ -151,7 +163,8 @@ class SynthesisNetwork(nn.Module):
         self.style4_1 = StyleLayer(cfg.nf(1), w_dim)
         for lg in range(3, self.max_log2 + 1):
             self.add_module(f"block{2 ** lg}", SynthesisBlock(
-                cfg.nf(lg - 2), cfg.nf(lg - 1), w_dim, blur=blur))
+                cfg.nf(lg - 2), cfg.nf(lg - 1), w_dim, blur=blur,
+                fused_up=cfg.fused_up_conv))
         for lg in range(2, self.max_log2 + 1):
             self.add_module(f"torgb{2 ** lg}", EqualConv(
                 cfg.nf(lg - 1), cfg.img_channels, 1, gain=1.0))

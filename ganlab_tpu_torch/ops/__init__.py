@@ -2,6 +2,7 @@
 
 from ganlab_tpu_torch.ops.equalized import (
     equalized_conv2d,
+    equalized_conv2d_up2,
     equalized_dense,
     he_constant,
     leaky_relu,
@@ -13,7 +14,10 @@ from ganlab_tpu_torch.ops.upfirdn import (
     blur2d,
     blur_downsample_2x,
     downsample_avg_2x,
+    compose_up2_kernel,
     fade_in,
+    up2_conv2d,
+    up2_conv2d_hybrid,
     upsample_blur_2x,
     upsample_nearest_2x,
 )

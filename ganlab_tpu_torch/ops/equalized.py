@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ganlab_tpu_torch.ops.upfirdn import up2_conv2d, up2_conv2d_hybrid
+
 
 def he_constant(fan_in: int, gain: float = math.sqrt(2.0)) -> float:
     """Runtime weight scale c = gain / sqrt(fan_in) (He init constant)."""
@@ -49,6 +51,39 @@ def equalized_conv2d(x: torch.Tensor, w: torch.Tensor,
         padding = (kh // 2, kw // 2)
     scale = he_constant(kh * kw * in_ch, gain) * lr_mult
     y = F.conv2d(x, (w * scale).to(x.dtype), padding=padding)
+    if b is not None:
+        y = y + (b * lr_mult).to(y.dtype)[None, :, None, None]
+    return y
+
+
+HYBRID_NEAREST = ("form='hybrid' supports only the blur taps (nearest-up "
+                  "has no hybrid variant) — use form='dilated' or 'poly'")
+
+
+def equalized_conv2d_up2(x: torch.Tensor, w: torch.Tensor,
+                         b: torch.Tensor | None = None, *,
+                         taps=(1.0, 2.0, 1.0), form: str = "dilated",
+                         gain: float = math.sqrt(2.0),
+                         lr_mult: float = 1.0) -> torch.Tensor:
+    """``equalized_conv2d(upsample[_blur]_2x(x), w, b)`` as one composed
+    conv (``upfirdn.up2_conv2d``); x NCHW, w (O, I, 3, 3).
+
+    The He constant comes from the ORIGINAL (kh, kw, in_ch) fan-in: the
+    fusion changes the order of evaluation, not the function. ``taps=None``
+    is nearest-up (ProGAN G), the default taps nearest-up + FIR blur
+    (StyleGAN G). ``form``: ``'poly'`` (four phase convs), ``'hybrid'``
+    (the dilated forward, the two-op backward; blur taps only) or any
+    other value, the dilated form (one transposed conv).
+    """
+    _, in_ch, kh, kw = w.shape
+    scale = he_constant(kh * kw * in_ch, gain) * lr_mult
+    ws = (w * scale).to(x.dtype)
+    if form == "hybrid":
+        if taps is None:
+            raise ValueError(HYBRID_NEAREST)
+        y = up2_conv2d_hybrid(x, ws)
+    else:
+        y = up2_conv2d(x, ws, taps=taps, polyphase=form == "poly")
     if b is not None:
         y = y + (b * lr_mult).to(y.dtype)[None, :, None, None]
     return y

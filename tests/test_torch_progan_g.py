@@ -195,10 +195,13 @@ def test_batch_sampler_serves_a_progan_generator(gen_pair):
 
 
 def test_generator_rejects_tpu_knobs():
-    for knob in ("model.fold_width", "model.fused_up_conv"):
-        with pytest.raises(NotImplementedError, match="TPU"):
-            ProGenerator(get_config("progan-128",
-                                    **dict(SMALL, **{knob: True})).model)
+    """fold_width is a TPU layout; fused_up_conv is ported
+    (tests/test_torch_up2conv.py)."""
+    ProGenerator(get_config("progan-128", **dict(
+        SMALL, **{"model.fused_up_conv": True})).model)
+    with pytest.raises(NotImplementedError, match="TPU"):
+        ProGenerator(get_config("progan-128", **dict(
+            SMALL, **{"model.fold_width": True})).model)
 
 
 # -- one training step against a harness of JAX pieces --------------------------

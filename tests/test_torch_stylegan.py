@@ -192,11 +192,11 @@ def test_truncate_and_mix_styles():
 
 
 def test_tpu_only_knobs_are_rejected():
-    """fold_width and fused_up_conv are TPU layouts; remat is ported
-    (tests/test_torch_remat.py)."""
-    build_generator(get_config("stylegan-256",
-                               **dict(SMALL, **{"model.remat": True})).model)
-    for knob in ("model.fold_width", "model.fused_up_conv"):
-        with pytest.raises(NotImplementedError):
-            build_generator(get_config("stylegan-256",
-                                       **dict(SMALL, **{knob: True})).model)
+    """fold_width is a TPU layout; remat and fused_up_conv are ported
+    (tests/test_torch_remat.py, tests/test_torch_up2conv.py)."""
+    for knob in ("model.remat", "model.fused_up_conv"):
+        build_generator(get_config("stylegan-256",
+                                   **dict(SMALL, **{knob: True})).model)
+    with pytest.raises(NotImplementedError):
+        build_generator(get_config("stylegan-256", **dict(
+            SMALL, **{"model.fold_width": True})).model)
