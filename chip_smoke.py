@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training-step, progressive-trainer,
 user-data, ProGAN / ResNet-GAN, StyleGAN2, accumulation, data-parallel,
-export, ADA, projector, step-recipe, chunked-stepping and composed
-upsample + conv paths on one NVIDIA GPU.
+export, ADA, projector, step-recipe, chunked-stepping, composed
+upsample + conv and width-folded paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1-3, no result lines
@@ -223,7 +223,21 @@ Phases (any failure raises and the script exits non-zero):
     dilated against ``BatchSampler`` under dilated, the same bits. A
     script may call ``phase_fused(card)`` alone after ``phase_device()``
     and ``phase_build()``.
-18. One JSON line of per-kernel numbers, then the final ``{"ok": true,
+18. The width-folded blocks (``model.fold_width``; plain PyTorch, as in
+    the JAX package, so a folded block launches none of our kernels),
+    full width: the bench.py step with fold off and on in turns (ms per
+    R1-off and R1-on step, busy, idle share, peak memory, launches a step
+    against ``step_launches``, which reads ``cfg.fold_block``);
+    ``BatchSampler`` at batch 32 fold off and on (img/s, latency; float32
+    images within 1e-4 of the scale, bf16 within twice fold off's error);
+    the D's scores likewise; the exported folded sampler against
+    ``BatchSampler``, the same bits; one eager lazy / graphed chunked pair
+    at 256² under fold, bit for bit; stylegan-1024 at 1024², batch 4,
+    remat, fold off and on (six folded blocks: ms R1-off and R1-on, peak
+    memory); a float32 folded step of stylegan-256 and progan-128 at 32²,
+    card against CPU. A script may call ``phase_fold(card)`` alone after
+    ``phase_device()`` and ``phase_build()``.
+19. One JSON line of per-kernel numbers, then the final ``{"ok": true,
     ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -419,18 +433,38 @@ def serving_shapes(mc, res_log2=None, batch=BATCH):
     """shape -> launches per batch, for each kernel of a G forward at
     2^res_log2 (the serving path runs it at the model's full resolution).
     Under ``model.fused_up_conv`` (any form) no block launches up+blur: the
-    upsample is composed into the block's first conv."""
+    upsample is composed into the block's first conv. A block that
+    ``model.fold_width`` folds (``mc.fold_block``) launches neither AdaIN
+    nor up+blur: its folded ops are plain PyTorch, as in the JAX package."""
     top = mc.res_log2 if res_log2 is None else res_log2
     adain = {}
     for lg in range(2, top + 1):
+        if lg > 2 and mc.fold_block(lg):
+            continue
         s = (batch, mc.nf(lg - 1), 2 ** lg, 2 ** lg)
         adain[s] = adain.get(s, 0) + 2
     out = {"pixelnorm": {(batch, mc.latent_dim): 1}, "adain": adain}
     if not mc.fused_up_conv:
-        out["upsample_blur_2x"] = {
-            (batch, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
-            for lg in range(3, top + 1)}
+        out["upsample_blur_2x"] = _block_shapes(
+            mc, unfolded_blocks(mc, top), batch)[1]
     return out
+
+
+def unfolded_blocks(mc, res_log2: int, d: bool = False) -> list:
+    """The res_log2 of each block from 8x8 up that ``model.fold_width``
+    leaves unfolded: in the G, or with ``d`` in the D, whose residual
+    blocks never fold (``mc.d_resnet``)."""
+    return [lg for lg in range(3, res_log2 + 1)
+            if not (mc.fold_block(lg) and not (d and mc.d_resnet))]
+
+
+def _block_shapes(mc, blocks, batch) -> tuple:
+    """({shape: 1} at each block's 2^lg plane of nf(lg - 2) channels,
+    {shape: 1} at its 2^(lg - 1) plane): a G block's up+blur output and
+    input, a D block's blur+down input and output."""
+    return ({(batch, mc.nf(lg - 2), 2 ** lg, 2 ** lg): 1 for lg in blocks},
+            {(batch, mc.nf(lg - 2), 2 ** (lg - 1), 2 ** (lg - 1)): 1
+             for lg in blocks})
 
 
 def _add(total: dict, part: dict) -> None:
@@ -498,6 +532,12 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     one blur+down (gain 4, to the block's input) a block; remat's
     recompute adds the two AdaIN a block alone (tests/test_torch_up2conv.
     py counts each form).
+
+    ``model.fold_width``: a folded block's ops are plain PyTorch. A folded
+    G block launches no AdaIN and no up+blur (so nothing in G's backward
+    or remat's recompute either, whatever the form); a folded D block no
+    blur+down, so none of the D backwards' up+blur nor R1's blur+down at
+    its shapes (tests/test_torch_folded.py counts this).
     """
     if recipe not in RECIPES:
         raise ValueError(f"recipe {recipe!r}: one of {RECIPES}")
@@ -506,9 +546,8 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     if mc.model == "resnetgan":
         return {}
     lg = mc.res_log2 if res_log2 is None else res_log2
-    down = {(batch, mc.nf(l - 2), 2 ** l, 2 ** l): 1 for l in range(3, lg + 1)}
-    up = {(batch, mc.nf(l - 2), 2 ** (l - 1), 2 ** (l - 1)): 1
-          for l in range(3, lg + 1)}
+    g_down, g_up = _block_shapes(mc, unfolded_blocks(mc, lg), batch)
+    down, up = _block_shapes(mc, unfolded_blocks(mc, lg, d=True), batch)
     serve = serving_shapes(mc, lg, batch)
     form = up2_form(mc.fused_up_conv)
     g_fwd = {"pixelnorm": {(2 * batch, mc.latent_dim): 1},
@@ -516,11 +555,11 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     d_fwd = {"blur_downsample_2x": down,
              "minibatch_stddev": {(batch, mc.nf(1), 4, 4): 1}}
     d_bwd = {"upsample_blur_2x": up}
-    g_bwd = {"blur_downsample_2x": down}
+    g_bwd = {"blur_downsample_2x": g_down}
     if form is None:
-        g_fwd["upsample_blur_2x"] = up
+        g_fwd["upsample_blur_2x"] = g_up
     elif form == "hybrid":                           # the two-op backward
-        g_bwd = {"blur_downsample_2x": down, "upsample_blur_2x": up}
+        g_bwd = {"blur_downsample_2x": g_down, "upsample_blur_2x": g_up}
     else:
         g_bwd = {}
     if recipe == "fused_g_step":
@@ -534,7 +573,7 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
     if mc.remat:                                     # G backward's recompute
         parts.append({"adain": {s: n for s, n in serve["adain"].items()
                                 if s[2] > 4},
-                      **({"upsample_blur_2x": up} if form is None else {})})
+                      **({"upsample_blur_2x": g_up} if form is None else {})})
     if r1:
         parts += [d_fwd, d_bwd, {"blur_downsample_2x": down}, d_bwd]
     total: dict = {}
@@ -549,12 +588,15 @@ def progan_g_launches(mc, res_log2=None, batch=BATCH) -> dict:
     block and twice in each block from 8x8 up (channel kernel). Every
     ``model.fused_up_conv`` form gives the same: the nearest upsample it
     composes into a block's first conv is plain PyTorch either way
-    (``'hybrid'``, blur taps only, raises as the G does)."""
-    if up2_form(mc.fused_up_conv) == "hybrid":
-        raise ValueError(HYBRID_NEAREST)
+    (``'hybrid'``, blur taps only, raises as the G does, unless every block
+    folds). A block that ``model.fold_width`` folds launches no pixelnorm:
+    its ``pixel_norm_folded`` is plain PyTorch."""
     lg = mc.res_log2 if res_log2 is None else res_log2
+    blocks = unfolded_blocks(mc, lg)
+    if blocks and up2_form(mc.fused_up_conv) == "hybrid":
+        raise ValueError(HYBRID_NEAREST)
     nchw = {}
-    for l in range(2, lg + 1):
+    for l in [2] + blocks:
         s = (batch, mc.nf(l - 1), 2 ** l, 2 ** l)
         nchw[s] = nchw.get(s, 0) + 2
     return {"pixelnorm": {(batch, mc.latent_dim): 1, **nchw},
@@ -3897,6 +3939,7 @@ def projector_shapes(mc, steps: int, batch: int = 1,
     outputs' shapes)."""
     assert not mc.remat          # remat would recompute blocks
     assert not mc.fused_up_conv  # the composed forms launch no up+blur
+    assert not mc.fold_width     # folded blocks launch neither kernel
     n = restarts * batch
     total = {"pixelnorm": {(max(256, pool - 1), mc.latent_dim): 1}}
     for served, times in ((serving_shapes(mc, batch=pool), 1),
@@ -4757,19 +4800,19 @@ def fused_op_checks() -> dict:
     return worst
 
 
-def fused_step_turns(card: str) -> dict:
+def bench_step_turns(card: str, label: str, variants: dict) -> dict:
     """The bench.py step (stylegan-256, fixed 256², batch 32, bf16, seeded
-    live weights) under the two-op form and each composed form, R1-off and
-    R1-on, read in turns over ``FUSED_ROUNDS`` rounds after a warm-up: ms
-    a step, the launches of our kernels a step equal to the derived ones,
-    peak memory in the last round (four states held), one profiled R1-off
-    and R1-on step of each (device busy, idle share)."""
+    live weights) under each of ``variants`` (name -> config sets), R1-off
+    and R1-on, read in turns over ``FUSED_ROUNDS`` rounds after a warm-up:
+    ms a step, the launches of our kernels a step equal to the derived
+    ones, peak memory in the last round (a state a variant held), one
+    profiled R1-off and R1-on step of each (device busy, idle share)."""
     gdata = torch.Generator(device="cuda").manual_seed(43)
     real = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=gdata,
                          device="cuda", dtype=torch.uint8)
     runs = {}
-    for form in FUSED_FORMS:
-        cfg = training_config(**_form_sets(form))
+    for form, sets in variants.items():
+        cfg = training_config(**sets)
         phase = build_phases(cfg.schedule, cfg.model)[-1]
         runs[form] = dict(
             state=_dp_state(cfg),
@@ -4790,7 +4833,7 @@ def fused_step_turns(card: str) -> dict:
                     run["peak"][r1] = \
                         torch.cuda.max_memory_allocated() / 2 ** 30
                 run["state"] = st
-                _check_accum_step(f"fused {form} R1-{'on' if r1 else 'off'} "
+                _check_accum_step(f"{label} {form} R1-{'on' if r1 else 'off'} "
                                   f"{rnd}", m, counts, run["expect"][r1], r1)
                 _add_counts(totals, counts)
                 if rnd:
@@ -4810,30 +4853,35 @@ def fused_step_turns(card: str) -> dict:
             key = "r1_on" if r1 else "r1_off"
             row[f"busy_ms_{key}"], row[f"idle_{key}"] = \
                 prof["busy_ms"], prof["idle_share"]
-        log(f"fused: bench step {form:7s}: {row['ms_r1_off']:.2f} ms an "
+        log(f"{label}: bench step {form:7s}: {row['ms_r1_off']:.2f} ms an "
             f"R1-off step, {row['ms_r1_on']:.2f} ms an R1-on step (medians "
             f"of {FUSED_ROUNDS}, in turns); device busy "
             f"{row['busy_ms_r1_off']:.2f} / {row['busy_ms_r1_on']:.2f} ms, "
             f"idle share {row['idle_r1_off']:.3f} / {row['idle_r1_on']:.3f}; "
             f"peak memory {row['peak_gib'][False]:.2f} / "
-            f"{row['peak_gib'][True]:.2f} GiB (four states held); launches "
-            f"a step {row['launches'][False]} / {row['launches'][True]} "
-            f"[{card}]")
+            f"{row['peak_gib'][True]:.2f} GiB ({len(variants)} states held); "
+            f"launches a step {row['launches'][False]} / "
+            f"{row['launches'][True]} [{card}]")
     runs.clear()
     torch.cuda.empty_cache()
     return dict(out, launches=totals)
 
 
-def fused_images(card: str) -> dict:
-    """``BatchSampler`` at batch 32 under each form (one set of seeded
-    weights, as phase 5's): img/s and batch latency, each form's launches
-    over those 17 batches as derived; then 32 images of each form in bf16
-    against the float32 two-op images on the same z and noise maps (TF32
-    off): the largest and the mean error no more than twice the bf16
-    two-op images' (ROADMAP C, precision)."""
-    samplers = {f: make_sampler(get_config("stylegan-256", **_form_sets(f)))
-                for f in FUSED_FORMS}
-    two = samplers["two_op"]
+def served_images(card: str, label: str, variants: dict,
+                  f32_rtol: float | None = None) -> dict:
+    """``BatchSampler`` of stylegan-256 at batch 32 under each of
+    ``variants`` (name -> config sets; one set of seeded weights, as phase
+    5's): img/s and batch latency, each variant's launches over those 17
+    batches as derived; then 32 images of each variant in bf16 against the
+    float32 images of the first variant on the same z and noise maps (TF32
+    off): the largest and the mean error no more than twice the first
+    variant's own bf16 images' (ROADMAP C, precision). With ``f32_rtol``,
+    each variant's float32 images also within ``f32_rtol`` of the scale of
+    the first's."""
+    samplers = {f: make_sampler(get_config("stylegan-256", **sets))
+                for f, sets in variants.items()}
+    first = next(iter(variants))
+    two = samplers[first]
     lg, mc = two.res_log2, two.g.cfg
     gz = torch.Generator(device="cuda").manual_seed(19)
     z = torch.randn(BATCH, mc.latent_dim, generator=gz, device="cuda")
@@ -4842,12 +4890,16 @@ def fused_images(card: str) -> dict:
     s32 = build_sample_fn(get_config("stylegan-256", **{
         "run.compute_dtype": "float32"}), lg)
     sbf = build_sample_fn(get_config("stylegan-256"), lg)
-    errs = {}
+    errs, f32_errs = {}, {}
     with torch.inference_mode():
         want = s32(two.g, two.w_avg, z, None, 0.7, 1.0, noises)
+        scale = want.abs().max().item()
         for form, s in samplers.items():
             d = (sbf(s.g, s.w_avg, z, None, 0.7, 1.0, noises) - want).abs()
             errs[form] = (d.max().item(), d.mean().item())
+            if f32_rtol is not None:
+                f32_errs[form] = (s32(s.g, s.w_avg, z, None, 0.7, 1.0, noises)
+                                  - want).abs().max().item() / scale
     totals = {n: 0 for n in KERNELS}
     out = {}
     for form, s in samplers.items():
@@ -4859,19 +4911,27 @@ def fused_images(card: str) -> dict:
         want_counts = {n: 16 * v for n, v in
                        launch_totals(serving_shapes(s.g.cfg)).items()}
         if {n: counts[n] for n in want_counts} != want_counts:
-            raise AssertionError(f"fused: served {form}: launches {counts}, "
-                                 f"derived {want_counts} for 16 batches")
-        out[form] = dict(perf, max_err=errs[form][0], mean_err=errs[form][1])
-        log(f"fused: served {form:7s}: {perf['img_per_s']:.1f} img/s, batch "
-            f"latency median {perf['batch_ms_median']:.2f} ms max "
-            f"{perf['batch_ms_max']:.2f} ms; bf16 image vs the f32 two-op "
-            f"image: max {errs[form][0]:.4e} mean {errs[form][1]:.4e}; "
-            f"launches {counts} [{card}]")
-    ref = errs["two_op"]
+            raise AssertionError(f"{label}: served {form}: launches "
+                                 f"{counts}, derived {want_counts} for 16 "
+                                 f"batches")
+        out[form] = dict(perf, max_err=errs[form][0], mean_err=errs[form][1],
+                         f32_err=f32_errs.get(form))
+        log(f"{label}: served {form:7s}: {perf['img_per_s']:.1f} img/s, "
+            f"batch latency median {perf['batch_ms_median']:.2f} ms max "
+            f"{perf['batch_ms_max']:.2f} ms; bf16 image vs the f32 {first} "
+            f"image: max {errs[form][0]:.4e} mean {errs[form][1]:.4e}"
+            + (f"; f32 image vs the f32 {first} image: "
+               f"{f32_errs[form]:.3e} of the scale (tol {f32_rtol:g})"
+               if f32_rtol is not None else "")
+            + f"; launches {counts} [{card}]")
+    ref = errs[first]
     for form, (mx, mean) in errs.items():
         if not (mx <= 2 * ref[0] and mean <= 2 * ref[1]):
-            raise AssertionError(f"fused: bf16 {form} image error {mx} / "
-                                 f"{mean} above twice the two-op's {ref}")
+            raise AssertionError(f"{label}: bf16 {form} image error {mx} / "
+                                 f"{mean} above twice the {first}'s {ref}")
+        if f32_rtol is not None and not f32_errs[form] <= f32_rtol:
+            raise AssertionError(f"{label}: f32 {form} image "
+                                 f"{f32_errs[form]:.3e} of the scale")
     return dict(out, launches=totals)
 
 
@@ -4964,12 +5024,10 @@ def fused_progan(card: str) -> dict:
     return dict(ms=out, launches=totals)
 
 
-def fused_export(card: str) -> dict:
-    """The exported stylegan-256 sampler (cuda program, batch 32) under the
-    dilated form against ``BatchSampler`` under the same form on the same
-    weights: the same bits, and the program's launches a batch as derived
-    (no up+blur)."""
-    cfg = get_config("stylegan-256", **_form_sets("dilated"))
+def export_check(card: str, label: str, cfg) -> dict:
+    """The exported stylegan-256 sampler of ``cfg`` (cuda program, batch
+    32) against ``BatchSampler`` of ``cfg`` on the same weights: the same
+    bits, and the program's launches a batch as derived."""
     sampler = make_sampler(cfg)
     path = os.path.join(tempfile.mkdtemp(prefix="ganlab_export_"),
                         "sampler.ganlab.zip")
@@ -4988,16 +5046,16 @@ def fused_export(card: str) -> dict:
         shutil.rmtree(os.path.dirname(path), ignore_errors=True)
     want = launch_totals(serving_shapes(cfg.model))
     if {n: counts[n] for n in want} != want:
-        raise AssertionError(f"fused: exported launches {counts}, derived "
+        raise AssertionError(f"{label}: exported launches {counts}, derived "
                              f"{want}")
     b = sampler.generate(BATCH, seed=3)
     equal = float((a == b).mean())
-    log(f"fused: exported sampler (dilated) against BatchSampler "
-        f"(dilated), {BATCH} images: equal share {equal:.6f}, max level "
-        f"difference {np.abs(a.astype(int) - b.astype(int)).max()}; "
-        f"exported in {export_s:.1f} s; launches {counts} [{card}]")
+    log(f"{label}: exported sampler against BatchSampler, {BATCH} images: "
+        f"equal share {equal:.6f}, max level difference "
+        f"{np.abs(a.astype(int) - b.astype(int)).max()}; exported in "
+        f"{export_s:.1f} s; launches {counts} [{card}]")
     if not np.array_equal(a, b):
-        raise AssertionError("fused: the exported sampler's bits differ "
+        raise AssertionError(f"{label}: the exported sampler's bits differ "
                              "from BatchSampler's")
     return dict(launches=counts, export_s=export_s)
 
@@ -5005,12 +5063,12 @@ def fused_export(card: str) -> dict:
 def phase_fused(card: str) -> dict:
     """``model.fused_up_conv`` at full width: ``fused_op_checks`` (each form
     against the two-op form at every block shape, the hybrid's gradients),
-    ``fused_step_turns`` (the bench.py step under each form in turns),
-    ``fused_images`` (served img/s and latency, the bf16 image rule), one
+    ``bench_step_turns`` (the bench.py step under each form in turns),
+    ``served_images`` (served img/s and latency, the bf16 image rule), one
     graphed chunked cycle pair at 256² under the dilated form (eager lazy
     stepper against graphed chunked stepper, bit for bit, deterministic
     cuDNN), ``fused_1024`` (peak memory and ms at 1024², remat off and on),
-    ``fused_progan`` and ``fused_export``."""
+    ``fused_progan`` and ``export_check`` under the dilated form."""
     t_phase = time.perf_counter()
     out, spent = {}, {}
 
@@ -5020,9 +5078,10 @@ def phase_fused(card: str) -> dict:
         spent[name] = time.perf_counter() - t0
         return out[name]
 
+    variants = {f: _form_sets(f) for f in FUSED_FORMS}
     part("ops", fused_op_checks)
-    part("bench", fused_step_turns, card)
-    part("images", fused_images, card)
+    part("bench", bench_step_turns, card, "fused", variants)
+    part("images", served_images, card, "fused", variants)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -5035,11 +5094,150 @@ def phase_fused(card: str) -> dict:
     torch.cuda.empty_cache()
     part("1024", fused_1024, card)
     part("progan", fused_progan, card)
-    part("export", fused_export, card)
+    part("export", export_check, card, "fused",
+         get_config("stylegan-256", **_form_sets("dilated")))
     totals = {n: 0 for n in KERNELS}
     for name in ("bench", "images", "graphs", "1024", "progan", "export"):
         _add_counts(totals, out[name]["launches"])
     log(f"fused: phase 17 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f" [{card}]")
+    return dict(out, launches=totals)
+
+
+# -- 18. model.fold_width ---------------------------------------------------------
+FOLD_VARIANTS = {"off": {}, "on": {"model.fold_width": True}}
+FOLD_RTOL = 1e-4               # fold on vs off, f32, of the output's scale
+FOLD_1K_STEPS = 3              # steps at 1024² a kind, the first a warm-up
+
+
+def fold_d_scores(card: str) -> dict:
+    """The stylegan-256 D (blur + downsample, full width) with fold on and
+    off on the same seeded weights (every bias live) and the same 32
+    images at 256²: float32 scores (TF32 off) within ``FOLD_RTOL`` of
+    their scale; bf16 scores no further from the float32 fold-off scores
+    than twice fold off's own bf16 scores."""
+    ds = {}
+    for name, sets in FOLD_VARIANTS.items():
+        torch.manual_seed(0)
+        ds[name] = port_models.build_models(
+            get_config("stylegan-256", **sets).model)[1]
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for k, v in ds["off"].state_dict().items():
+            if k.endswith(".b"):
+                v += 0.2 * torch.randn(v.shape, generator=gen)
+        ds["on"].load_state_dict(ds["off"].state_dict())
+    for d in ds.values():
+        d.to("cuda").requires_grad_(False)
+    assert ds["on"].block256.fold and not ds["on"].block128.fold
+    img = torch.rand(BATCH, 3, 256, 256, generator=torch.Generator(
+        device="cuda").manual_seed(8), device="cuda") * 2 - 1
+    with torch.inference_mode():
+        want = ds["off"](img)
+        scale = want.abs().max().item()
+        f32 = (ds["on"](img) - want).abs().max().item() / scale
+        bf = {k: (d(img.bfloat16()).float() - want).abs().max().item()
+              for k, d in ds.items()}
+    log(f"fold: D scores at 256², batch {BATCH}: f32 fold on vs off "
+        f"{f32:.3e} of the scale (tol {FOLD_RTOL:g}); bf16 vs the f32 off "
+        f"scores: off {bf['off']:.4e}, on {bf['on']:.4e} [{card}]")
+    if not f32 <= FOLD_RTOL:
+        raise AssertionError(f"fold: f32 D scores {f32:.3e} of the scale")
+    if not bf["on"] <= 2 * bf["off"]:
+        raise AssertionError(f"fold: bf16 D scores {bf}")
+    return dict(f32_err=f32, bf16_err=bf)
+
+
+def fold_1024(card: str) -> dict:
+    """stylegan-1024 at 1024² and its batch of 4 with remat, fold off and
+    on (six folded blocks: 256², 512², 1024² of G and D): ms of R1-off and
+    R1-on steps (medians after a warm-up step of each), peak memory above
+    what was held before the state, each step's launches as derived."""
+    out, totals = {}, {n: 0 for n in KERNELS}
+    for name, sets in FOLD_VARIANTS.items():
+        cfg = get_config("stylegan-1024", **{"model.remat": True, **sets})
+        phase = build_phases(cfg.schedule, cfg.model)[-1]
+        b = phase.batch_size
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        state = create_train_state(cfg, seed=0)
+        real = _device_stack(1, b, 1024, seed=13)[0]
+        torch.cuda.reset_peak_memory_stats()
+        row = {}
+        for r1 in (False, True):
+            step = train_steps.build_train_step(cfg, phase,
+                                                penalty_override=r1)
+            expect = launch_totals(step_launches(cfg.model, r1, batch=b))
+            ms = []
+            for i in range(FOLD_1K_STEPS):
+                state, m, t, counts = _timed_step(step, state, real)
+                _check_accum_step(f"fold 1024² {name} R1 {r1} {i}", m,
+                                  counts, expect, r1)
+                _add_counts(totals, counts)
+                ms.append(t)
+            row["ms_r1_on" if r1 else "ms_r1_off"] = statistics.median(
+                ms[1:])
+            row["launches_r1_on" if r1 else "launches_r1_off"] = expect
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 - base
+        out[name] = row
+        log(f"fold: stylegan-1024 1024² batch {b} remat, fold {name} "
+            f"(folded blocks {[2 ** l for l in range(3, 11) if cfg.model.fold_block(l)]}): "
+            f"R1-off {row['ms_r1_off']:.1f} ms, R1-on {row['ms_r1_on']:.1f} "
+            f"ms (medians of {FOLD_1K_STEPS - 1}), peak {row['peak_gib']:.3f} "
+            f"GiB above the {base:.2f} GiB held before; launches "
+            f"{row['launches_r1_off']} / {row['launches_r1_on']} [{card}]")
+        del state, step, real
+    on, off = out["on"], out["off"]
+    log(f"fold: 1024² fold on against off: {on['ms_r1_off'] - off['ms_r1_off']:+.1f} "
+        f"ms R1-off, {on['ms_r1_on'] - off['ms_r1_on']:+.1f} ms R1-on, "
+        f"{on['peak_gib'] - off['peak_gib']:+.3f} GiB peak [{card}]")
+    return dict(runs=out, launches=totals)
+
+
+def phase_fold(card: str) -> dict:
+    """``model.fold_width`` at full width: the bench.py step with fold off
+    and on in turns (``bench_step_turns``: ms, busy, idle, peak, launches
+    as derived); ``served_images`` (img/s, latency; the float32 G images
+    within ``FOLD_RTOL`` of fold off's, bf16 within twice fold off's
+    error); ``fold_d_scores``; the exported folded sampler against
+    ``BatchSampler``; one graphed chunked cycle pair at 256² under fold
+    (bit for bit, deterministic cuDNN); ``fold_1024``; a float32 folded
+    step of stylegan-256 and of progan-128 at 32² (every block folded),
+    card against CPU, within the unfolded step's limits."""
+    t_phase = time.perf_counter()
+    out, spent = {}, {}
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out[name] = fn(*args, **kw)
+        spent[name] = time.perf_counter() - t0
+        return out[name]
+
+    part("bench", bench_step_turns, card, "fold", FOLD_VARIANTS)
+    part("images", served_images, card, "fold", FOLD_VARIANTS,
+         f32_rtol=FOLD_RTOL)
+    part("d", fold_d_scores, card)
+    part("export", export_check, card, "fold",
+         get_config("stylegan-256", **FOLD_VARIANTS["on"]))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = training_config(**FOLD_VARIANTS["on"])
+        part("graphs", chunk_pair, "stylegan-256 256x256 batch 32 folded",
+             cfg, build_phases(cfg.schedule, cfg.model)[-1], card,
+             timed=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    part("1024", fold_1024, card)
+    part("f32", lambda: [phase_train_card_vs_cpu(p, sets=FOLD_VARIANTS["on"])
+                         for p in ("stylegan-256", "progan-128")])
+    totals = {n: 0 for n in KERNELS}
+    for name in ("bench", "images", "export", "graphs", "1024"):
+        _add_counts(totals, out[name]["launches"])
+    log(f"fold: phase 18 took {time.perf_counter() - t_phase:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
         + f" [{card}]")
     return dict(out, launches=totals)
@@ -5140,6 +5338,7 @@ def main(kernels_only: bool = False) -> None:
     recipes = run(phase_recipes, card)
     chunked = run(phase_chunked, card)
     fused = run(phase_fused, card)
+    fold = run(phase_fold, card)
     log("seconds a phase: " + ", ".join(f"{name[6:]} {s:.1f}"
                                         for name, s in spent.items()))
     kernels = []
@@ -5167,7 +5366,8 @@ def main(kernels_only: bool = False) -> None:
                     "projector": proj["launches"][name],
                     "recipes": recipes["launches"][name],
                     "chunked": chunked["launches"][name],
-                    "fused_up_conv": fused["launches"][name]}
+                    "fused_up_conv": fused["launches"][name],
+                    "fold_width": fold["launches"][name]}
         row = {
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
@@ -5192,6 +5392,11 @@ def main(kernels_only: bool = False) -> None:
                 form: {"r1_off": fused["bench"][form]["launches"][False][name],
                        "r1_on": fused["bench"][form]["launches"][True][name]}
                 for form in FUSED_FORMS},
+            # the same under model.fold_width off / on, phase 18's counts
+            "launches_per_step_by_fold": {
+                v: {"r1_off": fold["bench"][v]["launches"][False][name],
+                    "r1_on": fold["bench"][v]["launches"][True][name]}
+                for v in FOLD_VARIANTS},
             "launches_per_stylegan2_step": {
                 "neither": launch_totals(stylegan2_step_launches(
                     m2, False, False, batch=SG2_BATCH,

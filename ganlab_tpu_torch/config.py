@@ -3,10 +3,9 @@
 A stdlib-only copy of ``ganlab_tpu/config.py``: the port imports nothing of
 the JAX package, so it keeps its own. Field names, defaults and presets are
 identical (``tests/test_torch_config.py`` holds every preset's
-``dataclasses.asdict`` equal between the two packages). Two knobs are not
-ported: the TPU layout ``fold_width``, which the port's models reject, and
-``run.use_pallas``, which the port ignores (it always runs its kernels on
-the card).
+``dataclasses.asdict`` equal between the two packages). One knob is read
+by nothing: ``run.use_pallas`` (the port always runs its kernels on the
+card). ``model.fold_width`` is ported (``ops/folded.py``).
 
 A config fully determines dataset, resolution schedule, loss, penalty,
 optimizer, EMA, and sampling behavior.
@@ -79,8 +78,9 @@ class ModelConfig:
     # Read by the StyleGAN and ProGAN generators; StyleGAN2 ignores it.
     fused_up_conv: bool | str = False
 
-    # Evaluate low-channel high-res blocks width-folded to fill the TPU's
-    # 128-lane tiles (JAX package only; the port rejects it).
+    # Evaluate low-channel high-res blocks width-folded (ops/folded.py):
+    # exact math, the same parameters; the StyleGAN and ProGAN G and the
+    # non-residual D read it.
     fold_width: bool = False
     # Fold blocks whose feature count is <= this (128 lanes / FOLD=2).
     fold_max_channels: int = 64

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ganlab_tpu_torch.ops import equalized as eq
+from ganlab_tpu_torch.ops import folded as fd
 
 
 def _scaled_normal(shape, lr_mult: float) -> nn.Parameter:
@@ -62,23 +63,31 @@ class EqualConv(nn.Module):
     ``'dilated'``, ``'poly'`` or ``'hybrid'``. Exact to the two-op form;
     the weight stays the ordinary (out, in, k, k) tensor, so parameters
     and checkpoints are those of the unfused conv.
+
+    ``fold``: the input is width-folded (``ops.folded``) and so is the
+    output; ``in_ch`` and the weight stay logical. Never with ``up2``.
     """
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, *,
                  gain: float = math.sqrt(2.0), lr_mult: float = 1.0,
                  use_bias: bool = True, up2: str | None = None,
-                 up2_form: str = "dilated"):
+                 up2_form: str = "dilated", fold: bool = False):
         super().__init__()
         if up2 == "nearest" and up2_form == "hybrid":
             raise ValueError(eq.HYBRID_NEAREST)
+        if fold and up2 is not None:
+            raise ValueError("EqualConv: fold with up2")
         self.gain, self.lr_mult = gain, lr_mult
-        self.up2, self.up2_form = up2, up2_form
+        self.up2, self.up2_form, self.fold = up2, up2_form, fold
         self.w = _scaled_normal((features, in_ch, kernel, kernel), lr_mult)
         self.b = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.w.to(x.dtype)
         b = None if self.b is None else self.b.to(x.dtype)
+        if self.fold:
+            return eq.equalized_conv2d_folded(x, w, b, gain=self.gain,
+                                              lr_mult=self.lr_mult)
         if self.up2 is not None:
             return eq.equalized_conv2d_up2(
                 x, w, b, taps=None if self.up2 == "nearest" else
@@ -93,18 +102,25 @@ class NoiseInjection(nn.Module):
 
     The noise image is single-channel (N, 1, H, W), broadcast over
     channels: either given explicitly or drawn from ``generator``.
+    ``fold``: x is width-folded (``ops.folded``); the noise image is the
+    logical one all the same, drawn in that shape and folded, so fold on
+    and off add the same noise.
     """
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, fold: bool = False):
         super().__init__()
+        self.fold = fold
         self.scale = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, noise: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         if noise is None:
             n, _, h, w = x.shape
-            noise = torch.randn((n, 1, h, w), generator=generator,
-                                device=x.device, dtype=x.dtype)
+            noise = torch.randn((n, 1, h, w * fd.FOLD if self.fold else w),
+                                generator=generator, device=x.device,
+                                dtype=x.dtype)
+        if self.fold:
+            return fd.noise_folded(x, self.scale, noise)
         return x + self.scale.to(x.dtype)[None, :, None, None] \
             * noise.to(x.dtype)
 

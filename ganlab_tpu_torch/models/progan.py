@@ -30,8 +30,11 @@ beside the main branch, the sum scaled by 1/sqrt(2).
 (``torch.utils.checkpoint``; R1's and WGAN-GP's double backward passes
 through it), as the JAX package wraps ``GBlock`` and ``DBlock`` in
 ``nn.remat``. ``model.fused_up_conv`` composes each G block's nearest
-upsample into its first conv (``GBlock``); the JAX package's TPU layout
-knob ``fold_width`` is rejected.
+upsample into its first conv (``GBlock``). ``model.fold_width``
+evaluates the blocks that ``cfg.fold_block`` selects width-folded
+(``ops.folded``; in the D not the residual blocks, as in the JAX
+package): the same parameters and values, the blocks' inputs and outputs
+unfolded.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from ganlab_tpu_torch.ops import (
     rounded,
     upsample_nearest_2x,
 )
+from ganlab_tpu_torch.ops import folded as fd
 
 
 def static_stable(alpha) -> bool:
@@ -71,14 +75,6 @@ def takes_fade_branch(alpha, fade: bool | None) -> bool:
     return not static_stable(alpha) if fade is None else bool(fade)
 
 
-def reject_tpu_knobs(cfg: ModelConfig) -> None:
-    """Raise on the JAX package's TPU layout knob ``fold_width``."""
-    if cfg.fold_width:
-        raise NotImplementedError(
-            "model.fold_width is a TPU-only knob of the JAX package; the "
-            "PyTorch port does not implement it")
-
-
 def _checkpointed(block: nn.Module, x: torch.Tensor, remat: bool):
     """``block(x)``, its activations recomputed in the backward when
     ``remat`` (and autograd records)."""
@@ -93,19 +89,27 @@ class GBlock(nn.Module):
 
     ``fused_up`` (``model.fused_up_conv``) composes the nearest upsample
     into conv0: True is the dilated form, ``'poly'`` the polyphase one;
-    ``'hybrid'`` has no nearest variant and raises ``ValueError``."""
+    ``'hybrid'`` has no nearest variant and raises ``ValueError``.
+    ``fold`` evaluates the block width-folded (``ops.folded``; before
+    ``fused_up``, which it then ignores, as in the JAX package)."""
 
     def __init__(self, in_ch: int, features: int,
-                 fused_up: bool | str = False):
+                 fused_up: bool | str = False, fold: bool = False):
         super().__init__()
-        form = up2_form(fused_up)
+        self.fold = fold
+        form = None if fold else up2_form(fused_up)
         self.fused = form is not None
         self.conv0 = EqualConv(in_ch, features, 3,
                                up2="nearest" if self.fused else None,
-                               up2_form=form or "dilated")
-        self.conv1 = EqualConv(features, features, 3)
+                               up2_form=form or "dilated", fold=fold)
+        self.conv1 = EqualConv(features, features, 3, fold=fold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold:
+            x = self.conv0(fd.upsample_blur_2x_folded(x, blur=False))
+            x = fd.pixel_norm_folded(fd.leaky_relu_folded(x))
+            x = fd.pixel_norm_folded(fd.leaky_relu_folded(self.conv1(x)))
+            return fd.unfold_w(x)
         x = self.conv0(x if self.fused else upsample_nearest_2x(x))
         x = pixel_norm(leaky_relu(x), dim=1)
         return pixel_norm(leaky_relu(self.conv1(x)), dim=1)
@@ -139,7 +143,6 @@ class ProGenerator(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        reject_tpu_knobs(cfg)
         self.cfg = cfg
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
@@ -147,7 +150,7 @@ class ProGenerator(nn.Module):
         for lg in range(3, self.max_log2 + 1):
             self.add_module(f"block{2 ** lg}",
                             GBlock(cfg.nf(lg - 2), cfg.nf(lg - 1),
-                                   cfg.fused_up_conv))
+                                   cfg.fused_up_conv, cfg.fold_block(lg)))
         for lg in range(2, self.max_log2 + 1):
             self.add_module(f"torgb{2 ** lg}", EqualConv(
                 cfg.nf(lg - 1), cfg.img_channels, 1, gain=1.0))
@@ -178,22 +181,34 @@ class DBlock(nn.Module):
     """One discriminator block: 2x (conv3x3 + lrelu) -> downsample.
 
     ``resnet``: plus a skip branch, 1x1 conv (no bias, gain 1) ->
-    downsample, and the sum of the two branches times 1/sqrt(2)."""
+    downsample, and the sum of the two branches times 1/sqrt(2).
+
+    ``fold``: evaluated width-folded (``ops.folded``): folded on entry,
+    and the downsample lands back on the unfolded width. The residual
+    block has no folded form and raises the JAX package's
+    ``AssertionError``."""
 
     def __init__(self, in_ch: int, features_in: int, features_out: int,
-                 blur: bool = False, resnet: bool = False):
+                 blur: bool = False, resnet: bool = False,
+                 fold: bool = False):
         super().__init__()
-        self.blur, self.resnet = blur, resnet
+        if resnet and fold:
+            raise AssertionError("resnet DBlock does not implement fold")
+        self.blur, self.resnet, self.fold = blur, resnet, fold
         if resnet:
             self.skip = EqualConv(in_ch, features_out, 1, gain=1.0,
                                   use_bias=False)
-        self.conv0 = EqualConv(in_ch, features_in, 3)
-        self.conv1 = EqualConv(features_in, features_out, 3)
+        self.conv0 = EqualConv(in_ch, features_in, 3, fold=fold)
+        self.conv1 = EqualConv(features_in, features_out, 3, fold=fold)
 
     def _down(self, x: torch.Tensor) -> torch.Tensor:
         return blur_downsample_2x(x) if self.blur else downsample_avg_2x(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold:
+            x = fd.leaky_relu_folded(self.conv0(fd.fold_w(x)))
+            x = fd.leaky_relu_folded(self.conv1(x))
+            return fd.blur_downsample_2x_folded(x, blur=self.blur)
         skip = self._down(self.skip(x)) if self.resnet else None
         x = leaky_relu(self.conv0(x))
         x = self._down(leaky_relu(self.conv1(x)))
@@ -225,7 +240,6 @@ class ProDiscriminator(nn.Module):
 
     def __init__(self, cfg: ModelConfig, blur_resample: bool = False):
         super().__init__()
-        reject_tpu_knobs(cfg)
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         for lg in range(2, self.max_log2 + 1):
@@ -234,7 +248,8 @@ class ProDiscriminator(nn.Module):
         for lg in range(3, self.max_log2 + 1):
             self.add_module(f"block{2 ** lg}", DBlock(
                 cfg.nf(lg - 1), cfg.nf(lg - 1), cfg.nf(lg - 2),
-                blur=blur_resample, resnet=cfg.d_resnet))
+                blur=blur_resample, resnet=cfg.d_resnet,
+                fold=cfg.fold_block(lg) and not cfg.d_resnet))
         self.block4_out = DOutputBlock(cfg.nf(1), cfg.mbstd_group_size)
 
     def forward(self, img: torch.Tensor, res_log2: int | None = None,

@@ -14,9 +14,11 @@ same module and parameter names:
 backward pass (``torch.utils.checkpoint``, as the JAX package wraps the
 blocks in ``nn.remat``): same values and gradients, less memory.
 ``model.fused_up_conv`` composes each block's upsample into its first
-conv (``SynthesisBlock``); the JAX package's TPU layout knob
-``fold_width`` is rejected. Explicit noise maps are (N, 1, H, W), one per
-style layer in the order of :func:`noise_shapes`.
+conv (``SynthesisBlock``). ``model.fold_width`` evaluates the blocks that
+``cfg.fold_block`` selects width-folded (``ops.folded``): the same
+parameters and, on the same noise, the same images. Explicit noise maps
+are (N, 1, H, W), one per style layer in the order of
+:func:`noise_shapes`, folded or not.
 """
 
 from __future__ import annotations
@@ -36,10 +38,7 @@ from ganlab_tpu_torch.models.layers import (
     StyleAffine,
     up2_form,
 )
-from ganlab_tpu_torch.models.progan import (
-    reject_tpu_knobs,
-    takes_fade_branch,
-)
+from ganlab_tpu_torch.models.progan import takes_fade_branch
 from ganlab_tpu_torch.ops import (
     adain,
     fade_in,
@@ -48,6 +47,7 @@ from ganlab_tpu_torch.ops import (
     upsample_blur_2x,
     upsample_nearest_2x,
 )
+from ganlab_tpu_torch.ops import folded as fd
 
 
 def num_style_layers(res_log2: int) -> int:
@@ -81,18 +81,23 @@ class MappingNetwork(nn.Module):
 
 
 class StyleLayer(nn.Module):
-    """Noise -> bias -> LeakyReLU -> AdaIN, after a bias-free conv."""
+    """Noise -> bias -> LeakyReLU -> AdaIN, after a bias-free conv; with
+    ``fold`` on a width-folded x (the same parameters and math)."""
 
-    def __init__(self, channels: int, w_dim: int):
+    def __init__(self, channels: int, w_dim: int, fold: bool = False):
         super().__init__()
-        self.noise = NoiseInjection(channels)
+        self.fold = fold
+        self.noise = NoiseInjection(channels, fold=fold)
         self.bias = nn.Parameter(torch.zeros(channels))
         self.style = StyleAffine(w_dim, channels)
 
     def forward(self, x, w, noise=None, generator=None):
         x = self.noise(x, noise, generator)
-        x = leaky_relu(x + self.bias.to(x.dtype)[None, :, None, None])
         ys, yb = self.style(w)
+        if self.fold:
+            x = leaky_relu(fd.bias_folded(x, self.bias))
+            return fd.adain_folded(x, ys, yb)
+        x = leaky_relu(x + self.bias.to(x.dtype)[None, :, None, None])
         return adain(x, ys.to(x.dtype), yb.to(x.dtype))
 
 
@@ -101,30 +106,41 @@ class SynthesisBlock(nn.Module):
 
     ``fused_up`` (``model.fused_up_conv``) composes the upsample into
     conv0 (``layers.EqualConv``'s ``up2``): True is the dilated form,
-    ``'poly'`` / ``'hybrid'`` the others, False the two-op form."""
+    ``'poly'`` / ``'hybrid'`` the others, False the two-op form.
+
+    ``fold`` (``cfg.fold_block``) evaluates the whole block width-folded
+    (``ops.folded``): the upsample makes the folded tensor, the convs and
+    epilogues run on it, and the output is unfolded, so the block's input
+    and output are those of the unfolded block. It takes precedence over
+    ``fused_up``, as in the JAX package."""
 
     def __init__(self, in_ch: int, features: int, w_dim: int,
-                 blur: bool = True, fused_up: bool | str = False):
+                 blur: bool = True, fused_up: bool | str = False,
+                 fold: bool = False):
         super().__init__()
-        self.blur = blur
-        form = up2_form(fused_up)
+        self.blur, self.fold = blur, fold
+        form = None if fold else up2_form(fused_up)
         self.fused = form is not None
         self.conv0 = EqualConv(
             in_ch, features, 3, use_bias=False,
             up2=("blur" if blur else "nearest") if self.fused else None,
-            up2_form=form or "dilated")
-        self.style0 = StyleLayer(features, w_dim)
-        self.conv1 = EqualConv(features, features, 3, use_bias=False)
-        self.style1 = StyleLayer(features, w_dim)
+            up2_form=form or "dilated", fold=fold)
+        self.style0 = StyleLayer(features, w_dim, fold)
+        self.conv1 = EqualConv(features, features, 3, use_bias=False,
+                               fold=fold)
+        self.style1 = StyleLayer(features, w_dim, fold)
 
     def forward(self, x, w_a, w_b, noise_a=None, noise_b=None,
                 generator=None):
-        if not self.fused:
+        if self.fold:
+            x = fd.upsample_blur_2x_folded(x, blur=self.blur)
+        elif not self.fused:
             x = upsample_blur_2x(x) if self.blur else upsample_nearest_2x(x)
         x = self.conv0(x)
         x = self.style0(x, w_a, noise_a, generator)
         x = self.conv1(x)
-        return self.style1(x, w_b, noise_b, generator)
+        x = self.style1(x, w_b, noise_b, generator)
+        return fd.unfold_w(x) if self.fold else x
 
 
 def _remat_block(block: SynthesisBlock, x, w_a, w_b, noise_a, noise_b,
@@ -153,7 +169,6 @@ class SynthesisNetwork(nn.Module):
 
     def __init__(self, cfg: ModelConfig, blur: bool = True):
         super().__init__()
-        reject_tpu_knobs(cfg)
         self.remat = cfg.remat
         self.max_log2 = cfg.res_log2
         w_dim = cfg.latent_dim
@@ -164,7 +179,7 @@ class SynthesisNetwork(nn.Module):
         for lg in range(3, self.max_log2 + 1):
             self.add_module(f"block{2 ** lg}", SynthesisBlock(
                 cfg.nf(lg - 2), cfg.nf(lg - 1), w_dim, blur=blur,
-                fused_up=cfg.fused_up_conv))
+                fused_up=cfg.fused_up_conv, fold=cfg.fold_block(lg)))
         for lg in range(2, self.max_log2 + 1):
             self.add_module(f"torgb{2 ** lg}", EqualConv(
                 cfg.nf(lg - 1), cfg.img_channels, 1, gain=1.0))

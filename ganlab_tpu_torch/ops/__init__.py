@@ -2,6 +2,7 @@
 
 from ganlab_tpu_torch.ops.equalized import (
     equalized_conv2d,
+    equalized_conv2d_folded,
     equalized_conv2d_up2,
     equalized_dense,
     he_constant,

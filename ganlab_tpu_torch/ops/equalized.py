@@ -89,6 +89,25 @@ def equalized_conv2d_up2(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def equalized_conv2d_folded(x_f: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor | None = None, *,
+                            gain: float = math.sqrt(2.0),
+                            lr_mult: float = 1.0) -> torch.Tensor:
+    """Equalized-LR SAME conv of a WIDTH-FOLDED activation
+    (``ops.folded``); ``w`` is the ordinary logical (O, I, kh, kw) weight,
+    folded at call time, so parameters and checkpoints are those of the
+    unfolded conv. The He constant uses the logical fan-in, and the weight
+    is scaled before it is folded, as the JAX op does."""
+    from ganlab_tpu_torch.ops import folded as fd
+
+    _, in_ch, kh, kw = w.shape
+    scale = he_constant(kh * kw * in_ch, gain) * lr_mult
+    y = fd.conv2d_folded(x_f, (w * scale).to(x_f.dtype))
+    if b is not None:
+        y = fd.bias_folded(y, b * lr_mult)
+    return y
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     """LeakyReLU(0.2), the activation used throughout ProGAN/StyleGAN."""
     return F.leaky_relu(x, slope)

@@ -185,6 +185,10 @@ def project(cfg: Config, g: torch.nn.Module, w_avg: torch.Tensor,
     n_c = max(num_candidates, n_r)
     if not style:
         optimize_noise = False        # the z families have no noise layers
+    if optimize_noise and cfg.model.model == "stylegan" and any(
+            cfg.model.fold_block(l) for l in range(3, lg + 1)):
+        # the JAX package's folded blocks take no explicit noise maps
+        raise AssertionError("explicit noise unsupported when folded")
     if draws is None:
         draws = draw_projection(
             cfg, lg, batch, num_steps=num_steps, num_restarts=n_r,

@@ -78,9 +78,11 @@ def test_d_forward_and_input_grad(pair, lg, alpha):
 
 
 def test_unported_d_knobs_are_rejected():
-    """model.remat is ported (tests/test_torch_remat.py) and so is
-    model.d_resnet (residual blocks, tests/test_torch_stylegan2.py): a D
-    with it builds; the TPU layout knob fold_width is rejected."""
+    """model.remat is ported (tests/test_torch_remat.py), and so are
+    model.d_resnet (residual blocks, tests/test_torch_stylegan2.py) and
+    model.fold_width (tests/test_torch_folded.py): a D with each builds.
+    Under fold_width it folds the blocks ``cfg.fold_block`` selects (all
+    of them at fmap 16) and scores as the D without it."""
     assert ProDiscriminator(get_config(
         "stylegan-256", **dict(SMALL, **{"model.remat": True})).model).remat
     for knob in ("model.fold_width", "model.d_resnet"):
@@ -89,8 +91,17 @@ def test_unported_d_knobs_are_rejected():
             d = ProDiscriminator(cfg.model, blur_resample=True)
             assert d.block8.resnet and d.block8.skip.w.shape[2:] == (1, 1)
             continue
-        with pytest.raises(NotImplementedError):
-            ProDiscriminator(cfg.model)
+        torch.manual_seed(0)
+        d = ProDiscriminator(cfg.model, blur_resample=True)
+        torch.manual_seed(0)
+        ref = ProDiscriminator(get_config("stylegan-256", **SMALL).model,
+                               blur_resample=True)
+        assert [getattr(d, f"block{2 ** lg}").fold for lg in (3, 4, 5)] == \
+            [cfg.model.fold_block(lg) for lg in (3, 4, 5)] == [True] * 3
+        img = torch.from_numpy(np.random.RandomState(3).randn(
+            N, 3, 32, 32).astype(np.float32))
+        torch.testing.assert_close(d(img, 5), ref(img, 5), rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_build_models_stylegan_only():

@@ -195,13 +195,21 @@ def test_batch_sampler_serves_a_progan_generator(gen_pair):
 
 
 def test_generator_rejects_tpu_knobs():
-    """fold_width is a TPU layout; fused_up_conv is ported
-    (tests/test_torch_up2conv.py)."""
+    """fused_up_conv (tests/test_torch_up2conv.py) and fold_width
+    (tests/test_torch_folded.py) are ported: under fold_width every block
+    of this narrow G folds, and its images are the unfolded G's."""
     ProGenerator(get_config("progan-128", **dict(
         SMALL, **{"model.fused_up_conv": True})).model)
-    with pytest.raises(NotImplementedError, match="TPU"):
-        ProGenerator(get_config("progan-128", **dict(
-            SMALL, **{"model.fold_width": True})).model)
+    torch.manual_seed(0)
+    g = ProGenerator(get_config("progan-128", **dict(
+        SMALL, **{"model.fold_width": True})).model)
+    torch.manual_seed(0)
+    ref = ProGenerator(get_config("progan-128", **SMALL).model)
+    assert [g.block8.fold, g.block16.fold] == [True, True]
+    z = torch.from_numpy(np.random.RandomState(4).randn(B, 16).astype(
+        np.float32))
+    with torch.no_grad():
+        torch.testing.assert_close(g(z), ref(z), rtol=REL, atol=REL)
 
 
 # -- one training step against a harness of JAX pieces --------------------------

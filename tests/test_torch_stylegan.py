@@ -192,11 +192,29 @@ def test_truncate_and_mix_styles():
 
 
 def test_tpu_only_knobs_are_rejected():
-    """fold_width is a TPU layout; remat and fused_up_conv are ported
-    (tests/test_torch_remat.py, tests/test_torch_up2conv.py)."""
+    """remat, fused_up_conv and fold_width are ported
+    (tests/test_torch_remat.py, tests/test_torch_up2conv.py,
+    tests/test_torch_folded.py): under fold_width every block of this
+    narrow G folds, and from the same noise its images are the unfolded
+    G's."""
     for knob in ("model.remat", "model.fused_up_conv"):
         build_generator(get_config("stylegan-256",
                                    **dict(SMALL, **{knob: True})).model)
-    with pytest.raises(NotImplementedError):
-        build_generator(get_config("stylegan-256", **dict(
-            SMALL, **{"model.fold_width": True})).model)
+    torch.manual_seed(0)
+    g = build_generator(get_config("stylegan-256", **dict(
+        SMALL, **{"model.fold_width": True})).model)
+    torch.manual_seed(0)
+    ref = build_generator(get_config("stylegan-256", **SMALL).model)
+    assert all(getattr(g.synthesis, f"block{2 ** lg}").fold
+               for lg in (3, 4, 5))
+    with torch.no_grad():
+        for net in (g, ref):                 # live noise scales and biases
+            for k, v in net.state_dict().items():
+                if k.endswith(("noise.scale", ".bias")):
+                    v += 0.3
+    z = torch.from_numpy(np.random.RandomState(5).randn(N, 16).astype(
+        np.float32))
+    with torch.no_grad():
+        got = g(z, generator=torch.Generator().manual_seed(1))
+        want = ref(z, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

@@ -379,9 +379,23 @@ def test_progan_hybrid_raises_as_in_jax():
     with pytest.raises(ValueError) as want:
         jax.eval_shape(jg.init_all, jax.random.PRNGKey(0))
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="fold_width"):
-        build_models(get_config("progan-128", **dict(
-            PG, **{"model.fold_width": True})).model)
+    # under fold_width every block of this G folds and ignores the form
+    # (tests/test_torch_folded.py): 'hybrid' then raises in neither
+    # package, and each form gives the folded G's images
+    folded = dict(PG, **{"model.fold_width": True})
+    jg, _ = jax_build_models(jax_get_config("progan-128", **dict(
+        folded, **{"model.fused_up_conv": "hybrid"})).model)
+    jax.eval_shape(jg.init_all, jax.random.PRNGKey(0))
+    z = torch.from_numpy(np.random.RandomState(8).randn(N, 16).astype(
+        np.float32))
+    imgs = []
+    for form in (False, True, "hybrid"):
+        torch.manual_seed(0)
+        g, _ = build_models(get_config("progan-128", **dict(
+            folded, **{"model.fused_up_conv": form})).model)
+        with torch.no_grad():
+            imgs.append(g(z))
+    assert all(torch.equal(imgs[0], img) for img in imgs[1:])
 
 
 # -- the training step ------------------------------------------------------------
