@@ -1,0 +1,7 @@
+"""Per-layer metric kernels.roofline_share.serve: readers.kernels_roofline over the cell's traced window."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.kernels_roofline(ctx)
