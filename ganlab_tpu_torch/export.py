@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ganlab_tpu_torch.utils.latents import stream_latents, stream_seed
+from ganlab_tpu_torch.utils.spans import span
 
 FORMAT_VERSION = 1
 
@@ -184,15 +185,18 @@ class ExportedSampler:
         maps are drawn in the synthesis network's order from a generator
         on the serving device, as ``BatchSampler`` draws them."""
         dev, n = self.device, self.batch_size
-        gen = torch.Generator(device=dev).manual_seed(noise_seed)
-        noises = [torch.randn((n, 1, h, w), generator=gen, device=dev,
-                              dtype=self._noise_dtype)
-                  for h, w in self._noise_shapes]
         with torch.inference_mode():
-            out = self._program(torch.from_numpy(z).to(dev), noises,
-                                torch.tensor(psi, dtype=torch.float32,
-                                             device=dev))
-            return out.cpu().numpy()
+            with span("serve.inputs"):
+                gen = torch.Generator(device=dev).manual_seed(noise_seed)
+                noises = [torch.randn((n, 1, h, w), generator=gen,
+                                      device=dev, dtype=self._noise_dtype)
+                          for h, w in self._noise_shapes]
+                z = torch.from_numpy(z).to(dev)
+                psi = torch.tensor(psi, dtype=torch.float32, device=dev)
+            with span("serve.forward"):
+                out = self._program(z, noises, psi)
+            with span("serve.copy"):
+                return out.cpu().numpy()
 
     def generate(self, n: int, *, seed: int = 0,
                  psi: float | None = None) -> np.ndarray:
@@ -200,13 +204,16 @@ class ExportedSampler:
         is ``BatchSampler.generate``'s image ``i`` for the same seed,
         batch size and device."""
         psi = self._default_psi if psi is None else float(psi)
-        out = []
-        for b, (start, size) in enumerate(self._batches(n)):
-            z = stream_latents(self.batch_size, self.latent_dim, seed=seed,
-                               start=start)
-            out.append(self._run(z, stream_seed(seed, _NOISE_STREAM, b),
-                                 psi)[:size])
-        return np.concatenate(out, axis=0)
+        with span("serve.generate"):
+            out = []
+            for b, (start, size) in enumerate(self._batches(n)):
+                with span("serve.inputs"):
+                    z = stream_latents(self.batch_size, self.latent_dim,
+                                       seed=seed, start=start)
+                out.append(self._run(z, stream_seed(seed, _NOISE_STREAM, b),
+                                     psi)[:size])
+            with span("serve.assemble"):
+                return np.concatenate(out, axis=0)
 
     def generate_from_z(self, z, *, noise_seed: int = 0,
                         psi: float | None = None) -> np.ndarray:

@@ -45,6 +45,7 @@ from ganlab_tpu_torch.utils.latents import (  # noqa: F401 (stream_seed:
     stream_latents,
     stream_seed,
 )
+from ganlab_tpu_torch.utils.spans import span
 
 _NOISE_STREAM = 0x6E6F6973  # 'nois': generate()'s noise stream of a seed
 
@@ -114,24 +115,30 @@ class BatchSampler:
     def _run(self, z: torch.Tensor, noise_seed: int, psi: float
              ) -> np.ndarray:
         """One fixed-size batch of latents -> (batch, H, W, C) float32."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(noise_seed)
         with torch.inference_mode():
-            img = self._sample(self.g, self.w_avg, z.to(self.device), gen,
-                               psi, 1.0)
-            return img.permute(0, 2, 3, 1).cpu().numpy()
+            with span("serve.inputs"):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(noise_seed)
+                z = z.to(self.device)
+            with span("serve.forward"):
+                img = self._sample(self.g, self.w_avg, z, gen, psi, 1.0)
+            with span("serve.copy"):
+                return img.permute(0, 2, 3, 1).cpu().numpy()
 
     def generate(self, n: int, *, seed: int = 0,
                  psi: float | None = None) -> np.ndarray:
         """n images of stream ``seed`` as (n, H, W, C) uint8."""
         psi = self._default_psi if psi is None else float(psi)
-        out = []
-        for b, (start, size) in enumerate(self._batches(n)):
-            z = torch.from_numpy(
-                self.latents(self.batch_size, seed=seed, start=start))
-            imgs = self._run(z, stream_seed(seed, _NOISE_STREAM, b), psi)
-            out.append(imgs[:size])
-        return to_uint8(np.concatenate(out, axis=0))
+        with span("serve.generate"):
+            out = []
+            for b, (start, size) in enumerate(self._batches(n)):
+                with span("serve.inputs"):
+                    z = torch.from_numpy(
+                        self.latents(self.batch_size, seed=seed, start=start))
+                imgs = self._run(z, stream_seed(seed, _NOISE_STREAM, b), psi)
+                out.append(imgs[:size])
+            with span("serve.assemble"):
+                return to_uint8(np.concatenate(out, axis=0))
 
     def generate_from_z(self, z, *, noise_seed: int = 0,
                         psi: float | None = None) -> np.ndarray:

@@ -46,6 +46,7 @@ import torch
 
 from ganlab_tpu_torch.ops.kernels import launch_counters
 from ganlab_tpu_torch.train.steps import run_steps
+from ganlab_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -92,6 +93,10 @@ class OffRunGraphs:
     def replay(self, key, state, stack):
         """The steps over ``stack`` as variant ``key``'s graph, captured
         at its first call; returns (state, metrics)."""
+        with span("graph.replay"):
+            return self._replay(key, state, stack)
+
+    def _replay(self, key, state, stack):
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(key, state, stack)

@@ -39,7 +39,12 @@ Profiling (``run.profile``): rank 0 traces the run's steps 10 to 19 (of
 this process's run) with ``torch.profiler``, CPU and, on a card, CUDA
 activities, and writes the Chrome trace to
 ``<workdir>/profile/trace_step<N>.json`` at step 20, or when the run ends
-first.
+first. Besides the operators and kernels, the trace holds the program's
+named spans (``utils/spans.py``): ``train.data`` (the wait for the next
+batch), ``train.log`` (the device sync of a logged row),
+``train.checkpoint``, ``train.sample`` and ``train.eval``, and within
+the steppers ``train.chunk``, ``step.reg`` / ``step.plain`` (one eager
+step, with or without a regularizer firing) and ``graph.replay``.
 
 Chunked stepping (``run.chunk_steps``, on by default; the JAX package's
 scan-chunked stepping): where the D penalty is lazy (``loss.penalty_every``
@@ -87,6 +92,7 @@ from ganlab_tpu_torch.train.steps import (
 from ganlab_tpu_torch.utils.image import save_image_grid
 from ganlab_tpu_torch.utils.latents import gen_latents
 from ganlab_tpu_torch.utils.logging import MetricLogger
+from ganlab_tpu_torch.utils.spans import span
 
 
 class Trainer:
@@ -252,7 +258,8 @@ class Trainer:
                                          // global_batch))
                         if max_steps is not None:
                             n = min(n, max_steps - steps_done)
-                        stack = pf.next()
+                        with span("train.data"):
+                            stack = pf.next()
                         state, stacked = step_fn(state, stack[:n])
                         n = len(stacked["d_loss"])
                         metrics = {k: v[-1] for k, v in stacked.items()}
@@ -263,7 +270,9 @@ class Trainer:
                                 metrics[lazy] = stacked[lazy].max()
                     else:
                         n = 1
-                        state, metrics = step_fn(state, pf.next())
+                        with span("train.data"):
+                            real = pf.next()
+                        state, metrics = step_fn(state, real)
                     steps_done += n
                     if self._trace is not None and steps_done >= 20:
                         self._stop_trace()
@@ -274,7 +283,8 @@ class Trainer:
                             step_i // every != (step_i - n) // every
                     if crossed(run.log_every) and self.is_main:
                         # the only place a step waits for the device
-                        m = {k: float(v) for k, v in metrics.items()}
+                        with span("train.log"):
+                            m = {k: float(v) for k, v in metrics.items()}
                         m.update(res=phase.resolution, kind=phase.kind,
                                  shown_imgs=state.shown_imgs)
                         self.logger.log(step_i, m)
@@ -284,12 +294,16 @@ class Trainer:
                         if int(state.shown_imgs // per) != int(
                                 (state.shown_imgs - n * global_batch)
                                 // per):
-                            self.run_eval(phase, state.shown_imgs, step_i)
+                            with span("train.eval"):
+                                self.run_eval(phase, state.shown_imgs,
+                                              step_i)
                     if crossed(run.sample_every) and self.is_main:
-                        self.save_samples(phase.res_log2,
-                                          tag=f"step{step_i:08d}")
+                        with span("train.sample"):
+                            self.save_samples(phase.res_log2,
+                                              tag=f"step{step_i:08d}")
                     if crossed(run.checkpoint_every):
-                        self.save_checkpoint()
+                        with span("train.checkpoint"):
+                            self.save_checkpoint()
             # Per-phase throughput (the first steps of a phase build its
             # kernels' and cuDNN's plans; over a full phase steady-state
             # stepping dominates).

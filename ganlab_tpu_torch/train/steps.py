@@ -150,6 +150,7 @@ from ganlab_tpu_torch.train.state import (
     optimizer_hparams,
     seed_new_moments,
 )
+from ganlab_tpu_torch.utils.spans import span
 
 
 def _dtype_of(cfg: Config) -> torch.dtype:
@@ -586,12 +587,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
             metrics["aug_p"] = new_p
         return state, metrics
 
-    def step(state: TrainState, real_u8: torch.Tensor, draws=None,
-             alpha=None, beta=None):
-        """``alpha`` / ``beta``: the fade-in weight (compute dtype) and the
-        G-EMA's beta (float32) as 0-d tensors on the device, which a
-        CUDA graph of the step reads at each replay; None (the eager
-        default) takes them from the host's counters."""
+    def run_step(state: TrainState, real_u8: torch.Tensor, draws=None,
+                 alpha=None, beta=None):
         dev = state.device
         world, rank = pdist.world_size(), pdist.rank()
         total = real_u8.shape[0]
@@ -760,6 +757,17 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         ema_and_w_avg(state, [w_mean], batch, beta)
         return finish(state, batch, alpha, d_parts, g_loss.detach(), pl_pens,
                       ada)
+
+    span_name = "step.reg" if with_penalty or with_pl else "step.plain"
+
+    def step(state: TrainState, real_u8: torch.Tensor, draws=None,
+             alpha=None, beta=None):
+        """``alpha`` / ``beta``: the fade-in weight (compute dtype) and the
+        G-EMA's beta (float32) as 0-d tensors on the device, which a
+        CUDA graph of the step reads at each replay; None (the eager
+        default) takes them from the host's counters."""
+        with span(span_name):
+            return run_step(state, real_u8, draws, alpha, beta)
 
     step.pen_weight = pen_weight if with_penalty else 0.0
     step.pl_weight = pl_weight if with_pl else 0.0
@@ -958,6 +966,10 @@ def make_chunked_stepper(cfg: Config, phase: PhaseSpec,
         return stepper.graphs.warm_up(state, stack)
 
     def stepper(state, stack, draws=None):
+        with span("train.chunk"):
+            return chunk(state, stack, draws)
+
+    def chunk(state, stack, draws):
         n = stack.shape[0]
         if draws is not None and len(draws) < n:
             raise ValueError(f"draws: {n} batches take {n} StepDraws, got "

@@ -238,7 +238,8 @@ def test_unported_trainer_options_raise(tmp_path, knob):
     (tests/test_torch_eval.py, tests/test_torch_cli_latents.py): a Trainer
     with them builds and closes. run.profile: a run of 21 steps writes the
     trace of its steps 10-19 under <workdir>/profile at step 20, and a run
-    that ends at step 12 closes its open trace and writes it."""
+    that ends at step 12 closes its open trace and writes it, with the
+    program's spans in it."""
     if "run.profile" in knob:
         for steps, name in ((21, "trace_step00000020.json"),
                             (12, "trace_step00000012.json")):
@@ -252,6 +253,8 @@ def test_unported_trainer_options_raise(tmp_path, knob):
             trace = json.loads((wd / "profile" / name).read_text())
             ops = {e.get("name") for e in trace["traceEvents"]}
             assert "ganlab::adain" in ops and "aten::conv2d" in ops
+            # the program's spans: the wait for a batch and each step
+            assert "train.data" in ops and "step.plain" in ops
         return
     trainer = Trainer(tiny_config(**knob), str(tmp_path), device="cpu")
     trainer.close()
