@@ -37,6 +37,14 @@ operators the programs call::
 
     s = ExportedSampler("sampler.ganlab.zip")          # on the card
     imgs = s.generate(64, seed=0)                      # (64, H, W, 3) uint8
+
+Each batch's images reach the host as one C-contiguous array, filled by
+one copy from the card (the program's NHWC view is made contiguous there).
+On the card that array is page-locked memory from torch's host cache, and
+a request of one batch returns it as it is: the memory stays with the
+caller's array until the caller drops it, and goes back to torch's cache
+for a later request. A caller who holds many results holds that much
+page-locked memory.
 """
 
 from __future__ import annotations
@@ -145,11 +153,20 @@ def export_sampler(cfg, state, path: str, *, batch_size: int = 16,
     return path
 
 
+def _assemble(parts: list) -> np.ndarray:
+    """The batches' host arrays as one request's: a single batch's array
+    as it is (a leading slice of a C-contiguous array is one), more
+    concatenated."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+
 class ExportedSampler:
     """Serve images from an ``export_sampler`` artifact on ``device``
     (default ``cuda``; ``cpu`` runs the artifact's cpu program): the
     network and its weights live in the exported program, and no model
-    code or checkpoint is needed."""
+    code or checkpoint is needed. On the card a one-batch request's array
+    lives in page-locked memory from torch's host cache until the caller
+    drops it; a caller who keeps many results keeps that much of it."""
 
     def __init__(self, path: str, device: str | torch.device = "cuda"):
         # registers the ganlab:: operators the programs call
@@ -180,10 +197,12 @@ class ExportedSampler:
         for start in range(0, n, self.batch_size):
             yield start, min(self.batch_size, n - start)
 
-    def _run(self, z: np.ndarray, noise_seed: int, psi: float) -> np.ndarray:
-        """One padded batch of latents -> (batch, H, W, C) uint8. The noise
-        maps are drawn in the synthesis network's order from a generator
-        on the serving device, as ``BatchSampler`` draws them."""
+    def _forward(self, z: np.ndarray, noise_seed: int,
+                 psi: float) -> torch.Tensor:
+        """One padded batch of latents -> the program's (batch, H, W, C)
+        uint8 on the serving device (on the card issued, not waited for).
+        The noise maps are drawn in the synthesis network's order from a
+        generator on the serving device, as ``BatchSampler`` draws them."""
         dev, n = self.device, self.batch_size
         with torch.inference_mode():
             with span("serve.inputs"):
@@ -194,9 +213,30 @@ class ExportedSampler:
                 z = torch.from_numpy(z).to(dev)
                 psi = torch.tensor(psi, dtype=torch.float32, device=dev)
             with span("serve.forward"):
-                out = self._program(z, noises, psi)
-            with span("serve.copy"):
-                return out.cpu().numpy()
+                return self._program(z, noises, psi)
+
+    def _host_empty(self, shape) -> torch.Tensor:
+        """A C-contiguous uint8 host tensor of ``shape``: page-locked from
+        torch's host cache for a ``cuda`` sampler (pageable where pinning
+        fails), plain for a ``cpu`` one."""
+        if self.device.type == "cuda":
+            try:
+                return torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+            except RuntimeError:        # page-locked memory exhausted
+                pass
+        return torch.empty(shape, dtype=torch.uint8)
+
+    def _run(self, z: np.ndarray, noise_seed: int, psi: float) -> np.ndarray:
+        """One padded batch of latents -> (batch, H, W, C) uint8 on the
+        host, C-contiguous. The program's output is an NHWC view over NCHW
+        bytes; one ``copy_`` into a fresh contiguous host array makes it
+        contiguous on the device and copies it once."""
+        out = self._forward(z, noise_seed, psi)
+        with span("serve.copy"):
+            with span("serve.alloc"):
+                dst = self._host_empty(out.shape)
+            dst.copy_(out)
+        return dst.numpy()
 
     def generate(self, n: int, *, seed: int = 0,
                  psi: float | None = None) -> np.ndarray:
@@ -213,7 +253,7 @@ class ExportedSampler:
                 out.append(self._run(z, stream_seed(seed, _NOISE_STREAM, b),
                                      psi)[:size])
             with span("serve.assemble"):
-                return np.concatenate(out, axis=0)
+                return _assemble(out)
 
     def generate_from_z(self, z, *, noise_seed: int = 0,
                         psi: float | None = None) -> np.ndarray:
@@ -226,4 +266,4 @@ class ExportedSampler:
             zb[:size] = z[start:start + size]
             out.append(self._run(zb, stream_seed(noise_seed, b),
                                  psi)[:size])
-        return np.concatenate(out, axis=0)
+        return _assemble(out)

@@ -19,9 +19,12 @@ The spans (``SPANS``) and where they are opened:
   generate``, the whole call; inside it, per batch, ``serve.inputs`` (the
   latents, the noise generator and maps, z and psi to the device),
   ``serve.forward`` (the host's issue of the G forward),
-  ``serve.copy`` (``.cpu()``: the wait for the forward and the copy to
-  the host), and once a call ``serve.assemble`` (the concatenation of
-  the batches, and ``BatchSampler``'s conversion to uint8);
+  ``serve.copy`` (the wait for the forward and the copy to the host),
+  inside it on the exported sampler ``serve.alloc`` (the allocation of
+  the batch's host array: page-locked on the card, from torch's host
+  cache, so microseconds where the cache holds a free block), and once a
+  call ``serve.assemble`` (the concatenation of the batches where there
+  are several, and ``BatchSampler``'s conversion to uint8);
 * ``step.reg`` / ``step.plain``: one eager call of a training step
   (``train/steps.py::build_train_step``), ``step.reg`` where a D penalty
   or a path-length term fires in it;
@@ -45,9 +48,9 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
 SPANS = ("serve.generate", "serve.inputs", "serve.forward", "serve.copy",
-         "serve.assemble", "step.reg", "step.plain", "graph.replay",
-         "train.chunk", "train.data", "train.log", "train.checkpoint",
-         "train.sample", "train.eval")
+         "serve.alloc", "serve.assemble", "step.reg", "step.plain",
+         "graph.replay", "train.chunk", "train.data", "train.log",
+         "train.checkpoint", "train.sample", "train.eval")
 
 _NULL = contextlib.nullcontext()
 

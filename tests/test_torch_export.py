@@ -12,8 +12,10 @@ default platforms on a host without a card, ``cli export`` (also its
 warning on an untrained workdir). The operators: each one's fake
 implementation under ``torch.library.opcheck`` on the CPU registration,
 shapes under ``FakeTensorMode``, and the exported graph calling them.
-On a card (``gpu`` marker): a ``cuda`` program launches the kernels,
-counted by their wrappers.
+Each call's result is C-contiguous, bit-equal to the program's own
+output, and the caller's own. On a card (``gpu`` marker): a ``cuda``
+program launches the kernels, counted by their wrappers; a one-batch
+result is page-locked, and a dropped one's block serves the next request.
 """
 
 import json
@@ -25,12 +27,14 @@ import torch
 
 from ganlab_tpu_torch.config import get_config
 from ganlab_tpu_torch.export import (
+    _NOISE_STREAM,
     FORMAT_VERSION,
     ExportedSampler,
     export_sampler,
 )
 from ganlab_tpu_torch.ops.kernels import adain, mbstd, pixelnorm, resample
 from ganlab_tpu_torch.serve import BatchSampler
+from ganlab_tpu_torch.utils.latents import stream_latents, stream_seed
 
 torch.set_num_threads(1)
 
@@ -105,6 +109,51 @@ def test_generate_from_z_and_psi(trained, artifact):
     c = s.generate_from_z(z, psi=1.0)
     assert not np.array_equal(b, c)
     _close_images(live.generate_from_z(z, psi=1.0), c)
+
+
+def _program_images(s, zs, noise_seeds, n):
+    """The program's own output for the padded latent batches ``zs``, each
+    copied to the host as it is and made C-contiguous there, trimmed to
+    ``n``."""
+    out = [np.ascontiguousarray(
+        s._forward(z, ns, s._default_psi).cpu().numpy())
+        for z, ns in zip(zs, noise_seeds)]
+    return np.concatenate(out, axis=0)[:n]
+
+
+@pytest.mark.parametrize("n", [3, 4, 7])
+def test_result_is_contiguous_and_the_callers_own(artifact, n):
+    """For n of batch - 1, batch and 2 batch - 1 (batch 4), through
+    ``generate`` and ``generate_from_z``: the result is a C-contiguous
+    uint8 (n, H, W, 3), bit-equal to the program's own output made
+    contiguous, and an array kept over three later requests is left as it
+    was (no buffer is reused under the caller)."""
+    s = ExportedSampler(artifact, device="cpu")
+    B, nb = s.batch_size, -(-n // s.batch_size)
+    z = np.random.RandomState(n).randn(n, s.latent_dim).astype(np.float32)
+    padded = np.zeros((nb * B, s.latent_dim), np.float32)
+    padded[:n] = z
+    calls = {
+        "generate": (
+            lambda: s.generate(n, seed=9),
+            [stream_latents(B, s.latent_dim, seed=9, start=b * B)
+             for b in range(nb)],
+            [stream_seed(9, _NOISE_STREAM, b) for b in range(nb)]),
+        "generate_from_z": (
+            lambda: s.generate_from_z(z, noise_seed=2),
+            list(padded.reshape(nb, B, s.latent_dim)),
+            [stream_seed(2, b) for b in range(nb)]),
+    }
+    for name, (call, zs, noise_seeds) in calls.items():
+        got = call()
+        assert got.dtype == np.uint8 and got.shape == (n, 16, 16, 3), name
+        assert got.flags["C_CONTIGUOUS"], name
+        np.testing.assert_array_equal(got, _program_images(s, zs,
+                                                           noise_seeds, n))
+        kept = got.copy()
+        for seed in range(3):
+            s.generate(n, seed=100 + seed)
+        np.testing.assert_array_equal(got, kept)
 
 
 def test_meta_and_version_check(artifact, tmp_path):
@@ -249,3 +298,32 @@ def test_cuda_program_launches_the_kernels(trained, tmp_path):
     assert [f.launches - b for f, b in zip(counts, before)] == [1, 6, 2]
     live = BatchSampler(cfg, state=state, batch_size=4)
     _close_images(live.generate(4, seed=1), imgs)
+
+
+@pytest.mark.gpu
+def test_cuda_result_is_page_locked_and_its_block_reused(trained, tmp_path):
+    """On the card a one-batch request's array is page-locked and
+    C-contiguous, bit-equal to the program's output copied as it is and
+    made contiguous on the host; arrays kept survive later requests, and
+    once the caller drops them their blocks serve the next requests (torch's
+    host cache pins no new block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (page-locked memory is the card's)")
+    cfg, _, state = trained
+    path = str(tmp_path / "cuda.zip")
+    export_sampler(cfg, state, path, batch_size=4, platforms=("cuda",))
+    s = ExportedSampler(path)
+    a = s.generate(4, seed=1)
+    assert a.flags["C_CONTIGUOUS"] and torch.from_numpy(a).is_pinned()
+    np.testing.assert_array_equal(a, _program_images(
+        s, [stream_latents(4, s.latent_dim, seed=1)],
+        [stream_seed(1, _NOISE_STREAM, 0)], 4))
+    kept = a.copy()
+    held = [s.generate(4, seed=2 + i) for i in range(3)]
+    np.testing.assert_array_equal(a, kept)
+    assert all(torch.from_numpy(h).is_pinned() for h in held)
+    del a, held
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for i in range(3):
+        assert torch.from_numpy(s.generate(4, seed=10 + i)).is_pinned()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
