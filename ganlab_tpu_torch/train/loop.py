@@ -43,8 +43,9 @@ first. Besides the operators and kernels, the trace holds the program's
 named spans (``utils/spans.py``): ``train.data`` (the wait for the next
 batch), ``train.log`` (the device sync of a logged row),
 ``train.checkpoint``, ``train.sample`` and ``train.eval``, and within
-the steppers ``train.chunk``, ``step.reg`` / ``step.plain`` (one eager
-step, with or without a regularizer firing) and ``graph.replay``.
+the steppers ``train.chunk``, ``step.reg`` / ``step.pl`` /
+``step.plain`` (one eager step: the D penalty firing, path length alone,
+or neither) and ``graph.replay``.
 
 Chunked stepping (``run.chunk_steps``, on by default; the JAX package's
 scan-chunked stepping): where the D penalty is lazy (``loss.penalty_every``

@@ -758,7 +758,8 @@ def build_train_step(cfg: Config, phase: PhaseSpec,
         return finish(state, batch, alpha, d_parts, g_loss.detach(), pl_pens,
                       ada)
 
-    span_name = "step.reg" if with_penalty or with_pl else "step.plain"
+    span_name = "step.reg" if with_penalty else \
+        "step.pl" if with_pl else "step.plain"
 
     def step(state: TrainState, real_u8: torch.Tensor, draws=None,
              alpha=None, beta=None):

@@ -25,9 +25,11 @@ The spans (``SPANS``) and where they are opened:
   cache, so microseconds where the cache holds a free block), and once a
   call ``serve.assemble`` (the concatenation of the batches where there
   are several, and ``BatchSampler``'s conversion to uint8);
-* ``step.reg`` / ``step.plain``: one eager call of a training step
-  (``train/steps.py::build_train_step``), ``step.reg`` where a D penalty
-  or a path-length term fires in it;
+* ``step.reg`` / ``step.pl`` / ``step.plain``: one eager call of a
+  training step (``train/steps.py::build_train_step``): ``step.reg``
+  where a D penalty fires in it (with or without a path-length term),
+  ``step.pl`` where only the path-length term fires, ``step.plain`` where
+  nothing does;
 * ``graph.replay``: the replay of a graphed off-run
   (``train/graphs.py::OffRunGraphs.replay``) with its input copies and
   the copies of its metrics, and the capture where one happens;
@@ -48,9 +50,9 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
 SPANS = ("serve.generate", "serve.inputs", "serve.forward", "serve.copy",
-         "serve.alloc", "serve.assemble", "step.reg", "step.plain",
-         "graph.replay", "train.chunk", "train.data", "train.log",
-         "train.checkpoint", "train.sample", "train.eval")
+         "serve.alloc", "serve.assemble", "step.reg", "step.pl",
+         "step.plain", "graph.replay", "train.chunk", "train.data",
+         "train.log", "train.checkpoint", "train.sample", "train.eval")
 
 _NULL = contextlib.nullcontext()
 

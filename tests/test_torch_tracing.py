@@ -9,7 +9,10 @@ batches, on the exported sampler (its CPU program) and on
 sampler with one ``serve.alloc`` inside), then one ``serve.assemble``;
 the lazy stepper over two cycles of k steps opens two ``step.reg`` and
 2k - 2 ``step.plain``; the chunked stepper over one cycle opens one
-``train.chunk`` holding one ``step.reg`` and k - 1 ``step.plain``.
+``train.chunk`` holding one ``step.reg`` and k - 1 ``step.plain``. On a
+tiny ``stylegan2-256`` (R1 every 16 steps, path length every 4) one
+cycle of either stepper opens one ``step.reg``, three ``step.pl`` and
+twelve ``step.plain``.
 Every name the program opens is in ``SPANS``. On a card
 (``gpu`` marker; this file imports no JAX):
 
@@ -149,6 +152,40 @@ def test_stepper_spans(stepper):
         held = inside(got, roots[0])
         assert held[0] == "step.reg"
         assert sorted(held) == ["step.plain"] * (k - 1) + ["step.reg"]
+
+
+# stylegan2-256 as the preset regularizes: R1 every 16 steps, path length
+# every 4
+SG2_TINY = {"model.resolution": 16, "model.latent_dim": 8,
+            "model.fmap_base": 64, "model.fmap_max": 8,
+            "model.mapping_layers": 2, "schedule.batch_schedule": {16: B},
+            "run.compute_dtype": "float32"}
+# one cycle: R1 and path length at the head, path length alone at every
+# fourth step, nothing between
+SG2_CYCLE = ["step.reg"] + ["step.plain"] * 3 \
+    + (["step.pl"] + ["step.plain"] * 3) * 3
+
+
+@pytest.mark.parametrize("stepper", ["lazy", "chunked"])
+def test_path_length_steps_open_their_own_span(stepper):
+    """StyleGAN2 over one cycle of 16 steps: one ``step.reg`` (R1 with
+    path length), three ``step.pl`` (path length alone), twelve
+    ``step.plain``, in the cycle's order; the chunked stepper's (its
+    off-runs eager on the CPU) inside one ``train.chunk``."""
+    cfg = get_config("stylegan2-256", **SG2_TINY)
+    assert (cfg.loss.penalty_every, cfg.loss.pl_every) == (16, 4)
+    phase = build_phases(cfg.schedule, cfg.model)[0]
+    st = create_train_state(cfg, seed=0, device="cpu")
+    if stepper == "lazy":
+        fn = make_lazy_stepper(cfg, phase)
+        got = recorded(lambda: [fn(st, x) for x in tiny_batches(16)])
+        assert [n for _, _, n in got] == SG2_CYCLE
+    else:
+        fn, k = make_chunked_stepper(cfg, phase)
+        got = recorded(lambda: fn(st, tiny_batches(k)))
+        roots = [s for s in got if s[2] == "train.chunk"]
+        assert k == 16 and len(roots) == 1
+        assert inside(got, roots[0]) == SG2_CYCLE
 
 
 @pytest.mark.gpu
