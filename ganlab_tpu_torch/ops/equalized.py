@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ganlab_tpu_torch.ops.conv_grad import conv2d
 from ganlab_tpu_torch.ops.upfirdn import up2_conv2d, up2_conv2d_hybrid
 
 
@@ -42,15 +43,19 @@ def equalized_conv2d(x: torch.Tensor, w: torch.Tensor,
                      lr_mult: float = 1.0) -> torch.Tensor:
     """Equalized-LR stride-1 2D convolution; x NCHW, w OIHW (odd k).
 
-    fan_in = in_ch * kh * kw; ``"SAME"`` pads k // 2 on each side.
+    fan_in = in_ch * kh * kw; ``"SAME"`` pads k // 2 on each side, an int
+    or an (h, w) pair pads as ``F.conv2d`` does. The conv's gradients of
+    every order are fprop, dgrad and wgrad passes (``ops.conv_grad``).
     """
     out_ch, in_ch, kh, kw = w.shape
     if padding == "SAME":
         if kh % 2 == 0 or kw % 2 == 0:
             raise ValueError(f"SAME padding needs an odd kernel, got {kh}x{kw}")
         padding = (kh // 2, kw // 2)
+    elif isinstance(padding, int):
+        padding = (padding, padding)
     scale = he_constant(kh * kw * in_ch, gain) * lr_mult
-    y = F.conv2d(x, (w * scale).to(x.dtype), padding=padding)
+    y = conv2d(x, (w * scale).to(x.dtype), tuple(padding))
     if b is not None:
         y = y + (b * lr_mult).to(y.dtype)[None, :, None, None]
     return y

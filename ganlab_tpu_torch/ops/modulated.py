@@ -12,8 +12,9 @@ output::
 The demodulation factor needs only sum_k W^2 (O, I), a small product with
 the squared styles. This is the computation the JAX package runs, not the
 per-sample grouped convolution of the official code. The convolution is
-``F.conv2d`` (cuDNN on the card): the JAX package runs it outside any
-Pallas kernel too.
+``F.conv2d`` (cuDNN on the card; the JAX package runs it outside any
+Pallas kernel too), differentiated to any order through fprop, dgrad and
+wgrad passes (``ops.conv_grad``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
+from ganlab_tpu_torch.ops.conv_grad import conv2d
 from ganlab_tpu_torch.ops.equalized import he_constant
 
 
@@ -41,7 +42,7 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor,
     scale = he_constant(kh * kw * ci, gain) * lr_mult
     ws = (w * scale).to(x.dtype)
     s = styles.to(x.dtype)
-    y = F.conv2d(x * s[:, :, None, None], ws, padding=(kh // 2, kw // 2))
+    y = conv2d(x * s[:, :, None, None], ws, (kh // 2, kw // 2))
     if demodulate:
         ww = ws.float().square().sum(dim=(2, 3))          # (O, I)
         d = torch.rsqrt(s.float().square() @ ww.t() + eps)  # (N, O)
