@@ -1268,7 +1268,7 @@ def pixelnorm_host_parts(g) -> None:
 
     x = torch.randn(BATCH, 512, generator=g, device="cuda").bfloat16()
     out = torch.empty_like(x)
-    fn = pixelnorm._fn()
+    fn = _build.c_function(*pixelnorm._ROWS)
 
     def raw():
         fn(x.data_ptr(), out.data_ptr(), BATCH, 512, 1e-8, 1, 0,
@@ -1316,7 +1316,7 @@ def adain_host_parts(g) -> None:
     x, s, b = KERNELS["adain"]["inputs"]((BATCH, 512, 4, 4), torch.bfloat16,
                                          g)
     out = torch.empty_like(x)
-    fn = adain._fn("ganlab_adain")
+    fn = _build.c_function(*adain._LAUNCH)
 
     def raw():
         fn(x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), None,

@@ -19,32 +19,21 @@ programs hold them: a ``cuda`` program loaded on the card launches the
 CUDA C++ kernels, a ``cpu`` program runs their plain versions.
 
 Two things differ from the JAX artifact. ``torch.export`` takes no
-``torch.Generator``, so the index-stable latents and the noise are drawn
-outside the program, by the loader, exactly as ``serve.BatchSampler``
-draws them: z_i from ``stream_seed(seed, i)`` and batch b's noise maps
-from a generator on the serving device seeded ``stream_seed(seed,
-'nois', b)``. Image i of ``ExportedSampler.generate(n, seed=)`` is
-therefore ``BatchSampler.generate``'s image i for the same seed, batch
-size and device. And the JAX artifact holds one StableHLO program for all
-its platforms where this one holds a program per device type.
+``torch.Generator``, so the loader draws the latents and the batches'
+noise maps outside the program, from the streams ``BatchSampler`` draws
+them from: image i of ``ExportedSampler.generate(n, seed=)`` is
+``BatchSampler.generate``'s image i for the same seed, batch size and
+device. And the JAX artifact holds one StableHLO program for all its
+platforms where this one holds a program per device type.
 
-``ExportedSampler`` loads the artifact and serves it with
-``BatchSampler``'s contract (fixed batch with padding and trimming,
-index-stable latents, psi per call). It does not import the model code:
-it imports ``torch``, numpy, ``ganlab_tpu_torch.utils.latents`` for the
-streams, and ``ganlab_tpu_torch.ops.kernels``, whose import registers the
-operators the programs call::
+``ExportedSampler`` loads the artifact and serves it through
+``BatchSampler``'s contract and result path (``serve._Serving``). It
+imports no model code: ``torch``, numpy, ``serve`` (which imports the
+model code only when a ``BatchSampler`` is made) and ``ops.kernels``,
+whose import registers the operators the programs call::
 
     s = ExportedSampler("sampler.ganlab.zip")          # on the card
     imgs = s.generate(64, seed=0)                      # (64, H, W, 3) uint8
-
-Each batch's images reach the host as one C-contiguous array, filled by
-one copy from the card (the program's NHWC view is made contiguous there).
-On the card that array is page-locked memory from torch's host cache, and
-a request of one batch returns it as it is: the memory stays with the
-caller's array until the caller drops it, and goes back to torch's cache
-for a later request. A caller who holds many results holds that much
-page-locked memory.
 """
 
 from __future__ import annotations
@@ -58,19 +47,14 @@ import zipfile
 import numpy as np
 import torch
 
-from ganlab_tpu_torch.utils.latents import stream_latents, stream_seed
+from ganlab_tpu_torch.serve import (  # noqa: F401 (_NOISE_STREAM: this
+    _NOISE_STREAM,                    # module's name of it too)
+    _Serving,
+    _to_uint8,
+)
 from ganlab_tpu_torch.utils.spans import span
 
 FORMAT_VERSION = 1
-
-# stream label of a request's noise; must match serve.BatchSampler
-_NOISE_STREAM = 0x6E6F6973  # 'nois'
-
-
-def _to_uint8(x: torch.Tensor) -> torch.Tensor:
-    """In-graph float [-1, 1] NHWC -> uint8 (``utils.image.to_uint8``'s
-    arithmetic: clip((x + 1) * 127.5, 0, 255), truncated)."""
-    return ((x.float() + 1.0) * 127.5).clamp(0.0, 255.0).to(torch.uint8)
 
 
 class _Sampler(torch.nn.Module):
@@ -153,20 +137,13 @@ def export_sampler(cfg, state, path: str, *, batch_size: int = 16,
     return path
 
 
-def _assemble(parts: list) -> np.ndarray:
-    """The batches' host arrays as one request's: a single batch's array
-    as it is (a leading slice of a C-contiguous array is one), more
-    concatenated."""
-    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
-
-
-class ExportedSampler:
+class ExportedSampler(_Serving):
     """Serve images from an ``export_sampler`` artifact on ``device``
     (default ``cuda``; ``cpu`` runs the artifact's cpu program): the
     network and its weights live in the exported program, and no model
-    code or checkpoint is needed. On the card a one-batch request's array
-    lives in page-locked memory from torch's host cache until the caller
-    drops it; a caller who keeps many results keeps that much of it."""
+    code or checkpoint is needed. ``generate`` / ``generate_from_z`` are
+    ``BatchSampler``'s: image ``i`` is its image ``i`` for the same seed,
+    batch size and device."""
 
     def __init__(self, path: str, device: str | torch.device = "cuda"):
         # registers the ganlab:: operators the programs call
@@ -188,14 +165,10 @@ class ExportedSampler:
         self._program = program.module()
         self.batch_size = int(self.meta["batch_size"])
         self.resolution = int(self.meta["resolution"])
-        self.latent_dim = int(self.meta["latent_dim"])
+        self.latent_dim = self._latent_dim = int(self.meta["latent_dim"])
         self._default_psi = float(self.meta["default_psi"])
         self._noise_shapes = [tuple(s) for s in self.meta["noise_shapes"]]
         self._noise_dtype = getattr(torch, self.meta["noise_dtype"])
-
-    def _batches(self, n: int):
-        for start in range(0, n, self.batch_size):
-            yield start, min(self.batch_size, n - start)
 
     def _forward(self, z: np.ndarray, noise_seed: int,
                  psi: float) -> torch.Tensor:
@@ -214,56 +187,3 @@ class ExportedSampler:
                 psi = torch.tensor(psi, dtype=torch.float32, device=dev)
             with span("serve.forward"):
                 return self._program(z, noises, psi)
-
-    def _host_empty(self, shape) -> torch.Tensor:
-        """A C-contiguous uint8 host tensor of ``shape``: page-locked from
-        torch's host cache for a ``cuda`` sampler (pageable where pinning
-        fails), plain for a ``cpu`` one."""
-        if self.device.type == "cuda":
-            try:
-                return torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-            except RuntimeError:        # page-locked memory exhausted
-                pass
-        return torch.empty(shape, dtype=torch.uint8)
-
-    def _run(self, z: np.ndarray, noise_seed: int, psi: float) -> np.ndarray:
-        """One padded batch of latents -> (batch, H, W, C) uint8 on the
-        host, C-contiguous. The program's output is an NHWC view over NCHW
-        bytes; one ``copy_`` into a fresh contiguous host array makes it
-        contiguous on the device and copies it once."""
-        out = self._forward(z, noise_seed, psi)
-        with span("serve.copy"):
-            with span("serve.alloc"):
-                dst = self._host_empty(out.shape)
-            dst.copy_(out)
-        return dst.numpy()
-
-    def generate(self, n: int, *, seed: int = 0,
-                 psi: float | None = None) -> np.ndarray:
-        """n images of stream ``seed`` as (n, H, W, C) uint8; image ``i``
-        is ``BatchSampler.generate``'s image ``i`` for the same seed,
-        batch size and device."""
-        psi = self._default_psi if psi is None else float(psi)
-        with span("serve.generate"):
-            out = []
-            for b, (start, size) in enumerate(self._batches(n)):
-                with span("serve.inputs"):
-                    z = stream_latents(self.batch_size, self.latent_dim,
-                                       seed=seed, start=start)
-                out.append(self._run(z, stream_seed(seed, _NOISE_STREAM, b),
-                                     psi)[:size])
-            with span("serve.assemble"):
-                return _assemble(out)
-
-    def generate_from_z(self, z, *, noise_seed: int = 0,
-                        psi: float | None = None) -> np.ndarray:
-        """Images for explicit latents z (n, latent_dim) -> uint8."""
-        psi = self._default_psi if psi is None else float(psi)
-        z = np.asarray(z, np.float32)
-        out = []
-        for b, (start, size) in enumerate(self._batches(z.shape[0])):
-            zb = np.zeros((self.batch_size, z.shape[1]), np.float32)
-            zb[:size] = z[start:start + size]
-            out.append(self._run(zb, stream_seed(noise_seed, b),
-                                 psi)[:size])
-        return _assemble(out)

@@ -42,7 +42,7 @@ differentiate raises.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NoReturn
 
 import torch
 
@@ -79,6 +79,17 @@ def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int) -> None:
             f"{op}: the launching wrapper does not record gradients; call "
             "the op through its autograd Function (ganlab_tpu_torch.ops) "
             "or under torch.no_grad()")
+
+
+def raise_launch_error(err: int, op: str, x: torch.Tensor, **cut) -> NoReturn:
+    """Raise the CUDA error ``err`` that the kernel ``op``'s C call on ``x``
+    returned; ``cut`` names the call's forced path, threads or cluster. A
+    wrapper calls it only where ``err`` is not 0, so a launch pays
+    nothing for it."""
+    forced = f" ({', '.join(f'{k} {v}' for k, v in cut.items())})" \
+        if cut else ""
+    raise RuntimeError(f"{op} kernel launch failed: CUDA error {err} at "
+                       f"shape {tuple(x.shape)}{forced}")
 
 
 def _current_stream_handle(device_index: int) -> int:

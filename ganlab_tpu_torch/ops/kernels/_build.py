@@ -6,9 +6,10 @@ shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``. The file name carries a hash of the source, the
-headers beside it (``csrc/*.cuh``) and the flags, so an edited source is
-rebuilt and an unchanged one is reused.
+and loaded with ``ctypes``; ``c_function`` looks a C function up in it
+once, with its argument types. The file name carries a hash of the source,
+the headers beside it (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and an unchanged one is reused.
 Nothing here includes PyTorch's headers (a build takes seconds, not
 minutes). There is no fallback: without ``nvcc`` or with a failing build
 the call raises.
@@ -97,6 +98,17 @@ def _finish(name: str, started) -> KernelLibrary:
 def library(name: str) -> KernelLibrary:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     return _finish(name, _start(name))
+
+
+@functools.cache
+def c_function(name: str, symbol: str, argtypes: tuple):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, given its
+    argument types and its ``int`` result (a CUDA error or a plan code)
+    once; later calls are one cache lookup."""
+    fn = getattr(library(name).lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_all() -> list[KernelLibrary]:

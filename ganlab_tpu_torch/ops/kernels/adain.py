@@ -54,11 +54,12 @@ import functools
 import torch
 
 from ganlab_tpu_torch.ops.kernels import (
-    _build,
     check_input,
     define_op,
+    raise_launch_error,
     stream_handle,
 )
+from ganlab_tpu_torch.ops.kernels._build import c_function
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PATHS = ("loop", "warp", "block", "cluster", "split")
@@ -70,18 +71,13 @@ _FORCE = {"loop": 0, "block": 2, "cluster": 3, "split": 4}
 _SMALL_PLANE_BYTES = 8192 * 16
 
 
-@functools.cache
-def _fn(symbol: str):
-    """A C function of the library, given its argument types once."""
-    fn = getattr(_build.library("adain").lib, symbol)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = {
-        "ganlab_adain": [p, p, p, p, p, ll, ll, ctypes.c_float, i, i, i, i,
-                         i, i, i, p],
-        "ganlab_adain_plan": [i, ll, i, i, i, i, i,
-                              ctypes.POINTER(ctypes.c_int)]}[symbol]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# c_function's arguments for each C function of the library
+_LAUNCH = ("adain", "ganlab_adain",
+           (_P, _P, _P, _P, _P, _LL, _LL, ctypes.c_float, _I, _I, _I, _I, _I,
+            _I, _I, _P))
+_PLAN = ("adain", "ganlab_adain_plan",
+         (_I, _LL, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)))
 
 
 def _request(path, threads: int, cluster: int) -> int:
@@ -104,8 +100,8 @@ def _plan(aligned: bool, hw: int, dtype: int, code: int, threads: int,
     plane, vectors a block, shared-memory bytes a block); raises
     ValueError where it refuses."""
     out = (ctypes.c_int * 6)()
-    if _fn("ganlab_adain_plan")(int(aligned), hw, dtype, code, threads,
-                                cluster, device, out) != 0:
+    if c_function(*_PLAN)(int(aligned), hw, dtype, code, threads, cluster,
+                          device, out) != 0:
         raise ValueError(f"adain: the kernel cannot take planes of {hw} "
                          f"elements as asked (path code {code}, threads "
                          f"{threads}, cluster {cluster})")
@@ -183,16 +179,15 @@ def adain_cuda(x: torch.Tensor, style_scale: torch.Tensor,
         if _PATHS[plan[0]] == "split":
             scratch = torch.empty(n * c * plan[3] * 2, dtype=torch.float32,
                                   device=x.device)
-    err = _fn("ganlab_adain")(
+    err = c_function(*_LAUNCH)(
         x.data_ptr(), style_scale.data_ptr(), style_bias.data_ptr(),
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         n * c, h * w, eps, _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[style_scale.dtype], _DTYPE_CODE[style_bias.dtype],
         code, threads, cluster, index, stream_handle(index))
-    if err != 0:
-        raise RuntimeError(f"adain kernel launch failed: CUDA error {err} at "
-                           f"shape {tuple(x.shape)} (path {path}, threads "
-                           f"{threads}, cluster {cluster})")
+    if err:
+        raise_launch_error(err, "adain", x, path=path, threads=threads,
+                           cluster=cluster)
     adain_cuda.launches += 1
     return out
 

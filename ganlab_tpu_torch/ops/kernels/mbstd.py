@@ -39,31 +39,24 @@ because it lies inside R1's double backward.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ganlab_tpu_torch.ops.kernels import (
-    _build,
     check_input,
     define_op,
+    raise_launch_error,
     stream_handle,
 )
+from ganlab_tpu_torch.ops.kernels._build import c_function
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 1024
-
-
-@functools.cache
-def _fn(symbol: str):
-    """A C function of the library, given its argument types once."""
-    fn = getattr(_build.library("mbstd").lib, symbol)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = {
-        "ganlab_mbstd": [p, p, i, ll, i, ctypes.c_float, i, i, i, p],
-        "ganlab_mbstd_path": [p, p, i, ll, i, i]}[symbol]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# c_function's arguments for each C function of the library
+_LAUNCH = ("mbstd", "ganlab_mbstd",
+           (_P, _P, _I, _LL, _I, ctypes.c_float, _I, _I, _I, _P))
+_PATH = ("mbstd", "ganlab_mbstd_path", (_P, _P, _I, _LL, _I, _I))
 
 
 def minibatch_stddev_ref(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -112,13 +105,11 @@ def minibatch_stddev_cuda(x: torch.Tensor, eps: float = 1e-8, *,
     if x.numel() == 0:
         return out
     index = x.device.index
-    err = _fn("ganlab_mbstd")(
+    err = c_function(*_LAUNCH)(
         x.data_ptr(), out.data_ptr(), n, c * h * w, h * w, eps,
         _DTYPE_CODE[x.dtype], cluster, index, stream_handle(index))
-    if err != 0:
-        raise RuntimeError(f"minibatch_stddev kernel launch failed: CUDA "
-                           f"error {err} at shape {tuple(x.shape)} "
-                           f"(cluster {cluster})")
+    if err:
+        raise_launch_error(err, "minibatch_stddev", x, cluster=cluster)
     minibatch_stddev_cuda.launches += 1
     return out
 
@@ -132,8 +123,8 @@ def minibatch_stddev_path(x: torch.Tensor, out: torch.Tensor) -> str:
     then the threads a block, as in "vector held 128". Launches nothing."""
     _check(x)
     n, c, h, w = x.shape
-    code = _fn("ganlab_mbstd_path")(x.data_ptr(), out.data_ptr(), n,
-                                    c * h * w, h * w, _DTYPE_CODE[x.dtype])
+    code = c_function(*_PATH)(x.data_ptr(), out.data_ptr(), n, c * h * w,
+                              h * w, _DTYPE_CODE[x.dtype])
     if code < 0:
         raise ValueError(f"minibatch_stddev: no path for {tuple(x.shape)}")
     return (f"{'vector' if code & 1 else 'element'} "

@@ -53,32 +53,26 @@ package's backward kernel is never called). Both wrappers add to
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ganlab_tpu_torch.ops.kernels import (
-    _build,
     check_input,
     define_op,
+    raise_launch_error,
     stream_handle,
 )
+from ganlab_tpu_torch.ops.kernels._build import c_function
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-@functools.cache
-def _fn(symbol: str = "ganlab_pixel_norm"):
-    """A C function of the library, given its argument types once."""
-    fn = getattr(_build.library("pixelnorm").lib, symbol)
-    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    fn.argtypes = {
-        "ganlab_pixel_norm": [p, p, ll, i, f, i, i, p],
-        "ganlab_pixel_norm_nchw": [p, p, ll, i, ll, f, i, i, i, p],
-        "ganlab_pixel_norm_nchw_plan": [p, p, i, ll, i, i]}[symbol]
-    fn.restype = ctypes.c_int
-    return fn
+# c_function's arguments for each C function of the library
+_ROWS = ("pixelnorm", "ganlab_pixel_norm", (_P, _P, _LL, _I, _F, _I, _I, _P))
+_NCHW = ("pixelnorm", "ganlab_pixel_norm_nchw",
+         (_P, _P, _LL, _I, _LL, _F, _I, _I, _I, _P))
+_NCHW_PLAN = ("pixelnorm", "ganlab_pixel_norm_nchw_plan",
+              (_P, _P, _I, _LL, _I, _I))
 
 
 def _axis(dim: int) -> int:
@@ -113,12 +107,6 @@ def pixel_norm_bwd(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-8,
     return (r * (gf - xf * prod * (r * r))).to(x.dtype)
 
 
-def _raise_on(err: int, what: str, x: torch.Tensor) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
-                           f"at shape {tuple(x.shape)}")
-
-
 def pixel_norm_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Launch the rows kernel on a contiguous CUDA (rows, C) tensor."""
     check_input("pixel_norm", x, ndim=2, dtypes=_DTYPE_CODE)
@@ -127,9 +115,10 @@ def pixel_norm_cuda(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         return out
     rows, c = x.shape
     index = x.device.index
-    _raise_on(_fn()(x.data_ptr(), out.data_ptr(), rows, c, eps,
-                    _DTYPE_CODE[x.dtype], index, stream_handle(index)),
-              "pixel_norm", x)
+    err = c_function(*_ROWS)(x.data_ptr(), out.data_ptr(), rows, c, eps,
+                             _DTYPE_CODE[x.dtype], index, stream_handle(index))
+    if err:
+        raise_launch_error(err, "pixel_norm", x)
     pixel_norm_cuda.launches += 1
     return out
 
@@ -150,10 +139,11 @@ def pixel_norm_nchw_cuda(x: torch.Tensor, eps: float = 1e-8, *,
         return out
     n, c, h, w = x.shape
     index = x.device.index
-    _raise_on(_fn("ganlab_pixel_norm_nchw")(
-        x.data_ptr(), out.data_ptr(), n, c, h * w, eps,
-        _DTYPE_CODE[x.dtype], tile, index, stream_handle(index)),
-        "pixel_norm_nchw", x)
+    err = c_function(*_NCHW)(x.data_ptr(), out.data_ptr(), n, c, h * w, eps,
+                             _DTYPE_CODE[x.dtype], tile, index,
+                             stream_handle(index))
+    if err:
+        raise_launch_error(err, "pixel_norm_nchw", x)
     pixel_norm_cuda.launches += 1
     pixel_norm_nchw_cuda.launches += 1
     return out
@@ -170,7 +160,7 @@ def pixel_norm_nchw_path(x: torch.Tensor, out: torch.Tensor, *,
     each plane ("tile 128 B, vector channel groups"), or the run kernel with
     its pixel and channel vectors, whether the planes stay in registers,
     and the lanes that share a run. Launches nothing."""
-    plan = _fn("ganlab_pixel_norm_nchw_plan")(
+    plan = c_function(*_NCHW_PLAN)(
         x.data_ptr(), out.data_ptr(), x.shape[1],
         x.shape[2] * x.shape[3], _DTYPE_CODE[x.dtype], tile)
     if plan < 0:

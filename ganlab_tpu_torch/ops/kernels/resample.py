@@ -27,17 +27,17 @@ plain version on a CPU tensor.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from ganlab_tpu_torch.ops.kernels import (
-    _build,
     check_input,
     define_op,
+    raise_launch_error,
     stream_handle,
 )
+from ganlab_tpu_torch.ops.kernels._build import c_function
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -94,25 +94,19 @@ _LAUNCH_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_void_p)
 _PATH_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
               ctypes.c_int, ctypes.c_int, ctypes.c_int)
+# c_function's arguments for the two kernels' C functions
+_UP = ("resample", "ganlab_upsample_blur_2x", _LAUNCH_ARGS)
+_DOWN = ("resample", "ganlab_blur_downsample_2x", _LAUNCH_ARGS)
 
 
-@functools.cache
-def _fn(symbol: str, argtypes=_LAUNCH_ARGS):
-    """The C function, looked up and given its argument types once."""
-    fn = getattr(_build.library("resample").lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(op: str, fn, x: torch.Tensor, out: torch.Tensor, h: int, w: int,
-            gain: float) -> None:
+def _launch(op: str, fn: tuple, x: torch.Tensor, out: torch.Tensor, h: int,
+            w: int, gain: float) -> None:
     index = x.device.index
-    err = fn(x.data_ptr(), out.data_ptr(), x.shape[0] * x.shape[1], h, w,
-             gain, _DTYPE_CODE[x.dtype], index, stream_handle(index))
-    if err != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err} at "
-                           f"shape {tuple(x.shape)}")
+    err = c_function(*fn)(x.data_ptr(), out.data_ptr(),
+                          x.shape[0] * x.shape[1], h, w, gain,
+                          _DTYPE_CODE[x.dtype], index, stream_handle(index))
+    if err:
+        raise_launch_error(err, op, x)
 
 
 def upsample_blur_2x_cuda(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
@@ -123,15 +117,14 @@ def upsample_blur_2x_cuda(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch("upsample_blur_2x", _fn("ganlab_upsample_blur_2x"), x, out, h, w,
-            gain)
+    _launch("upsample_blur_2x", _UP, x, out, h, w, gain)
     upsample_blur_2x_cuda.launches += 1
     return out
 
 
 def _path(op: str, x: torch.Tensor, out: torch.Tensor, h: int, w: int) -> str:
     check_input(op, x, dtypes=_DTYPE_CODE, ndim=4)
-    fn = _fn(f"ganlab_{op}_path", _PATH_ARGS)
+    fn = c_function("resample", f"ganlab_{op}_path", _PATH_ARGS)
     return {1: "vector", 0: "element"}[fn(
         x.data_ptr(), out.data_ptr(), x.shape[0] * x.shape[1], h, w,
         _DTYPE_CODE[x.dtype])]
@@ -155,8 +148,7 @@ def blur_downsample_2x_cuda(x: torch.Tensor, gain: float = 1.0
     out = torch.empty((n, c, h // 2, w // 2), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch("blur_downsample_2x", _fn("ganlab_blur_downsample_2x"), x, out,
-            h // 2, w // 2, gain)
+    _launch("blur_downsample_2x", _DOWN, x, out, h // 2, w // 2, gain)
     blur_downsample_2x_cuda.launches += 1
     return out
 

@@ -1,8 +1,10 @@
 """Batch-inference serving around the G-EMA sampler (port of ``serve.py``).
 
-``BatchSampler`` runs the truncation-trick G-EMA sampler
-(``sample.build_sample_fn``) at a fixed serving batch size, with the JAX
-package's reproducibility contract:
+Two samplers serve a trained G-EMA: ``BatchSampler`` here runs the
+truncation-trick G-EMA sampler (``sample.build_sample_fn``) on the model
+code, ``export.ExportedSampler`` runs a ``torch.export`` program of it.
+Both keep the JAX package's reproducibility contract, which the shared
+base below holds once:
 
 * **Index-stable latents**: z_i of stream ``seed`` is drawn from its own
   ``torch.Generator`` seeded from ``(seed, i)``, so image ``i`` is the same
@@ -12,45 +14,129 @@ package's reproducibility contract:
 * **Noise determinism**: the per-layer synthesis noise of batch ``b`` comes
   from a generator on the serving device seeded from ``(noise seed, b)``:
   deterministic for a fixed ``batch_size``.
+* **psi per call**: ``generate(..., psi=)`` overrides the default
+  truncation for one request.
+
+Each batch's images are made uint8 NHWC on the serving device and reach
+the host as one C-contiguous array, filled by one copy from the device
+(the NHWC view is made contiguous there). On the card that array is
+page-locked memory from torch's host cache, and a request of one batch
+returns it as it is: the memory stays with the caller's array until the
+caller drops it, and goes back to torch's cache for a later request. A
+caller who holds many results holds that much page-locked memory.
 
 The streams are torch's (Philox/MT), not JAX's threefry: the same seed gives
 other latents and noise than ``ganlab_tpu.serve.BatchSampler``. The
 contract (prefix stability, repeatability) is the same. Given the same z
 and zero noise scales, both packages give the same images.
 
-The sampler takes a training ``workdir`` (the G-EMA and w-average of its
-latest checkpoint), a live ``TrainState`` (``state=``), or the G-EMA
+``BatchSampler`` takes a training ``workdir`` (the G-EMA and w-average of
+its latest checkpoint), a live ``TrainState`` (``state=``), or the G-EMA
 parameters directly (``params=``, a port ``state_dict`` or a flax numpy
 tree, converted on entry, with ``w_avg=`` for the style families): exactly
 one of the three. ProGAN and ResNet-GAN have no w-average and no
 truncation: their sampler maps z straight to images, under the same
-contract.
+contract. This module imports the model code only when a ``BatchSampler``
+is made, so ``export`` loads without it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
 
-from ganlab_tpu_torch.config import Config
-from ganlab_tpu_torch.convert import from_flax, is_flax_tree
-from ganlab_tpu_torch.models import build_generator, is_style
-from ganlab_tpu_torch.sample import build_sample_fn
-from ganlab_tpu_torch.utils.image import save_image_grid, to_uint8
-from ganlab_tpu_torch.utils.latents import (  # noqa: F401 (stream_seed:
-    slerp,                                    # this module's name too)
-    stream_latents,
-    stream_seed,
-)
+from ganlab_tpu_torch.utils.image import save_image_grid
+from ganlab_tpu_torch.utils.latents import slerp, stream_latents, stream_seed
 from ganlab_tpu_torch.utils.spans import span
+
+if TYPE_CHECKING:
+    from ganlab_tpu_torch.config import Config
 
 _NOISE_STREAM = 0x6E6F6973  # 'nois': generate()'s noise stream of a seed
 
 
-class BatchSampler:
+def _to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """Float [-1, 1] NHWC -> uint8 on x's device, also in an exported graph:
+    ``utils.image.to_uint8``'s clip((x + 1) * 127.5, 0, 255), truncated."""
+    return ((x.float() + 1.0) * 127.5).clamp(0.0, 255.0).to(torch.uint8)
+
+
+def _assemble(parts: list) -> np.ndarray:
+    """The batches' host arrays as one request's: a single batch's array
+    as it is (a leading slice of a C-contiguous array is one), more
+    concatenated."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+
+class _Serving:
+    """The contract and the result path of both samplers. A sampler sets
+    ``device``, ``batch_size``, ``_latent_dim`` and ``_default_psi``, and
+    its ``_forward(z, noise_seed, psi)`` turns one padded batch of latents
+    (numpy) into (batch, H, W, C) uint8 on the serving device, issued and
+    not waited for."""
+
+    def _batches(self, n: int):
+        for start in range(0, n, self.batch_size):
+            yield start, min(self.batch_size, n - start)
+
+    def _host_empty(self, shape) -> torch.Tensor:
+        """A C-contiguous uint8 host tensor of ``shape``: page-locked from
+        torch's host cache for a ``cuda`` sampler (pageable where pinning
+        fails), plain for a ``cpu`` one."""
+        if self.device.type == "cuda":
+            try:
+                return torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+            except RuntimeError:        # page-locked memory exhausted
+                pass
+        return torch.empty(shape, dtype=torch.uint8)
+
+    def _run(self, z: np.ndarray, noise_seed: int, psi: float) -> np.ndarray:
+        """One padded batch of latents -> (batch, H, W, C) uint8 on the
+        host, C-contiguous. ``_forward``'s output is an NHWC view over NCHW
+        bytes; one ``copy_`` into a fresh contiguous host array makes it
+        contiguous on the device and copies it once."""
+        out = self._forward(z, noise_seed, psi)
+        with span("serve.copy"):
+            with span("serve.alloc"):
+                dst = self._host_empty(out.shape)
+            dst.copy_(out)
+        return dst.numpy()
+
+    def generate(self, n: int, *, seed: int = 0,
+                 psi: float | None = None) -> np.ndarray:
+        """n images of stream ``seed`` as (n, H, W, C) uint8; image ``i``
+        is the same for every request size, and the same on both samplers
+        for the same weights, seed, batch size and device."""
+        psi = self._default_psi if psi is None else float(psi)
+        with span("serve.generate"):
+            out = []
+            for b, (start, size) in enumerate(self._batches(n)):
+                with span("serve.inputs"):
+                    z = stream_latents(self.batch_size, self._latent_dim,
+                                       seed=seed, start=start)
+                out.append(self._run(z, stream_seed(seed, _NOISE_STREAM, b),
+                                     psi)[:size])
+            with span("serve.assemble"):
+                return _assemble(out)
+
+    def generate_from_z(self, z, *, noise_seed: int = 0,
+                        psi: float | None = None) -> np.ndarray:
+        """Images for explicit latents z (n, latent_dim) -> uint8."""
+        psi = self._default_psi if psi is None else float(psi)
+        z = np.asarray(z, np.float32)
+        out = []
+        for b, (start, size) in enumerate(self._batches(z.shape[0])):
+            zb = np.zeros((self.batch_size, z.shape[1]), np.float32)
+            zb[:size] = z[start:start + size]
+            out.append(self._run(zb, stream_seed(noise_seed, b),
+                                 psi)[:size])
+        return _assemble(out)
+
+
+class BatchSampler(_Serving):
     """Fixed-batch G-EMA inference service for one trained model::
 
         s = BatchSampler(cfg, workdir="runs/stylegan256")
@@ -64,6 +150,10 @@ class BatchSampler:
                  w_avg=None, batch_size: int = 64,
                  res_log2: int | None = None,
                  device: str | torch.device = "cuda"):
+        from ganlab_tpu_torch.convert import from_flax, is_flax_tree
+        from ganlab_tpu_torch.models import build_generator, is_style
+        from ganlab_tpu_torch.sample import build_sample_fn
+
         if sum(x is not None for x in (workdir, state, params)) != 1:
             raise ValueError("pass exactly one of workdir=, state= or "
                              "params= (with w_avg=)")
@@ -89,6 +179,7 @@ class BatchSampler:
         self.batch_size = int(batch_size)
         self.res_log2 = cfg.model.res_log2 if res_log2 is None else res_log2
         self.resolution = 2 ** self.res_log2
+        self._latent_dim = cfg.model.latent_dim
         self._default_psi = float(cfg.model.truncation_psi)
         if is_flax_tree(params):
             params = from_flax(params)
@@ -108,51 +199,19 @@ class BatchSampler:
         self.generate(1, seed=0)
         return self
 
-    def _batches(self, n: int):
-        for start in range(0, n, self.batch_size):
-            yield start, min(self.batch_size, n - start)
-
-    def _run(self, z: torch.Tensor, noise_seed: int, psi: float
-             ) -> np.ndarray:
-        """One fixed-size batch of latents -> (batch, H, W, C) float32."""
+    def _forward(self, z: np.ndarray, noise_seed: int,
+                 psi: float) -> torch.Tensor:
+        """The synthesis noise drawn inside the G from a generator on the
+        serving device seeded ``noise_seed``; the clipped float32 NCHW
+        images made uint8 on their NHWC view on the device."""
         with torch.inference_mode():
             with span("serve.inputs"):
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(noise_seed)
-                z = z.to(self.device)
+                z = torch.from_numpy(z).to(self.device)
             with span("serve.forward"):
                 img = self._sample(self.g, self.w_avg, z, gen, psi, 1.0)
-            with span("serve.copy"):
-                return img.permute(0, 2, 3, 1).cpu().numpy()
-
-    def generate(self, n: int, *, seed: int = 0,
-                 psi: float | None = None) -> np.ndarray:
-        """n images of stream ``seed`` as (n, H, W, C) uint8."""
-        psi = self._default_psi if psi is None else float(psi)
-        with span("serve.generate"):
-            out = []
-            for b, (start, size) in enumerate(self._batches(n)):
-                with span("serve.inputs"):
-                    z = torch.from_numpy(
-                        self.latents(self.batch_size, seed=seed, start=start))
-                imgs = self._run(z, stream_seed(seed, _NOISE_STREAM, b), psi)
-                out.append(imgs[:size])
-            with span("serve.assemble"):
-                return to_uint8(np.concatenate(out, axis=0))
-
-    def generate_from_z(self, z, *, noise_seed: int = 0,
-                        psi: float | None = None) -> np.ndarray:
-        """Images for explicit latents z (n, latent_dim) -> uint8."""
-        psi = self._default_psi if psi is None else float(psi)
-        z = np.asarray(z, np.float32)
-        out = []
-        for b, (start, size) in enumerate(self._batches(z.shape[0])):
-            zb = np.zeros((self.batch_size, z.shape[1]), np.float32)
-            zb[:size] = z[start:start + size]
-            imgs = self._run(torch.from_numpy(zb),
-                             stream_seed(noise_seed, b), psi)
-            out.append(imgs[:size])
-        return to_uint8(np.concatenate(out, axis=0))
+                return _to_uint8(img.permute(0, 2, 3, 1))
 
     def latents(self, n: int, *, seed: int = 0, start: int = 0) -> np.ndarray:
         """The index-stable z's generate() uses (for editing/interp)."""

@@ -18,13 +18,13 @@ The spans (``SPANS``) and where they are opened:
 * ``serve.generate``: ``ExportedSampler.generate`` / ``BatchSampler.
   generate``, the whole call; inside it, per batch, ``serve.inputs`` (the
   latents, the noise generator and maps, z and psi to the device),
-  ``serve.forward`` (the host's issue of the G forward),
-  ``serve.copy`` (the wait for the forward and the copy to the host),
-  inside it on the exported sampler ``serve.alloc`` (the allocation of
-  the batch's host array: page-locked on the card, from torch's host
-  cache, so microseconds where the cache holds a free block), and once a
-  call ``serve.assemble`` (the concatenation of the batches where there
-  are several, and ``BatchSampler``'s conversion to uint8);
+  ``serve.forward`` (the host's issue of the G forward and its uint8
+  conversion), ``serve.copy`` (the wait for the forward and the copy to
+  the host), inside it ``serve.alloc`` (the allocation of the batch's host
+  array: page-locked on the card, from torch's host cache, so
+  microseconds where the cache holds a free block), and once a call
+  ``serve.assemble`` (the concatenation of the batches where there are
+  several);
 * ``step.reg`` / ``step.pl`` / ``step.plain``: one eager call of a
   training step (``train/steps.py::build_train_step``): ``step.reg``
   where a D penalty fires in it (with or without a path-length term),

@@ -12,10 +12,12 @@ default platforms on a host without a card, ``cli export`` (also its
 warning on an untrained workdir). The operators: each one's fake
 implementation under ``torch.library.opcheck`` on the CPU registration,
 shapes under ``FakeTensorMode``, and the exported graph calling them.
-Each call's result is C-contiguous, bit-equal to the program's own
-output, and the caller's own. On a card (``gpu`` marker): a ``cuda``
-program launches the kernels, counted by their wrappers; a one-batch
-result is page-locked, and a dropped one's block serves the next request.
+Each call's result, on the exported sampler and on ``BatchSampler`` (the
+two share one result path), is C-contiguous, bit-equal to the sampler's
+own device output, and the caller's own. On a card (``gpu`` marker): a
+``cuda`` program launches the kernels, counted by their wrappers; on
+either sampler a one-batch result is page-locked, and a dropped one's
+block serves the next request.
 """
 
 import json
@@ -112,36 +114,42 @@ def test_generate_from_z_and_psi(trained, artifact):
 
 
 def _program_images(s, zs, noise_seeds, n):
-    """The program's own output for the padded latent batches ``zs``, each
-    copied to the host as it is and made C-contiguous there, trimmed to
-    ``n``."""
+    """The sampler's own device output (``_forward``) for the padded latent
+    batches ``zs``, each copied to the host as it is and made C-contiguous
+    there, trimmed to ``n``."""
     out = [np.ascontiguousarray(
         s._forward(z, ns, s._default_psi).cpu().numpy())
         for z, ns in zip(zs, noise_seeds)]
     return np.concatenate(out, axis=0)[:n]
 
 
-@pytest.mark.parametrize("n", [3, 4, 7])
-def test_result_is_contiguous_and_the_callers_own(artifact, n):
+@pytest.mark.parametrize("kind,n", [
+    pytest.param(kind, n, id=str(n) if kind == "exported" else f"{kind}-{n}")
+    for kind in ("exported", "batch_sampler") for n in (3, 4, 7)])
+def test_result_is_contiguous_and_the_callers_own(trained, artifact, kind,
+                                                  n):
     """For n of batch - 1, batch and 2 batch - 1 (batch 4), through
-    ``generate`` and ``generate_from_z``: the result is a C-contiguous
-    uint8 (n, H, W, 3), bit-equal to the program's own output made
+    ``generate`` and ``generate_from_z`` of the exported sampler and of
+    ``BatchSampler`` on the same state: the result is a C-contiguous uint8
+    (n, H, W, 3), bit-equal to the sampler's own device output made
     contiguous, and an array kept over three later requests is left as it
     was (no buffer is reused under the caller)."""
-    s = ExportedSampler(artifact, device="cpu")
+    s = ExportedSampler(artifact, device="cpu") if kind == "exported" \
+        else _live(trained)
+    dim = SETS["model.latent_dim"]
     B, nb = s.batch_size, -(-n // s.batch_size)
-    z = np.random.RandomState(n).randn(n, s.latent_dim).astype(np.float32)
-    padded = np.zeros((nb * B, s.latent_dim), np.float32)
+    z = np.random.RandomState(n).randn(n, dim).astype(np.float32)
+    padded = np.zeros((nb * B, dim), np.float32)
     padded[:n] = z
     calls = {
         "generate": (
             lambda: s.generate(n, seed=9),
-            [stream_latents(B, s.latent_dim, seed=9, start=b * B)
+            [stream_latents(B, dim, seed=9, start=b * B)
              for b in range(nb)],
             [stream_seed(9, _NOISE_STREAM, b) for b in range(nb)]),
         "generate_from_z": (
             lambda: s.generate_from_z(z, noise_seed=2),
-            list(padded.reshape(nb, B, s.latent_dim)),
+            list(padded.reshape(nb, B, dim)),
             [stream_seed(2, b) for b in range(nb)]),
     }
     for name, (call, zs, noise_seeds) in calls.items():
@@ -301,22 +309,27 @@ def test_cuda_program_launches_the_kernels(trained, tmp_path):
 
 
 @pytest.mark.gpu
-def test_cuda_result_is_page_locked_and_its_block_reused(trained, tmp_path):
-    """On the card a one-batch request's array is page-locked and
-    C-contiguous, bit-equal to the program's output copied as it is and
-    made contiguous on the host; arrays kept survive later requests, and
-    once the caller drops them their blocks serve the next requests (torch's
-    host cache pins no new block)."""
+@pytest.mark.parametrize("kind", ["exported", "batch_sampler"])
+def test_cuda_result_is_page_locked_and_its_block_reused(trained, tmp_path,
+                                                         kind):
+    """On the card, on either sampler, a one-batch request's array is
+    page-locked and C-contiguous, bit-equal to the sampler's device output
+    copied as it is and made contiguous on the host; arrays kept survive
+    later requests, and once the caller drops them their blocks serve the
+    next requests (torch's host cache pins no new block)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (page-locked memory is the card's)")
     cfg, _, state = trained
-    path = str(tmp_path / "cuda.zip")
-    export_sampler(cfg, state, path, batch_size=4, platforms=("cuda",))
-    s = ExportedSampler(path)
+    if kind == "exported":
+        path = str(tmp_path / "cuda.zip")
+        export_sampler(cfg, state, path, batch_size=4, platforms=("cuda",))
+        s = ExportedSampler(path)
+    else:
+        s = BatchSampler(cfg, state=state, batch_size=4)
     a = s.generate(4, seed=1)
     assert a.flags["C_CONTIGUOUS"] and torch.from_numpy(a).is_pinned()
     np.testing.assert_array_equal(a, _program_images(
-        s, [stream_latents(4, s.latent_dim, seed=1)],
+        s, [stream_latents(4, SETS["model.latent_dim"], seed=1)],
         [stream_seed(1, _NOISE_STREAM, 0)], 4))
     kept = a.copy()
     held = [s.generate(4, seed=2 + i) for i in range(3)]

@@ -3,7 +3,9 @@ JAX package, and no ``triton`` either: every kernel is CUDA C++.
 
 A fresh interpreter imports every module of ``ganlab_tpu_torch`` and then
 looks at ``sys.modules``; the package's sources and ``chip_smoke.py`` are
-also checked by their import statements. The streaming image source's
+also checked by their import statements. ``ganlab_tpu_torch.export``
+loads in a fresh interpreter without the model code. The streaming image
+source's
 DataLoader workers are processes of their own: what each one has loaded
 is read from its memory map.
 """
@@ -72,6 +74,25 @@ def test_package_sources_import_no_jax_no_triton():
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in IMPORT.findall(f.read_text()) if FORBIDDEN.match(m)]
     assert bad == [], bad
+
+
+EXPORT_PROBE = """
+import json, sys
+import ganlab_tpu_torch.export
+print(json.dumps(sorted(sys.modules)))
+"""
+MODEL_CODE = re.compile(r"^ganlab_tpu_torch\.(models|sample|convert|train)")
+
+
+def test_export_imports_no_model_code():
+    """The exported sampler's module loads no model, sample, convert or
+    train module: an artifact is served without the model code."""
+    out = subprocess.run([sys.executable, "-c", EXPORT_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    modules = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "ganlab_tpu_torch.export" in modules
+    assert [m for m in modules if MODEL_CODE.match(m)] == []
 
 
 WORKER_PROBE = """

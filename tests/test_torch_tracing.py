@@ -5,8 +5,8 @@ shared null context with no profiler on and records nothing, and a
 named host range under ``torch.profiler``; a ``generate`` of two
 batches, on the exported sampler (its CPU program) and on
 ``BatchSampler``, opens one ``serve.generate`` that holds, per batch,
-``serve.inputs``, ``serve.forward`` and ``serve.copy`` (on the exported
-sampler with one ``serve.alloc`` inside), then one ``serve.assemble``;
+``serve.inputs``, ``serve.forward`` and ``serve.copy`` (with one
+``serve.alloc`` inside), then one ``serve.assemble``;
 the lazy stepper over two cycles of k steps opens two ``step.reg`` and
 2k - 2 ``step.plain``; the chunked stepper over one cycle opens one
 ``train.chunk`` holding one ``step.reg`` and k - 1 ``step.plain``. On a
@@ -114,9 +114,9 @@ def test_generate_spans(kind, state, tmp_path):
     assert held.count("serve.inputs") == 4
     assert held.count("serve.forward") == held.count("serve.copy") == 2
     assert held.count("serve.assemble") == 1 and held[-1] == "serve.assemble"
-    # the exported sampler allocates each batch's host array in the copy
+    # both samplers allocate each batch's host array in the copy
     allocs = [r for r in got if r[2] == "serve.alloc"]
-    assert len(allocs) == (2 if kind == "exported" else 0)
+    assert len(allocs) == 2
     for a, b, _ in allocs:
         assert any(s <= a and b <= e for s, e, n in got if n == "serve.copy")
 
