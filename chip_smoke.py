@@ -27,7 +27,14 @@ Phases (any failure raises and the script exits non-zero):
    in registers and read twice, bit-equal across two calls and with fewer
    blocks than its cluster of 8; the resample kernels also
    with a gain, and each one's vector path against its element path bit
-   for bit; AdaIN on each of its paths, at an unaligned pointer, on
+   for bit; at every shape a unit launches channels-last (the StyleGAN2
+   G's and every D's: ``step_launches(..., channels_last=True)``) also
+   on channels-last memory, which takes the NHWC paths: against the plain
+   version, at the gain, bit for bit against the NCHW call and from an
+   unaligned copy (the NHWC element path), and timed there beside the
+   NCHW kernel (``time ... nhwc`` lines), so each unit's sums add the
+   layout its launches run in; AdaIN on each of its paths, at an
+   unaligned pointer, on
    constant planes and on planes with a large mean (the split path also
    forced on 1024² planes, and taken by planes of 72 and 144 MiB);
    ``variants`` lines read forced cuts in turns:
@@ -271,7 +278,7 @@ from ganlab_tpu_torch.data import make_source
 from ganlab_tpu_torch.export import ExportedSampler, export_sampler
 from ganlab_tpu_torch.models.layers import up2_form
 from ganlab_tpu_torch.ops.equalized import HYBRID_NEAREST
-from ganlab_tpu_torch.ops.kernels import _build
+from ganlab_tpu_torch.ops.kernels import COUNTS, _build
 from ganlab_tpu_torch.ops.kernels.adain import (
     ADAIN,
     adain_cuda,
@@ -303,6 +310,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
     upsample_blur_2x_path,
     upsample_blur_2x_ref,
 )
+from ganlab_tpu_torch.ops.layout import is_channels_last
 from ganlab_tpu_torch.ops.upfirdn import BLUR_TAPS
 from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.sample import build_sample_fn
@@ -478,7 +486,8 @@ RECIPES = ("sequential", "reg_separate", "fused_seq", "fused_g_step")
 
 
 def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
-                  recipe: str = "sequential") -> dict:
+                  recipe: str = "sequential",
+                  channels_last: bool = False) -> dict:
     """kernel -> {shape: launches} of one training step at 2^res_log2 (the
     model's full resolution when None) and ``batch``, derived from the
     model's structure (``mc``, ``mc.remat``), the step's code and the
@@ -515,6 +524,10 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
       (both losses read its scores); D's backward to its parameters over
       both forwards, then G's backward through the fakes' D forward to the
       images and through G; R1 as above.
+
+    ``channels_last``: only the launches on channels-last memory, which
+    the D's resample kernels make (``ProDiscriminator`` runs channels-
+    last, its mbstd NCHW; StyleGAN's G runs NCHW).
 
     With ``model.remat`` each block is recomputed in the backward, up to
     its last tensor the backward needs (``torch.utils.checkpoint`` stops
@@ -574,12 +587,21 @@ def step_launches(mc, r1: bool, res_log2=None, batch=BATCH,
         parts.append({"adain": {s: n for s, n in serve["adain"].items()
                                 if s[2] > 4},
                       **({"upsample_blur_2x": g_up} if form is None else {})})
+    r1_down = {"blur_downsample_2x": down}
     if r1:
-        parts += [d_fwd, d_bwd, {"blur_downsample_2x": down}, d_bwd]
+        parts += [d_fwd, d_bwd, r1_down, d_bwd]
+    if channels_last:
+        parts = [_resample_only(p) for p in parts
+                 if any(p is d for d in (d_fwd, d_bwd, r1_down))]
     total: dict = {}
     for part in parts:
         _add(total, part)
     return total
+
+
+def _resample_only(launches: dict) -> dict:
+    """The resample kernels' launches of ``launches``."""
+    return {n: v for n, v in launches.items() if n in RESAMPLE_PATHS}
 
 
 def progan_g_launches(mc, res_log2=None, batch=BATCH) -> dict:
@@ -945,18 +967,36 @@ def _check(label: str, out, ref, dtype, note: str = "") -> float:
     return err
 
 
-def check_shape(name: str, shape, g) -> float:
+def _as_channels_last(inp: tuple) -> tuple:
+    """A resample kernel's input in channels-last memory."""
+    return (inp[0].contiguous(memory_format=torch.channels_last),)
+
+
+def _unaligned_cl(x):
+    """x's values channels-last, one element past a 16-byte boundary."""
+    n, c, h, w = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return buf.as_strided(x.shape, (h * w * c, 1, w * c, c)).copy_(x)
+
+
+def check_shape(name: str, shape, g, channels_last: bool = False) -> float:
     """The kernel against its plain version at one shape in float32 and
-    bfloat16; returns the largest absolute error."""
+    bfloat16; returns the largest absolute error. ``channels_last`` (the
+    resample kernels): on channels-last memory, which takes the NHWC
+    paths, each also bit-equal to the NCHW call on the same values and
+    its result channels-last."""
     k = KERNELS[name]
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
         inp = k["inputs"](shape, dt, g)
+        nchw = inp
+        if channels_last:
+            inp = _as_channels_last(inp)
         t0 = time.perf_counter()
         out = k["kernel"](*inp)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        label = f"{name} {shape} {_dt(dt)}"
+        label = f"{name} {shape} {_dt(dt)}{' nhwc' if channels_last else ''}"
         worst = max(worst, _check(label, out, k["plain"](*inp), dt,
                                   f" first call {first_s:.2f} s"))
         # the registered operator (what the autograd Function calls) is
@@ -971,18 +1011,24 @@ def check_shape(name: str, shape, g) -> float:
         if name in RESAMPLE_PATHS:
             # the same values at a pointer that is not 16-byte aligned go
             # down the element path, whatever path the shape took, with
-            # and without a gain
+            # and without a gain; channels-last, the NHWC paths agree
+            # with the NCHW call too
             x = inp[0]
-            xu = _unaligned_copy(x)
+            xu = (_unaligned_cl if channels_last else _unaligned_copy)(x)
             for gain in (1.0, CHECK_GAIN):
                 out, out_u = k["kernel"](x, gain), k["kernel"](xu, gain)
                 paths = (RESAMPLE_PATHS[name](x, out),
                          RESAMPLE_PATHS[name](xu, out_u))
                 same = torch.equal(out, out_u)
+                if channels_last:
+                    same = (same and torch.equal(out, k["kernel"](
+                        nchw[0], gain)) and all(is_channels_last(t)
+                                                for t in (out, out_u)))
                 log(f"path {label} gain {gain}: {paths[0]}; from an "
-                    f"unaligned copy: {paths[1]}, bit-identical {same}")
+                    f"unaligned copy: {paths[1]}, bit-identical {same}"
+                    f"{' (also to NCHW)' if channels_last else ''}")
                 if paths[1] != "element" or not same:
-                    raise AssertionError(f"{label}: the two paths of {name} "
+                    raise AssertionError(f"{label}: the paths of {name} "
                                          "disagree")
         if name == "adain":
             # the sums' order differs between the paths, so they are held
@@ -1204,11 +1250,21 @@ def nchw_variants(g) -> None:
                 for n, r in reads.items()))
 
 
-def time_shape(name: str, shape, g, dtype=torch.bfloat16) -> dict:
+def time_shape(name: str, shape, g, dtype=torch.bfloat16,
+               channels_last: bool = False) -> dict:
     """Times of the kernel, its plain version and its library call at one
-    shape in ``dtype``, beside the bound."""
+    shape in ``dtype``, beside the bound. ``channels_last``: on
+    channels-last inputs (the resample kernels' NHWC paths), beside the
+    NCHW call's times on the same values."""
     k = KERNELS[name]
     inp = k["inputs"](shape, dtype, g)
+    nchw_note = ""
+    if channels_last:
+        nchw = inp
+        inp = _as_channels_last(inp)
+        nchw_note = (f"  NCHW kernel "
+                     f"{cuda_time_ms(lambda: k['op'](*nchw)):.4f} ms (device "
+                     f"{device_time_ms(lambda: k['op'](*nchw)):.4f} ms)")
 
     def kern():
         # the operator the autograd Function calls: the model's path
@@ -1248,9 +1304,11 @@ def time_shape(name: str, shape, g, dtype=torch.bfloat16) -> dict:
     t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     t["ops_ms"] = k["flops"](shape) / F32_FLOPS_PER_S * 1e3
     bound = max(t["bytes_ms"], t["ops_ms"])
-    log(f"time {name} {shape} {_dt(dtype)}: kernel {t['ms']:.4f} ms (device "
-        f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us through the "
-        f"operator, {t['wrapper_host_us']:.1f} us the wrapper alone)  plain "
+    lay = " nhwc" if channels_last else ""
+    log(f"time {name} {shape} {_dt(dtype)}{lay}: kernel {t['ms']:.4f} ms "
+        f"(device {t['device_ms']:.4f} ms, host {t['host_us']:.1f} us "
+        f"through the operator, {t['wrapper_host_us']:.1f} us the wrapper "
+        f"alone){nchw_note}  plain "
         f"{t['plain_ms']:.4f} ms  library {note}  bound {bound:.4f} ms "
         f"({'bytes' if t['bytes_ms'] >= t['ops_ms'] else 'operations'}); "
         f"{nbytes / t['ms'] / 1e6:.0f} GB/s = "
@@ -1351,13 +1409,26 @@ def unit_sums(times: dict, launches: dict) -> dict:
     return r
 
 
-def phase_kernels(units: dict) -> dict:
+def _by_layout(launches: dict, nhwc: dict) -> dict:
+    """{(shape, channels_last): launches} of one unit's kernel, from its
+    launches and the channels-last ones among them."""
+    out = {}
+    for s, n in launches.items():
+        cl = nhwc.get(s, 0)
+        for key, m in (((s, False), n - cl), ((s, True), cl)):
+            if m:
+                out[key] = m
+    return out
+
+
+def phase_kernels(units: dict, nhwc: dict) -> dict:
     """Check and time every kernel. ``units`` maps a unit of work (a served
     batch, a training step, a projection) to kernel -> {shape: launches per
-    unit}; every shape is checked once (float32 and bfloat16) and timed once
-    in each dtype its units launch it in (bfloat16, float32 for
-    ``F32_UNITS``), and the times are summed per unit. Returns kernel ->
-    {"max_abs_err": ..., unit: sums}."""
+    unit}, ``nhwc`` to the channels-last launches among them; every shape
+    is checked once (float32 and bfloat16) in each layout its units launch
+    it in, NCHW always, and timed once in each dtype and layout its units
+    launch it in (bfloat16, float32 for ``F32_UNITS``), and the times are
+    summed per unit. Returns kernel -> {"max_abs_err": ..., unit: sums}."""
     def unit_dtype(unit):
         return torch.float32 if unit in F32_UNITS else torch.bfloat16
 
@@ -1365,18 +1436,26 @@ def phase_kernels(units: dict) -> dict:
     results = {}
     with torch.inference_mode():
         for name in KERNELS:
+            by_unit = {unit: _by_layout(by_kernel[name],
+                                        nhwc.get(unit, {}).get(name, {}))
+                       for unit, by_kernel in units.items()
+                       if by_kernel.get(name)}
             keys = list(dict.fromkeys(
-                (s, unit_dtype(unit)) for unit, by_kernel in units.items()
-                for s in by_kernel.get(name, {})))
-            shapes = list(dict.fromkeys(s for s, _ in keys))
+                (s, unit_dtype(unit), cl) for unit, by in by_unit.items()
+                for s, cl in by))
+            shapes = list(dict.fromkeys(s for s, _, _ in keys))
+            cl_shapes = list(dict.fromkeys(s for s, _, cl in keys if cl))
             r = {"max_abs_err": max(
-                check_shape(name, s, g)
-                for s in shapes + EXTRA_SHAPES.get(name, []))}
+                [check_shape(name, s, g)
+                 for s in shapes + EXTRA_SHAPES.get(name, [])]
+                + [check_shape(name, s, g, channels_last=True)
+                   for s in cl_shapes])}
             if name == "adain":
                 r["max_abs_err"] = max(r["max_abs_err"],
                                        check_adain_planes(g))
                 adain_variants(g)
-            times = {(s, dt): time_shape(name, s, g, dt) for s, dt in keys}
+            times = {(s, dt, cl): time_shape(name, s, g, dt, cl)
+                     for s, dt, cl in keys}
             if name == "pixelnorm":
                 pixelnorm_host_parts(g)
             if name == "adain":
@@ -1385,21 +1464,21 @@ def phase_kernels(units: dict) -> dict:
                 mbstd_variants(g)
             if name == "pixelnorm_nchw":
                 nchw_variants(g)
-            for unit, by_kernel in units.items():
-                if by_kernel.get(name):
-                    dt = unit_dtype(unit)
-                    u = r[unit] = unit_sums(
-                        {s: times[(s, dt)] for s in by_kernel[name]},
-                        by_kernel[name])
-                    lib = "n/a" if u["library_ms"] is None else \
-                        (f"{u['library_ms']:.4f} ms (device "
-                         f"{u['library_device_ms']:.4f} ms)")
-                    log(f"sum {name} per {unit} ({u['launches']} launches): "
-                        f"kernel {u['ms']:.4f} ms (device "
-                        f"{u['device_ms']:.4f} ms, host {u['host_us']:.1f} "
-                        f"us a call)  plain {u['plain_ms']:.4f} ms  library "
-                        f"{lib}  bound {u['bound_ms']:.4f} ms "
-                        f"({u['bound_by']})")
+            for unit, by in by_unit.items():
+                dt = unit_dtype(unit)
+                u = r[unit] = unit_sums(
+                    {(s, cl): times[(s, dt, cl)] for s, cl in by}, by)
+                n_cl = sum(m for (_, cl), m in by.items() if cl)
+                lib = "n/a" if u["library_ms"] is None else \
+                    (f"{u['library_ms']:.4f} ms (device "
+                     f"{u['library_device_ms']:.4f} ms)")
+                log(f"sum {name} per {unit} ({u['launches']} launches, "
+                    f"{n_cl} NHWC): "
+                    f"kernel {u['ms']:.4f} ms (device "
+                    f"{u['device_ms']:.4f} ms, host {u['host_us']:.1f} "
+                    f"us a call)  plain {u['plain_ms']:.4f} ms  library "
+                    f"{lib}  bound {u['bound_ms']:.4f} ms "
+                    f"({u['bound_by']})")
             results[name] = r
     return results
 
@@ -1432,7 +1511,14 @@ def _add_counts(total: dict, part: dict) -> None:
 
 def reset_counts():
     for k in KERNELS.values():
-        k["kernel"].launches = 0
+        for attr in COUNTS:
+            if hasattr(k["kernel"], attr):
+                setattr(k["kernel"], attr, 0)
+
+
+def _nhwc_counts() -> dict:
+    """The resample wrappers' NHWC launches since ``reset_counts``."""
+    return {n: KERNELS[n]["kernel"].nhwc_launches for n in RESAMPLE_PATHS}
 
 
 def serving_speed(sampler) -> dict:
@@ -1792,8 +1878,11 @@ def phase_training(card: str) -> dict:
     assert phase.batch_size == BATCH and phase.res_log2 == 8
     combo_at, _ = train_steps._lazy_combos(cfg)
     expect = {r1: launch_totals(step_launches(mc, r1)) for r1 in (False, True)}
+    expect_cl = {r1: _resample_only(launch_totals(step_launches(
+        mc, r1, channels_last=True))) for r1 in (False, True)}
     log(f"train: launches per step derived from the config: R1-off "
-        f"{expect[False]}, R1-on {expect[True]}")
+        f"{expect[False]}, R1-on {expect[True]}; NHWC among them (the D's) "
+        f"R1-off {expect_cl[False]}, R1-on {expect_cl[True]}")
 
     t0 = time.perf_counter()
     state = create_train_state(cfg, seed=0)
@@ -1851,6 +1940,9 @@ def phase_training(card: str) -> dict:
         if counts != expect[r1]:
             raise AssertionError(f"step {i}: launches {counts}, derived "
                                  f"{expect[r1]}")
+        if _nhwc_counts() != expect_cl[r1]:
+            raise AssertionError(f"step {i}: NHWC launches "
+                                 f"{_nhwc_counts()}, derived {expect_cl[r1]}")
         step_ms.append(ms)
         kinds.append(r1)
 
@@ -2914,6 +3006,9 @@ def sg2_serving(card: str) -> dict:
     if counts != {n: 5 * v for n, v in per_batch.items()}:
         raise AssertionError(f"stylegan2 serving: launches {counts} in 5 "
                              f"batches, derived {per_batch} a batch")
+    if _nhwc_counts() != _resample_only(counts):   # channels-last G
+        raise AssertionError(f"stylegan2 serving: NHWC launches "
+                             f"{_nhwc_counts()} of {counts}")
     assert a.shape == (100, 256, 256, 3) and a.dtype == np.uint8
     np.testing.assert_array_equal(a[:10], b)
     assert float(a.astype(np.float32).std()) > 1.0, "images are flat"
@@ -5299,15 +5394,21 @@ def main(kernels_only: bool = False) -> None:
     mk, b1k = cfg1k.model, cfg1k.schedule.batch_for(1024)
     mp = get_config("progan-128").model
     m2 = get_config("stylegan2-256").model
+    sg2 = sg2_launch_units(m2)
     results = phase_kernels({
-        **sg2_launch_units(m2),
+        **sg2,
         SERVED: serving_shapes(mc), STEP: step_launches(mc, r1=False),
         SERVED_1K: serving_shapes(mk, batch=SERVE_1K_BATCH),
         STEP_1K: step_launches(mk, r1=False, batch=b1k),
         PG_STEP_64: kernel_units(step_launches(mp, True, 6, 16)),
         PG_STEP_128: kernel_units(step_launches(mp, True, 7, 8)),
         PG_SERVED: kernel_units(progan_g_launches(mp)),
-        PROJ: projector_shapes(mc, PROJ_STEPS)})
+        PROJ: projector_shapes(mc, PROJ_STEPS)}, {
+        # the StyleGAN2 G and every D run channels-last
+        **{unit: _resample_only(v) for unit, v in sg2.items()},
+        STEP: step_launches(mc, r1=False, channels_last=True),
+        STEP_1K: step_launches(mk, r1=False, batch=b1k,
+                               channels_last=True)})
     large_err = check_large_offsets()
     if kernels_only:
         log(f"--kernels-only: stopping after the kernel phase [{card}]")

@@ -20,6 +20,7 @@ from torch import nn
 
 from ganlab_tpu_torch.ops import equalized as eq
 from ganlab_tpu_torch.ops import folded as fd
+from ganlab_tpu_torch.ops.layout import is_channels_last
 
 
 def _scaled_normal(shape, lr_mult: float) -> nn.Parameter:
@@ -121,8 +122,12 @@ class NoiseInjection(nn.Module):
                                 dtype=x.dtype)
         if self.fold:
             return fd.noise_folded(x, self.scale, noise)
-        return x + self.scale.to(x.dtype)[None, :, None, None] \
-            * noise.to(x.dtype)
+        scale = self.scale.to(x.dtype)
+        if is_channels_last(x):
+            # the same products, laid out (N, H, W, C): channels-last
+            return x + (noise.to(x.dtype).permute(0, 2, 3, 1) * scale) \
+                .permute(0, 3, 1, 2)
+        return x + scale[None, :, None, None] * noise.to(x.dtype)
 
 
 class StyleAffine(nn.Module):

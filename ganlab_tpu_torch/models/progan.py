@@ -1,4 +1,4 @@
-"""ProGAN generator and discriminator (Karras et al. 2017), NCHW.
+"""ProGAN generator and discriminator (Karras et al. 2017), (N, C, H, W).
 
 Port of ``ganlab_tpu/models/progan.py`` with the flax parameter names, so
 ``convert.from_flax`` maps one tree onto the other. Generator:
@@ -21,6 +21,12 @@ over its channels (``pixel_norm(x, dim=1)``, where the JAX package takes
 the last axis of NHWC); its input block's dense output is reshaped in the
 JAX package's (h, w, c) order and then permuted to NCHW, the mirror of the
 D's flatten, so the dense weight converts as it is too.
+
+The discriminator runs channels-last from its input image to its 4x4
+block (``ops.layout.to_channels_last``; every op of its path keeps its
+input's layout, so cuDNN reads and writes the activations without a
+transpose), and its gradient with respect to the image comes back in the
+image's layout. The generator runs in the layout it is handed (NCHW).
 
 ``model.d_resnet`` gives the D residual blocks (StyleGAN2's ResNet D):
 a skip branch of a 1x1 conv (no bias, gain 1) and the block's downsample
@@ -58,6 +64,11 @@ from ganlab_tpu_torch.ops import (
     upsample_nearest_2x,
 )
 from ganlab_tpu_torch.ops import folded as fd
+from ganlab_tpu_torch.ops.layout import (
+    as_layout,
+    is_channels_last,
+    to_channels_last,
+)
 
 
 def static_stable(alpha) -> bool:
@@ -206,7 +217,8 @@ class DBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fold:
-            x = fd.leaky_relu_folded(self.conv0(fd.fold_w(x)))
+            # the folded views assume NCHW memory
+            x = fd.leaky_relu_folded(self.conv0(fd.fold_w(x.contiguous())))
             x = fd.leaky_relu_folded(self.conv1(x))
             return fd.blur_downsample_2x_folded(x, blur=self.blur)
         skip = self._down(self.skip(x)) if self.resnet else None
@@ -228,7 +240,10 @@ class DOutputBlock(nn.Module):
         self.score = EqualDense(features, 1, gain=1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = minibatch_stddev(x, self.mbstd_group_size)
+        # mbstd runs NCHW; its result goes back to x's layout (channels-
+        # last: the flatten below is then a view)
+        x = as_layout(minibatch_stddev(x, self.mbstd_group_size),
+                      is_channels_last(x))
         x = leaky_relu(self.conv(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # (h, w, c) order
         x = leaky_relu(self.dense(x))
@@ -259,6 +274,7 @@ class ProDiscriminator(nn.Module):
         lg = self.max_log2 if res_log2 is None else res_log2
         if not 2 <= lg <= self.max_log2:
             raise ValueError(f"res_log2 {lg} outside [2, {self.max_log2}]")
+        img = to_channels_last(img)
         x = leaky_relu(getattr(self, f"fromrgb{2 ** lg}")(img))
         if lg > 2:
             x = self._block(lg, x)

@@ -1,4 +1,4 @@
-"""StyleGAN2 generator (Karras et al. 2019), NCHW.
+"""StyleGAN2 generator (Karras et al. 2019), (N, C, H, W) activations.
 
 Port of ``ganlab_tpu/models/stylegan2.py`` with the same module and
 parameter names (``mapping.fc{i}``, ``synthesis.const``, ``conv4``,
@@ -21,6 +21,11 @@ so ``convert.from_flax`` carries a tree one to one.
 
 Explicit noise maps are (N, 1, H, W) in the order of :func:`noise_shapes`:
 one 4x4 map, then two per resolution; the toRGB layers take none.
+
+The synthesis runs channels-last from its constant to its image
+(``ops.layout.to_channels_last``): every op of its path keeps its
+input's layout, so cuDNN reads and writes the activations without a
+transpose.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ganlab_tpu_torch.models.layers import (
 )
 from ganlab_tpu_torch.models.stylegan import StyleGenerator
 from ganlab_tpu_torch.ops import leaky_relu, rounded, upsample_blur_2x
+from ganlab_tpu_torch.ops.layout import to_channels_last
 from ganlab_tpu_torch.ops.modulated import modulated_conv2d
 
 
@@ -141,7 +147,7 @@ class Synthesis2Network(nn.Module):
         def nz(i):
             return None if noises is None else noises[i]
 
-        x = self.const(ws.shape[0], ws.dtype)
+        x = to_channels_last(self.const(ws.shape[0], ws.dtype))
         x = self.conv4(x, ws[:, 0], nz(0), generator)
         rgb = self.torgb4(x, ws[:, 1])
         for i in range(lg - 2):

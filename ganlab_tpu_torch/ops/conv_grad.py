@@ -1,5 +1,6 @@
 """A stride-1 convolution whose gradients of every order are convolutions
-of the same three kinds (StyleGAN2-ADA's ``conv2d_gradfix``), NCHW / OIHW.
+of the same three kinds (StyleGAN2-ADA's ``conv2d_gradfix``), NCHW / OIHW
+shapes in NCHW or channels-last memory.
 
 For y = F(x, w), a stride-1, groups-1 conv with symmetric zero padding,
 the three passes and their gradients are::
@@ -27,12 +28,30 @@ no weight gradient.
 The rule is taken only where grad mode is on and an argument requires a
 gradient: under ``torch.no_grad()``, ``inference_mode`` and in an
 exported program the call is a plain convolution.
+
+Layout: each pass returns its activation's layout (``ops.layout``): fprop
+and wgrad x's, dgrad g's. cuDNN takes a conv channels-last where its input
+or its weight is, and dgrad's input is a zero-stride stand-in that carries
+no layout, so fprop and dgrad give the weight their activation's layout
+(a no-op for the weights that ``equalized_conv2d`` and
+``modulated_conv2d`` cast, which carry it already). A Function's backward
+takes the gradient of its result in the result's layout: one that
+arrives in the other (a gradient of a gradient through a plain op, such
+as mbstd's backward) is copied once, not transposed by each pass.
+``conv2d.calls`` counts the calls of :func:`conv2d` by their input's
+layout, when the Python runs (eagerly, or once at a CUDA-graph capture).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ganlab_tpu_torch.ops.layout import (
+    as_layout,
+    is_channels_last,
+    weight_like,
+)
 
 _CONV_BACKWARD = torch.ops.aten.convolution_backward.default
 _ONE = (1, 1)
@@ -42,10 +61,15 @@ def _dgrad_op(g: torch.Tensor, w: torch.Tensor, x_shape, padding
               ) -> torch.Tensor:
     """dx of ``F.conv2d(x, w, padding=padding)`` for the output gradient
     ``g``; ``x`` enters only by its shape (``torch.nn.grad.conv2d_input``'s
-    zero-stride stand-in)."""
+    zero-stride stand-in). A channels-last ``g`` takes the transposed conv,
+    the same cuDNN pass: aten's ``convolution_backward`` reads a layout
+    from its input argument, which the stand-in lacks, and would copy g to
+    NCHW and back."""
+    if is_channels_last(g):
+        return F.conv_transpose2d(g, weight_like(w, g), padding=padding)
     x = g.new_empty(1).expand(x_shape)
-    return _CONV_BACKWARD(g, x, w, None, _ONE, padding, _ONE, False, (0, 0),
-                          1, (True, False, False))[0]
+    return _CONV_BACKWARD(g, x, w.contiguous(), None, _ONE, padding, _ONE,
+                          False, (0, 0), 1, (True, False, False))[0]
 
 
 def _wgrad_op(g: torch.Tensor, x: torch.Tensor, w_shape, padding
@@ -61,13 +85,22 @@ def _recorded(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
 
 
+def _fprop_op(x: torch.Tensor, w: torch.Tensor, padding) -> torch.Tensor:
+    return F.conv2d(x, weight_like(w, x), padding=padding)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, padding: tuple[int, int]
            ) -> torch.Tensor:
     """``F.conv2d(x, w, padding=padding)`` (stride 1, groups 1) that
-    autograd differentiates through fprop, dgrad and wgrad alone."""
+    autograd differentiates through fprop, dgrad and wgrad alone; the
+    result in x's layout."""
+    conv2d.calls["channels_last" if is_channels_last(x) else "nchw"] += 1
     if _recorded(x, w):
         return _Fprop.apply(x, w, padding)
-    return F.conv2d(x, w, padding=padding)
+    return _fprop_op(x, w, padding)
+
+
+conv2d.calls = {"nchw": 0, "channels_last": 0}
 
 
 def _dgrad(g, w, x_shape, padding):
@@ -102,12 +135,14 @@ class _Fprop(torch.autograd.Function):
         need_x, need_w = ctx.needs_input_grad[:2]
         ctx.save_for_backward(x if need_w else None, w if need_x else None)
         ctx.x_shape, ctx.w_shape, ctx.padding = x.shape, w.shape, padding
-        return F.conv2d(x, w, padding=padding)
+        ctx.channels_last = is_channels_last(x)
+        return _fprop_op(x, w, padding)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         p = ctx.padding
+        g = as_layout(g, ctx.channels_last)
         dx = _dgrad(g, w, ctx.x_shape, p) if _needed(ctx, 0) else None
         dw = _wgrad(g, x, ctx.w_shape, p) if _needed(ctx, 1) else None
         return dx, dw, None
@@ -119,12 +154,14 @@ class _Dgrad(torch.autograd.Function):
         need_g, need_w = ctx.needs_input_grad[:2]
         ctx.save_for_backward(g if need_w else None, w if need_g else None)
         ctx.w_shape, ctx.padding = w.shape, padding
+        ctx.channels_last = is_channels_last(g)
         return _dgrad_op(g, w, x_shape, padding)
 
     @staticmethod
     def backward(ctx, h):
         g, w = ctx.saved_tensors
         p = ctx.padding
+        h = as_layout(h, ctx.channels_last)
         dg = conv2d(h, w, p) if _needed(ctx, 0) else None
         dw = _wgrad(g, h, ctx.w_shape, p) if _needed(ctx, 1) else None
         return dg, dw, None, None

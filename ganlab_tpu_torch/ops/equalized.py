@@ -5,6 +5,8 @@ N(0, 1/lr_mult)-initialized; the effective weight is
 ``w * he_constant(fan_in, gain) * lr_mult`` and the bias is scaled by
 ``lr_mult`` too (StyleGAN's mapping net runs at lr_mult 0.01). The scale
 is applied to the weight, in the weight's dtype, as the JAX op does.
+A conv's result takes its input's memory layout (``ops.layout``): the
+scaled weight is cast into it with the dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ganlab_tpu_torch.ops.conv_grad import conv2d
+from ganlab_tpu_torch.ops.layout import memory_format
 from ganlab_tpu_torch.ops.upfirdn import up2_conv2d, up2_conv2d_hybrid
 
 
@@ -41,7 +44,8 @@ def equalized_conv2d(x: torch.Tensor, w: torch.Tensor,
                      padding: str | int = "SAME",
                      gain: float = math.sqrt(2.0),
                      lr_mult: float = 1.0) -> torch.Tensor:
-    """Equalized-LR stride-1 2D convolution; x NCHW, w OIHW (odd k).
+    """Equalized-LR stride-1 2D convolution; x (N, C, H, W), NCHW or
+    channels-last, the result in x's layout; w OIHW (odd k).
 
     fan_in = in_ch * kh * kw; ``"SAME"`` pads k // 2 on each side, an int
     or an (h, w) pair pads as ``F.conv2d`` does. The conv's gradients of
@@ -55,7 +59,8 @@ def equalized_conv2d(x: torch.Tensor, w: torch.Tensor,
     elif isinstance(padding, int):
         padding = (padding, padding)
     scale = he_constant(kh * kw * in_ch, gain) * lr_mult
-    y = conv2d(x, (w * scale).to(x.dtype), tuple(padding))
+    ws = (w * scale).to(x.dtype, memory_format=memory_format(x))
+    y = conv2d(x, ws, tuple(padding))
     if b is not None:
         y = y + (b * lr_mult).to(y.dtype)[None, :, None, None]
     return y

@@ -62,8 +62,10 @@ def define_op(name: str, schema: str, *, cpu: Callable, cuda: Callable,
     return getattr(torch.ops.ganlab, name).default
 
 
-def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int) -> None:
-    """Raise unless ``x`` is what the kernel ``op`` takes."""
+def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int,
+                channels_last: bool = False) -> None:
+    """Raise unless ``x`` is what the kernel ``op`` takes: contiguous, or
+    (``channels_last``, a kernel with an NHWC path) channels-last."""
     if not x.is_cuda:
         raise ValueError(f"{op}: the kernel takes CUDA tensors, got a tensor "
                          f"on {x.device}")
@@ -72,8 +74,11 @@ def check_input(op: str, x: torch.Tensor, *, dtypes, ndim: int) -> None:
     if x.dim() != ndim:
         raise ValueError(f"{op}: expected a {ndim}-d tensor, got shape "
                          f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{op}: the kernel takes contiguous tensors")
+    if not (x.is_contiguous() or channels_last and x.is_contiguous(
+            memory_format=torch.channels_last)):
+        raise ValueError(f"{op}: the kernel takes contiguous tensors"
+                         + (" or channels-last ones" if channels_last
+                            else ""))
     if x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
             f"{op}: the launching wrapper does not record gradients; call "
@@ -114,11 +119,16 @@ from ganlab_tpu_torch.ops.kernels import (  # noqa: E402, F401
 )
 
 
+# the count attributes of a launching wrapper
+COUNTS = ("launches", "nhwc_launches")
+
+
 def launch_counters() -> tuple:
     """The launching wrappers, each with its ``launches`` count (the NCHW
-    pixelnorm adds to ``pixel_norm_cuda``'s too). A CUDA graph that holds
-    launches of these adds them to the counts at each replay
-    (``train/graphs.py``)."""
+    pixelnorm adds to ``pixel_norm_cuda``'s too; the resample wrappers
+    count their NHWC launches in ``nhwc_launches`` besides). A CUDA graph
+    that holds launches of these adds them to the counts at each replay
+    (``train/graphs.py``, every attribute of ``COUNTS`` a wrapper has)."""
     return (pixelnorm.pixel_norm_cuda, pixelnorm.pixel_norm_nchw_cuda,
             adain.adain_cuda, resample.upsample_blur_2x_cuda,
             resample.blur_downsample_2x_cuda, mbstd.minibatch_stddev_cuda)

@@ -1,5 +1,5 @@
 """Modulated convolution with weight demodulation (StyleGAN2, Karras et al.
-2019 sec. 2.2), NCHW / OIHW.
+2019 sec. 2.2), (N, C, H, W) in NCHW or channels-last memory / OIHW.
 
 Port of ``ganlab_tpu/ops/modulated.py`` in its activation-side form:
 modulate the input, run one shared-weight convolution, demodulate the
@@ -14,7 +14,9 @@ the squared styles. This is the computation the JAX package runs, not the
 per-sample grouped convolution of the official code. The convolution is
 ``F.conv2d`` (cuDNN on the card; the JAX package runs it outside any
 Pallas kernel too), differentiated to any order through fprop, dgrad and
-wgrad passes (``ops.conv_grad``).
+wgrad passes (``ops.conv_grad``). The result takes x's layout: the
+scaled weight is cast into it with the dtype, and the modulation and
+demodulation products keep it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from ganlab_tpu_torch.ops.conv_grad import conv2d
 from ganlab_tpu_torch.ops.equalized import he_constant
+from ganlab_tpu_torch.ops.layout import memory_format
 
 
 def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor,
@@ -40,7 +43,7 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, styles: torch.Tensor,
     and cast to the output's dtype, as in the JAX op."""
     _, ci, kh, kw = w.shape
     scale = he_constant(kh * kw * ci, gain) * lr_mult
-    ws = (w * scale).to(x.dtype)
+    ws = (w * scale).to(x.dtype, memory_format=memory_format(x))
     s = styles.to(x.dtype)
     y = conv2d(x * s[:, :, None, None], ws, (kh // 2, kw // 2))
     if demodulate:

@@ -27,6 +27,7 @@ from ganlab_tpu_torch.ops.kernels.resample import (
     BlurDownsample2x,
     UpsampleBlur2x,
 )
+from ganlab_tpu_torch.ops.layout import is_channels_last
 
 BLUR_TAPS = (1.0, 2.0, 1.0)
 
@@ -54,8 +55,13 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def downsample_avg_2x(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average-pool downsampling (ProGAN D path, D fade branch)."""
+    """2x2 average-pool downsampling (ProGAN D path, D fade branch), in
+    x's layout."""
     n, c, h, w = x.shape
+    if is_channels_last(x):
+        # the same sums over the (N, H, W, C) memory: channels-last out
+        return (x.permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
+                .sum(dim=(2, 4)) * 0.25).permute(0, 3, 1, 2)
     return x.reshape(n, c, h // 2, 2, w // 2, 2).sum(dim=(3, 5)) * 0.25
 
 

@@ -26,8 +26,8 @@ Each step writes its metrics into its own row of the graph's (n,) outputs,
 which a replay returns as copies. The host's counters (``state.step``,
 ``shown_imgs``) advance by n after a replay. Every kernel launch of ours
 that a capture records is counted once a replay on its wrapper's
-``launches`` (``ops/kernels/__init__.py::launch_counters``), not at the
-capture, which launches nothing.
+``launches`` (and ``nhwc_launches``: ``ops/kernels/__init__.py::COUNTS``,
+``launch_counters``), not at the capture, which launches nothing.
 
 One memory pool and one side stream serve all graphs of a phase: the
 eager warm-up that precedes each capture runs on that stream (cuBLAS's
@@ -44,7 +44,7 @@ from typing import Callable
 
 import torch
 
-from ganlab_tpu_torch.ops.kernels import launch_counters
+from ganlab_tpu_torch.ops.kernels import COUNTS, launch_counters
 from ganlab_tpu_torch.train.steps import run_steps
 from ganlab_tpu_torch.utils.spans import span
 
@@ -56,7 +56,13 @@ class _Graph:
     alphas: torch.Tensor | None         # (n,) compute dtype, in a fade
     betas: torch.Tensor | None          # (n,) float32, under ema_rampup
     metrics: dict                       # key -> (n,) float32, the output
-    launches: list                      # per wrapper: launches a replay
+    launches: list                      # per count: launches a replay
+
+
+def _counts() -> list:
+    """(wrapper, attribute) of every launch count."""
+    return [(w, a) for w in launch_counters() for a in COUNTS
+            if hasattr(w, a)]
 
 
 class OffRunGraphs:
@@ -110,8 +116,8 @@ class OffRunGraphs:
                     host = torch.tensor([v[i] for v in vals]).to(buf.dtype)
                     buf.copy_(host.pin_memory(), non_blocking=True)
         g.graph.replay()
-        for wrapper, count in zip(launch_counters(), g.launches):
-            wrapper.launches += count
+        for (wrapper, attr), count in zip(_counts(), g.launches):
+            setattr(wrapper, attr, getattr(wrapper, attr) + count)
         state.step += n
         state.shown_imgs += n * batch
         return state, {k: v.clone() for k, v in g.metrics.items()}
@@ -126,8 +132,8 @@ class OffRunGraphs:
             if fn.beta_moves else None
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
-        wrappers = launch_counters()
-        before = [w.launches for w in wrappers]
+        counts = _counts()
+        before = [getattr(w, a) for w, a in counts]
         counters = (state.step, state.shown_imgs)
         t0 = time.perf_counter()
         try:
@@ -141,9 +147,10 @@ class OffRunGraphs:
             # the capture ran the host's side of n steps and launched
             # nothing: the counters are where they were
             state.step, state.shown_imgs = counters
-            launches = [w.launches - b for w, b in zip(wrappers, before)]
-            for w, b in zip(wrappers, before):
-                w.launches = b
+            launches = [getattr(w, a) - b
+                        for (w, a), b in zip(counts, before)]
+            for (w, a), b in zip(counts, before):
+                setattr(w, a, b)
         self.capture_s[key] = time.perf_counter() - t0
         return _Graph(graph, real, alphas, betas, metrics, launches)
 

@@ -142,6 +142,7 @@ from ganlab_tpu_torch.ops.augment import (
     apply_augment,
     sample_params,
 )
+from ganlab_tpu_torch.ops.layout import memory_format
 from ganlab_tpu_torch.parallel import dist as pdist
 from ganlab_tpu_torch.train.schedule import PhaseSpec
 from ganlab_tpu_torch.train.state import (
@@ -393,12 +394,17 @@ def path_length_penalty(g, pl_mean: torch.Tensor, dr: PLDraws,
 
     The gradient with respect to the per-layer styles keeps its graph, and
     the styles stay attached to the mapping network, so the penalty's
-    gradient reaches every layer of G, the mapping layers too."""
+    gradient reaches every layer of G, the mapping layers too.
+
+    The projection enters as the image's output gradient, ``dr.y`` cast to
+    the image's dtype and memory layout: the values that the gradient of
+    ``sum(img.float() * dr.y)`` gives it, in the layout the synthesis's
+    backward runs in."""
     w = g.map_latents(dr.z)
     ws = w[:, None, :].repeat(1, num_style_layers(res_log2), 1)
     img = g.synthesize(ws, res_log2, alpha, dr.noises, fade=fade)
-    (gw,) = torch.autograd.grad((img.float() * dr.y).sum(), ws,
-                                create_graph=True)
+    y = dr.y.to(img.dtype, memory_format=memory_format(img))
+    (gw,) = torch.autograd.grad(img, ws, grad_outputs=y, create_graph=True)
     pl_len = gw.float().square().sum(dim=2).mean(dim=1).sqrt()
     len_mean = pl_len.mean().detach()
     if mean_over is not None:

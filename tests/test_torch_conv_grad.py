@@ -108,8 +108,9 @@ FPROP = (torch.ops.aten.convolution.default, torch.ops.aten.conv2d.default)
 
 class _Ops(TorchDispatchMode):
     """Counts conv passes: ``aten.convolution`` calls by weight shape (or
-    ``aten.conv2d`` ones, which inference mode does not decompose), and
-    ``convolution_backward`` calls by what they compute."""
+    ``aten.conv2d`` ones, which inference mode does not decompose), a
+    transposed one as a dgrad (``conv_grad``'s on channels-last memory),
+    and ``convolution_backward`` calls by what they compute."""
 
     def __init__(self):
         super().__init__()
@@ -119,7 +120,8 @@ class _Ops(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in FPROP:
             self.convs[tuple(args[1].shape)] += 1
-            self.passes["fprop"] += 1
+            transposed = func is FPROP[0] and args[6]
+            self.passes["dgrad" if transposed else "fprop"] += 1
         elif func is torch.ops.aten.convolution_backward.default:
             mask = args[-1]
             self.passes["dgrad"] += bool(mask[0])
